@@ -1,0 +1,102 @@
+"""Plain PyTorch versions of the port's CUDA kernels.
+
+They repeat each kernel's arithmetic in f32 on tensors of any device.
+The CPU runs them whenever a kernel wrapper is handed CPU tensors; the
+tests hold them against the JAX Pallas kernels (interpret mode), and
+``chip_smoke.py`` holds each CUDA kernel against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.attention import NEG_INF, naive_attention
+from repro_torch.models.cache import paged_slot_pages
+from repro_torch.models.common import softcap
+
+#: query rows and keys per block of the blockwise flash loop
+BLOCK = 64
+
+
+def flash_attention_fwd_ref(q, k, v, *, window=None, logit_softcap=0.0):
+    """Blockwise causal GQA flash forward (the plain version of
+    ``csrc/flash_fwd.cu``). q: (B,S,Hq,D); k/v: (B,T,Hkv,D); query row i
+    and key j sit at positions i and j. Visits only the key blocks between
+    the window's band start and the causal diagonal, re-masks p to 0 on
+    masked entries, and gives a fully-masked row O = 0 and lse = NEG_INF.
+    Returns (out (B,S,Hq,D) in q's dtype, lse (B,Hq,S) f32)."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    dscale = float(D) ** -0.5
+    dev = q.device
+    qf = q.float().reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]          # (B,Hkv,1,T,D)
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    out = torch.zeros((B, Hkv, G, S, D), dtype=torch.float32, device=dev)
+    lse = torch.full((B, Hkv, G, S), NEG_INF, dtype=torch.float32,
+                     device=dev)
+    for q0 in range(0, S, BLOCK):
+        q1 = min(S, q0 + BLOCK)
+        qb = qf[..., q0:q1, :]
+        qp = torch.arange(q0, q1, device=dev)
+        m = torch.full((B, Hkv, G, q1 - q0), NEG_INF, device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, Hkv, G, q1 - q0, D), device=dev)
+        k_lo = 0 if window is None else max(0, q0 - (window - 1))
+        k_lo = (k_lo // BLOCK) * BLOCK
+        for k0 in range(k_lo, min(T, q1), BLOCK):
+            k1 = min(T, k0 + BLOCK)
+            kp = torch.arange(k0, k1, device=dev)
+            s = qb @ kf[..., k0:k1, :].transpose(-1, -2) * dscale
+            s = softcap(s, logit_softcap)
+            mask = kp[None, :] <= qp[:, None]
+            if window is not None:
+                mask &= (qp[:, None] - kp[None, :]) < window
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(mask, torch.exp(s - m_new[..., None]),
+                            torch.zeros_like(s))
+            l = alpha * l + p.sum(dim=-1)
+            acc = alpha[..., None] * acc + p @ vf[..., k0:k1, :]
+            m = m_new
+        live = l > 0
+        safe = torch.where(live, l, torch.ones_like(l))
+        out[..., q0:q1, :] = torch.where(live[..., None], acc / safe[..., None],
+                                         torch.zeros_like(acc))
+        lse[..., q0:q1] = torch.where(live, m + torch.log(safe),
+                                      torch.full_like(m, NEG_INF))
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D).to(q.dtype)
+    return out, lse.reshape(B, Hq, S)
+
+
+def paged_attention_ref(q, k_pages, v_pages, tables, lens, *, window=None,
+                        logit_softcap=0.0):
+    """Gather-based decode attention (the plain version of
+    ``csrc/paged_attention.cu``). q: (B, Hq, D) — the ONE current token per
+    sequence (post-RoPE); k_pages/v_pages: (NP, ps, Hkv, D); tables: (B, TW)
+    physical page per ring slot; lens: (B,) tokens written (query position
+    = lens-1). Returns (B, Hq, D).
+
+    A slot with len 0 gives zeros, as the kernels (Pallas and CUDA) do;
+    the JAX gather reference gives the mean of the trash page's values
+    there, which no caller reads (the engine's lens are always >= 1).
+    """
+    B, Hq, D = q.shape
+    ps = k_pages.shape[1]
+    TW = tables.shape[1]
+    lens = lens.long()
+    tables = tables.long()
+    cur_page = torch.div(lens - 1, ps, rounding_mode="floor")   # -1 if empty
+    base = paged_slot_pages(TW, cur_page)                       # (B, TW)
+    k_pos = base[..., None] * ps + torch.arange(ps, device=q.device)
+    k_pos = torch.where(base[..., None] >= 0, k_pos, torch.full_like(k_pos, -1))
+    k_pos = torch.where(k_pos <= (lens - 1)[:, None, None], k_pos,
+                        torch.full_like(k_pos, -1))
+    Hkv = k_pages.shape[2]
+    k = k_pages[tables].reshape(B, TW * ps, Hkv, D)
+    v = v_pages[tables].reshape(B, TW * ps, Hkv, D)
+    q_pos = (lens - 1)[:, None]                                 # (B, 1)
+    out = naive_attention(q[:, None], k, v, q_pos, k_pos.reshape(B, TW * ps),
+                          window=window, logit_softcap=logit_softcap)[:, 0]
+    return torch.where((lens > 0)[:, None, None], out, torch.zeros_like(out))

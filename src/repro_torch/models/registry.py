@@ -1,0 +1,149 @@
+"""LM assembly: embeddings -> layer stack -> head, for the dense family.
+
+Counterpart of ``repro.models.registry``. Parameters are a nested dict
+with the JAX package's layout and leaf names (``embed`` (V, D), ``head``
+(D, V), ``stack``: one stacked dict per pattern spec, ``ln_f``), so the
+bridge moves them leaf for leaf. :class:`LM` is the ``nn.Module`` face of
+the model: it builds parameters on a device and runs the paged serving
+entry points against a parameter tree it is handed, so a server can
+hot-swap the tree between steps.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import apply_norm, init_norm, normal_init, \
+    softcap
+from repro_torch.models.types import ModelConfig
+
+
+def _dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None):
+    """Random parameters on ``device`` (the card unless "cpu"), drawn from
+    ``generator`` (which must live on that device)."""
+    tfm.check_family(cfg)
+    if cfg.n_meta_tokens:
+        raise NotImplementedError("meta-token prefixes are not ported yet")
+    dev = resolve_device(device)
+    dtype = _dtype(cfg)
+    D, V = cfg.d_model, cfg.vocab_size
+    return {
+        "embed": normal_init(generator, (V, D), dtype, fan_in=D, device=dev),
+        "head": normal_init(generator, (D, V), dtype, fan_in=D, device=dev),
+        "stack": tfm.init_stack(cfg, generator, dtype, dev),
+        "ln_f": init_norm(cfg, device=dev),
+    }
+
+
+def _embed_tokens(cfg, params, tokens):
+    return params["embed"][tokens.long()]
+
+
+def _prefix_len(cfg) -> int:
+    """Learned prefix tokens ahead of the prompt: none in the dense
+    family (meta tokens and vision prefixes come with their families;
+    ``init_lm`` refuses a config that has them)."""
+    return cfg.n_meta_tokens
+
+
+def _assemble_input(cfg, params, batch):
+    """Token embeddings. Returns (x, positions)."""
+    x = _embed_tokens(cfg, params, batch["tokens"])
+    return x, torch.arange(x.shape[1], device=x.device)
+
+
+def _head(cfg, params, x):
+    logits = (x @ params["head"]).float()
+    return softcap(logits, cfg.final_softcap)
+
+
+# ------------------------------------------------------------------
+# paged serving path
+# ------------------------------------------------------------------
+
+
+def lm_init_paged_cache(cfg: ModelConfig, max_batch: int, n_pages: int,
+                        page_size: int, dtype=None, device=None):
+    """Serving caches: one page pool per pattern spec."""
+    return tfm.init_stack_paged_cache(cfg, max_batch, n_pages, page_size,
+                                      dtype or _dtype(cfg),
+                                      resolve_device(device))
+
+
+@torch.no_grad()
+def lm_paged_decode_step(cfg: ModelConfig, params, caches, tokens, pos_b,
+                         tables, page_size: int):
+    """One fixed-shape continuous-batching token step.
+
+    tokens: (B,) int; pos_b: (B,) int32 per-sequence positions (tokens
+    already cached — inactive slots carry pos 0 and write the trash page);
+    tables: (B, TW) int32 block tables. The pools in ``caches`` are
+    written in place. Returns (logits (B, V) f32, caches).
+    """
+    x = _embed_tokens(cfg, params, tokens[:, None])          # (B, 1, D)
+    x = tfm.apply_stack_decode_paged(cfg, params["stack"], caches, x, pos_b,
+                                     tables, page_size)
+    x = apply_norm(cfg, params["ln_f"], x)[:, 0]
+    return _head(cfg, params, x), caches
+
+
+@torch.no_grad()
+def lm_paged_prefill_chunk(cfg: ModelConfig, params, caches, batch,
+                           n_valid: int, slot: int, tables, page_size: int):
+    """Prefill ONE batch slot's prompt chunk into its pages.
+
+    batch: single-sequence batch dict (tokens (1, S_pad)) padded to the
+    engine's static chunk length; n_valid: real token count; slot: batch-
+    slot index. Exact at any n_valid (pad K/V goes to the trash page,
+    causal masking hides pad queries). Returns (next-token logits (1, V)
+    f32, caches), the pools written in place.
+    """
+    x, _ = _assemble_input(cfg, params, batch)               # (1, S, D)
+    x = tfm.apply_stack_prefill_paged(cfg, params["stack"], caches, x,
+                                      n_valid, tables[slot], page_size)
+    x = apply_norm(cfg, params["ln_f"], x)
+    return _head(cfg, params, x[:, n_valid - 1]), caches
+
+
+class LM(nn.Module):
+    """The dense LM. Holds the config; parameters are a tree the caller
+    owns (``init`` makes one), so the serving engine can swap weights
+    between steps without touching the module."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        tfm.check_family(cfg)
+        self.cfg = cfg
+
+    def init(self, generator: torch.Generator, device=None):
+        return init_lm(self.cfg, generator, device)
+
+    def init_paged_cache(self, max_batch, n_pages, page_size, dtype=None,
+                         device=None):
+        return lm_init_paged_cache(self.cfg, max_batch, n_pages, page_size,
+                                   dtype, device)
+
+    def paged_decode_step(self, params, caches, tokens, pos_b, tables,
+                          page_size):
+        return lm_paged_decode_step(self.cfg, params, caches, tokens, pos_b,
+                                    tables, page_size)
+
+    def paged_prefill_chunk(self, params, caches, batch, n_valid, slot,
+                            tables, page_size):
+        return lm_paged_prefill_chunk(self.cfg, params, caches, batch,
+                                      n_valid, slot, tables, page_size)
+
+    def forward(self, params, caches, tokens, pos_b, tables, page_size):
+        """The serving step: :meth:`paged_decode_step`."""
+        return self.paged_decode_step(params, caches, tokens, pos_b, tables,
+                                      page_size)
+
+
+def build_model(cfg: ModelConfig) -> LM:
+    return LM(cfg)

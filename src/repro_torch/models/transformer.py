@@ -1,0 +1,288 @@
+"""Decoder stack of the dense LM: init and the paged serving path.
+
+Counterpart of ``repro.models.transformer``. A model is a *pattern* of
+sub-layer specs (a "super-block") repeated ``n_layers / len(pattern)``
+times; each spec's parameters are stacked along a leading layer axis
+(``wq`` (L, D, H, P) and so on), exactly as the JAX package lays them
+out, so a bridged parameter tree is a plain copy. Where JAX scans over
+the stacked layers, the port runs a Python loop:
+
+  dense   : [attn+mlp]                      (window per spec)
+  gemma2  : [local attn, global attn] x 23
+
+Only attention sub-layers of the dense family are ported; the MoE,
+recurrent (mLSTM/sLSTM) and hybrid kinds raise ``NotImplementedError``.
+
+The paged path updates the page pools IN PLACE (``index_put_``) where
+the JAX package returns new pools through donated buffers.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models.attention import run_attention
+from repro_torch.models.cache import (TRASH_PAGE, init_paged_pool,
+                                      paged_phys_pages)
+from repro_torch.models.common import (activation, apply_norm, apply_rope,
+                                       init_norm, normal_init)
+from repro_torch.models.types import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    kind: str                    # attn (mlstm | slstm | hybrid: not ported)
+    window: int | None = None    # sliding window (None = full causal)
+    use_moe: bool = False
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (the port covers the "
+            f"dense family; see ROADMAP.md Queue A)")
+
+
+def block_pattern(cfg: ModelConfig) -> list[LayerSpec]:
+    check_family(cfg)
+    if cfg.global_every:             # gemma2: local / global alternation
+        return [LayerSpec("attn", window=cfg.sliding_window),
+                LayerSpec("attn", window=None)]
+    return [LayerSpec("attn", window=cfg.sliding_window)]
+
+
+# ------------------------------------------------------------------
+# per-sub-layer init/apply
+# ------------------------------------------------------------------
+
+
+def _init_attn(cfg, n, gen, dtype, device):
+    D = cfg.d_model
+    H, K, P = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    return {
+        "wq": normal_init(gen, (n, D, H, P), dtype, fan_in=D, device=device),
+        "wk": normal_init(gen, (n, D, K, P), dtype, fan_in=D, device=device),
+        "wv": normal_init(gen, (n, D, K, P), dtype, fan_in=D, device=device),
+        "wo": normal_init(gen, (n, H, P, D), dtype, fan_in=H * P,
+                          device=device),
+    }
+
+
+def _init_mlp(cfg, n, gen, dtype, device):
+    D, F = cfg.d_model, cfg.d_ff
+    return {
+        "w_gate": normal_init(gen, (n, D, F), dtype, fan_in=D, device=device),
+        "w_up": normal_init(gen, (n, D, F), dtype, fan_in=D, device=device),
+        "w_down": normal_init(gen, (n, F, D), dtype, fan_in=F, device=device),
+    }
+
+
+def _stacked_norm(cfg, n, device):
+    return {k: v.expand(n, -1).clone()
+            for k, v in init_norm(cfg, device=device).items()}
+
+
+def _init_layer(cfg: ModelConfig, spec: LayerSpec, n: int, gen, dtype,
+                device):
+    """``n`` stacked copies of one sub-layer's parameters."""
+    if spec.kind != "attn" or spec.use_moe:
+        raise NotImplementedError(
+            f"layer kind {spec.kind!r} (use_moe={spec.use_moe}) is not "
+            f"ported yet")
+    params = {"ln1": _stacked_norm(cfg, n, device),
+              "ln2": _stacked_norm(cfg, n, device)}
+    if cfg.name.startswith("gemma2"):
+        params["ln1_post"] = _stacked_norm(cfg, n, device)
+        params["ln2_post"] = _stacked_norm(cfg, n, device)
+    params["attn"] = _init_attn(cfg, n, gen, dtype, device)
+    params["mlp"] = _init_mlp(cfg, n, gen, dtype, device)
+    return params
+
+
+def _apply_mlp(cfg, p, x):
+    act = activation(cfg.act)
+    h = (act((x @ p["w_gate"]).float()) * (x @ p["w_up"]).float()).to(x.dtype)
+    return h @ p["w_down"]
+
+
+def _proj_heads(x, w):
+    """x (B,S,D) @ w (D,H,P) -> (B,S,H,P)."""
+    D, H, P = w.shape
+    return (x @ w.reshape(D, H * P)).reshape(*x.shape[:-1], H, P)
+
+
+def _attn_call(cfg, p_attn, x, q_pos, k, v, k_pos, window):
+    """Project q from x, run attention against provided k/v.
+
+    ``q_pos``: (S,) and ``k_pos``: (T,) global positions (shared over batch).
+    """
+    q = apply_rope(_proj_heads(x, p_attn["wq"]), q_pos, cfg.rope_theta)
+    out = run_attention(cfg.attn_impl, q, k, v, q_pos, k_pos, window=window,
+                        logit_softcap=cfg.logit_softcap)
+    H, P, D = p_attn["wo"].shape
+    return out.reshape(*out.shape[:-2], H * P) @ p_attn["wo"].reshape(H * P, D)
+
+
+def _project_kv(cfg, p_attn, x, k_pos):
+    """K/V projections with RoPE on K. ``k_pos``: (S,) or (B, S)."""
+    k = _proj_heads(x, p_attn["wk"])
+    v = _proj_heads(x, p_attn["wv"])
+    return apply_rope(k, k_pos, cfg.rope_theta), v
+
+
+# ------------------------------------------------------------------
+# the stack
+# ------------------------------------------------------------------
+
+
+def init_stack(cfg: ModelConfig, gen: torch.Generator, dtype, device):
+    pattern = block_pattern(cfg)
+    n_blocks = cfg.n_layers // len(pattern)
+    if n_blocks * len(pattern) != cfg.n_layers:
+        raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of the "
+                         f"pattern length {len(pattern)}")
+    return [_init_layer(cfg, spec, n_blocks, gen, dtype, device)
+            for spec in pattern]
+
+
+def _layer(tree, n):
+    """Layer ``n``'s view of a stacked parameter (or cache) tree."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, n) for k, v in tree.items()}
+    return tree[n]
+
+
+def iter_layers(cfg: ModelConfig, stack_params, caches):
+    """(spec, layer params, layer pages) in execution order: for each
+    super-block, each spec of the pattern."""
+    pattern = block_pattern(cfg)
+    n_blocks = cfg.n_layers // len(pattern)
+    for n in range(n_blocks):
+        for spec, p, c in zip(pattern, stack_params, caches):
+            yield spec, _layer(p, n), _layer(c["pages"], n)
+
+
+# ------------------------------------------------------------------
+# paged decode path (serving tier)
+# ------------------------------------------------------------------
+#
+# K/V lives in a shared page pool addressed through per-sequence block
+# tables, positions are PER-SEQUENCE (pos_b: (B,)) so ragged continuous
+# batches decode in one fixed-shape step, and attention runs the paged
+# kernel (repro_torch.kernels.paged_attention).
+
+
+def _paged_impl(cfg) -> str:
+    return "kernel" if cfg.attn_impl == "flash_pallas" else "ref"
+
+
+def _paged_attn(cfg, q, pages, tables, lens, window):
+    from repro_torch.kernels.paged_attention import paged_attention
+    return paged_attention(q, pages["k"], pages["v"], tables, lens,
+                           window=window, logit_softcap=cfg.logit_softcap,
+                           impl=_paged_impl(cfg))
+
+
+def init_stack_paged_cache(cfg: ModelConfig, max_batch, n_pages, page_size,
+                           dtype, device):
+    """Per-spec serving caches: attention layers get a page pool (the
+    physical page index space is shared across specs — one block-table
+    entry is valid in every layer's pool)."""
+    pattern = block_pattern(cfg)
+    n_blocks = cfg.n_layers // len(pattern)
+    return [{"pages": init_paged_pool(n_blocks, n_pages, page_size,
+                                      cfg.n_kv_heads, cfg.resolved_head_dim,
+                                      dtype, device=device)}
+            for _ in pattern]
+
+
+def reset_paged_states(caches, reset_mask):
+    """Zero the recurrent per-slot states where ``reset_mask`` is set. The
+    dense stacks the port covers have none, and page pools need no reset
+    (stale pages are hidden by the lens masking), so this returns the
+    caches unchanged; it stays so the step reads like the reference's."""
+    return caches
+
+
+def apply_layer_decode_paged(cfg, spec: LayerSpec, p, pages, x, pos_b,
+                             tables, page_size: int):
+    """One-token layer step with per-sequence positions.
+
+    x: (B, 1, D); pos_b: (B,) tokens already cached per sequence;
+    tables: (B, TW) int32 physical page per ring slot; ``pages``: this
+    layer's {"k","v"} pools (NP, ps, Hkv, D), written in place.
+    """
+    h = apply_norm(cfg, p["ln1"], x)
+    q_pos = pos_b[:, None]                        # (B, 1) per-sequence
+    k_new, v_new = _project_kv(cfg, p["attn"], h, q_pos)
+    phys, slot = paged_phys_pages(tables, pos_b, page_size)
+    idx = (phys.long(), slot.long())
+    pages["k"].index_put_(idx, k_new[:, 0])       # in place (JAX: donated)
+    pages["v"].index_put_(idx, v_new[:, 0])
+    q = apply_rope(_proj_heads(h, p["attn"]["wq"]), q_pos, cfg.rope_theta)
+    out = _paged_attn(cfg, q[:, 0], pages, tables, pos_b + 1, spec.window)
+    H, P, D = p["attn"]["wo"].shape
+    attn_out = (out.reshape(-1, H * P) @ p["attn"]["wo"].reshape(H * P, D)
+                )[:, None]
+    if "ln1_post" in p:
+        attn_out = apply_norm(cfg, p["ln1_post"], attn_out)
+    x = x + attn_out
+    mlp_out = _apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+    if "ln2_post" in p:
+        mlp_out = apply_norm(cfg, p["ln2_post"], mlp_out)
+    return x + mlp_out
+
+
+def apply_stack_decode_paged(cfg: ModelConfig, stack_params, caches, x,
+                             pos_b, tables, page_size: int):
+    """One fixed-shape continuous-batching step through all layers; the
+    pools in ``caches`` are updated in place. Returns y (B, 1, D)."""
+    for spec, p, pages in iter_layers(cfg, stack_params, caches):
+        x = apply_layer_decode_paged(cfg, spec, p, pages, x, pos_b, tables,
+                                     page_size)
+    return x
+
+
+def apply_layer_prefill_paged(cfg, spec: LayerSpec, p, pages, x, n_valid: int,
+                              table_row, page_size: int):
+    """Chunked prefill of ONE batch slot, writing K/V into its pages.
+
+    x: (1, S, D) — the slot's prompt padded to the static chunk length S;
+    n_valid: real token count (the pad tail's K/V goes to the trash page;
+    causal masking makes pad queries invisible to real rows).
+    """
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
+    h = apply_norm(cfg, p["ln1"], x)
+    k, v = _project_kv(cfg, p["attn"], h, positions)
+    TW = table_row.shape[0]
+    tok_page = table_row[torch.remainder(
+        torch.div(positions, page_size, rounding_mode="floor"), TW)].long()
+    # only the last TW*ps positions can survive the ring; dropping older
+    # writes also keeps the scatter free of duplicate (page, slot) pairs
+    valid = (positions < n_valid) & (positions >= n_valid - TW * page_size)
+    phys = torch.where(valid, tok_page, torch.full_like(tok_page, TRASH_PAGE))
+    pslot = torch.where(valid, torch.remainder(positions, page_size),
+                        torch.zeros_like(positions))
+    pages["k"].index_put_((phys, pslot), k[0])    # in place (JAX: donated)
+    pages["v"].index_put_((phys, pslot), v[0])
+    attn_out = _attn_call(cfg, p["attn"], h, positions, k, v, positions,
+                          spec.window)
+    if "ln1_post" in p:
+        attn_out = apply_norm(cfg, p["ln1_post"], attn_out)
+    x = x + attn_out
+    mlp_out = _apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+    if "ln2_post" in p:
+        mlp_out = apply_norm(cfg, p["ln2_post"], mlp_out)
+    return x + mlp_out
+
+
+def apply_stack_prefill_paged(cfg: ModelConfig, stack_params, caches, x,
+                              n_valid: int, table_row, page_size: int):
+    """Chunk-prefill one slot through all layers (pools written in place).
+    Returns y (1, S, D)."""
+    for spec, p, pages in iter_layers(cfg, stack_params, caches):
+        x = apply_layer_prefill_paged(cfg, spec, p, pages, x, n_valid,
+                                      table_row, page_size)
+    return x

@@ -1,0 +1,191 @@
+"""Paged continuous-batching serving engine.
+
+Counterpart of ``repro.serve.engine.PagedDecodeEngine``: a page-pool KV
+cache with per-sequence block tables, ONE decode step over fixed
+(max_batch, pool) shapes so admissions and evictions never change a
+shape, sampling on the device, and an on-device output buffer (no
+per-token host syncs). Weight hot-swap is a reference swap
+(``set_params``) between steps.
+
+PyTorch runs eagerly, so there is no jit and no trace count; the step's
+control arrays go to the device once per step (as ``jnp.asarray`` does
+in the reference), the page pools are written in place, and tokens and
+the output buffer stay on the device until a request finishes. The
+whole-batch ``DecodeEngine`` and the recurrent prefix fill are not
+ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.models.cache import paged_table_width
+from repro_torch.models.registry import (LM, _prefix_len,
+                                         lm_paged_decode_step,
+                                         lm_paged_prefill_chunk)
+from repro_torch.serve.pages import PageManager
+
+
+def _sample(logits, generator, temperature: float):
+    """Argmax at temperature 0; otherwise a categorical draw from the
+    engine's device generator (not JAX's bits)."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[..., 0]
+
+
+def model_table_width(cfg, max_seq_len: int, page_size: int) -> int:
+    """ONE table width per model: the max over the pattern's attention
+    specs (a global layer forces full history; pure-windowed patterns get
+    the small ring)."""
+    widths = [paged_table_width(max_seq_len, s.window, page_size)
+              for s in tfm.block_pattern(cfg) if s.kind in ("attn", "hybrid")]
+    return max(widths) if widths else 1
+
+
+def needs_exact_prefill(cfg) -> bool:
+    """Recurrent stacks cannot absorb pad tokens in a chunked prefill;
+    none of the port's (dense) stacks is recurrent."""
+    return any(s.kind in ("hybrid", "mlstm", "slstm")
+               for s in tfm.block_pattern(cfg))
+
+
+@dataclasses.dataclass
+class PagedDecodeEngine:
+    """Fixed-shape continuous-batching engine over a paged KV pool.
+
+    ``max_seq_len`` bounds TOTAL tokens per sequence (prompt + generated);
+    ``max_new`` bounds generated tokens (sizes the on-device output
+    buffer); ``prefill_chunk`` is the static padded prompt length of the
+    chunk prefill. ``device`` defaults to the card; without one, building
+    the engine raises unless ``device="cpu"`` is passed.
+    """
+    lm: LM
+    params: object
+    max_batch: int
+    max_seq_len: int
+    max_new: int
+    page_size: int = 4
+    n_pages: int | None = None
+    prefill_chunk: int = 32
+    temperature: float = 0.0
+    seed: int = 0
+    device: str | torch.device | None = None
+
+    def __post_init__(self):
+        cfg = self.lm.cfg
+        self.device = resolve_device(self.device)
+        if needs_exact_prefill(cfg):
+            raise NotImplementedError("recurrent stacks (prefix fill + "
+                                      "step prefill) are not ported yet")
+        self.table_width = model_table_width(cfg, self.max_seq_len,
+                                             self.page_size)
+        if self.n_pages is None:
+            self.n_pages = 1 + self.max_batch * self.table_width
+        self.needs_exact_prefill = False
+        self.prefix_len = _prefix_len(cfg)
+        self.reset_state(self.seed)
+
+    # ------------------------------------------------------------ state
+
+    def reset_state(self, seed: int = 0):
+        """Fresh caches / output buffer / generator / page manager."""
+        dev = self.device
+        caches = self.lm.init_paged_cache(self.max_batch, self.n_pages,
+                                          self.page_size, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        self.state = {
+            "caches": caches,
+            "last": torch.zeros((self.max_batch,), dtype=torch.int32,
+                                device=dev),
+            # last column = scratch for non-emitting steps
+            "out": torch.zeros((self.max_batch, self.max_new + 1),
+                               dtype=torch.int32, device=dev),
+            "generator": gen,
+            "logits": None,      # the latest step's logits, for inspection
+        }
+        self.pages = PageManager(self.n_pages, self.page_size,
+                                 self.table_width, self.max_batch)
+
+    @property
+    def scratch_idx(self) -> int:
+        """Output column absorbing non-emitting steps (prompt feed)."""
+        return self.max_new
+
+    # ------------------------------------------------------- host driver
+
+    def set_params(self, new_params):
+        """Weight hot-swap: the next :meth:`step` runs the new weights,
+        in-flight state untouched."""
+        self.params = new_params
+
+    def _to_device(self, arr, dtype):
+        return torch.as_tensor(np.asarray(arr)).to(self.device, dtype)
+
+    def step(self, ctrl: dict):
+        """One fixed-shape decode step. ``ctrl`` holds host-built arrays:
+        tables (B,TW) i32, pos (B,) i32, use_prompt (B,) bool,
+        prompt_tok (B,) i32, out_idx (B,) i32, reset (B,) bool."""
+        s = self.state
+        c = {k: self._to_device(v, torch.bool if k in ("use_prompt", "reset")
+                                else torch.int32) for k, v in ctrl.items()}
+        caches = tfm.reset_paged_states(s["caches"], c["reset"])
+        tok_in = torch.where(c["use_prompt"], c["prompt_tok"], s["last"])
+        logits, caches = lm_paged_decode_step(
+            self.lm.cfg, self.params, caches, tok_in, c["pos"], c["tables"],
+            self.page_size)
+        sampled = _sample(logits, s["generator"],
+                          self.temperature).to(torch.int32)
+        out = s["out"]
+        out[torch.arange(out.shape[0], device=self.device),
+            c["out_idx"].long()] = sampled
+        s.update(caches=caches, last=sampled, logits=logits)
+
+    def prefill_into(self, slot: int, batch1: dict, n_valid: int):
+        """Chunk-prefill one slot: pads the prompt to ``prefill_chunk``,
+        writes its pages, samples the first output token into
+        ``out[slot, 0]``. One dispatch per admission."""
+        tokens = np.asarray(batch1["tokens"])
+        S = tokens.shape[1]
+        if S > self.prefill_chunk:
+            raise ValueError(f"prompt of {S} tokens exceeds prefill_chunk "
+                             f"{self.prefill_chunk}")
+        tokens = np.pad(tokens, [(0, 0), (0, self.prefill_chunk - S)])
+        s = self.state
+        logits, caches = lm_paged_prefill_chunk(
+            self.lm.cfg, self.params, s["caches"],
+            {"tokens": self._to_device(tokens, torch.int64)}, n_valid, slot,
+            self._to_device(self.pages.tables, torch.int32), self.page_size)
+        sampled = _sample(logits, s["generator"],
+                          self.temperature).to(torch.int32)[0]
+        s["last"][slot] = sampled
+        s["out"][slot, 0] = sampled
+        s.update(caches=caches, logits=logits)
+
+    def read_out(self, slot: int, n: int) -> np.ndarray:
+        """Fetch one finished request's tokens — a single device->host
+        copy per REQUEST, never per token."""
+        return self.state["out"][slot, :n].to("cpu", copy=True).numpy()
+
+    def apply_page_perm(self, perm: np.ndarray):
+        """Re-gather the device pools after ``PageManager.defrag``:
+        ``perm[old] = new`` => ``new_pool[new] = old_pool[old]``."""
+        gather = torch.as_tensor(np.argsort(perm), device=self.device)
+        for c in self.state["caches"]:
+            c["pages"] = {k: v[:, gather] for k, v in c["pages"].items()}
+
+    def generate(self, batch, n_new_tokens: int, *, seed: int = 0):
+        """Whole-batch convenience wrapper: admits all B sequences through
+        the continuous scheduler at once. Returns (B, n_new) int32."""
+        from repro_torch.serve.scheduler import ContinuousScheduler, Request
+        tokens = np.asarray(batch["tokens"])
+        reqs = [Request(rid=b, tokens=tokens[b], n_new=n_new_tokens)
+                for b in range(tokens.shape[0])]
+        outs = ContinuousScheduler(self).run(reqs, seed=seed)
+        return torch.as_tensor(np.stack([outs[b] for b in range(len(reqs))]))

@@ -1,0 +1,61 @@
+"""The port stands alone: nothing under src/repro_torch/ (nor
+chip_smoke.py) imports JAX or the JAX package, importing the serving
+engine leaves JAX unloaded, and an entry point asked for the card where
+there is none raises instead of running on the CPU."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.models.registry import build_model
+from repro_torch.serve.engine import PagedDecodeEngine
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = _port_files()
+    assert len(files) > 15
+    bad = [(os.path.relpath(f, ROOT), m) for f in files
+           for m in _imported_roots(f) if m in FORBIDDEN]
+    assert bad == []
+
+
+def test_engine_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch.serve.engine, repro_torch.launch.serve; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"
+
+
+def test_engine_without_device_needs_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    cfg = get_smoke_config("granite-3-2b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedDecodeEngine(lm=build_model(cfg), params=None, max_batch=1,
+                          max_seq_len=8, max_new=2)
