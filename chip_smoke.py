@@ -10,8 +10,11 @@ raising on any failure:
 2. build     — nvcc builds every CUDA source for sm_90a; ptxas registers,
                shared memory and spills per kernel.
 3. kernels   — each CUDA kernel against its plain PyTorch version on the
-               card, at the serving shapes and edge cases, with the JAX
-               reference tests' tolerances.
+               card, at the main paths' shapes and edge cases: flash
+               forward and paged decode with the JAX reference tests'
+               tolerances, the fused HWA sync at 0 ULP (K 1-4, I 1 and 3,
+               the training run's packed size), the flash backward sweeps
+               on the gradient matrix of tests/test_attention_ops.py.
 4. serve     — granite-3-2b at full width and depth (bf16, random weights
                from a seed) serves 12 requests through PagedDecodeEngine
                with 8 slots; the kernels' launch counts must equal
@@ -20,16 +23,27 @@ raising on any failure:
                steps: device busy and idle share, top kernels by time.
 5. reference — the same model cut to 2 layers: logits of the kernel path
                against the plain path on one prefill and one decode step.
-6. yardstick — each kernel timed at the serving shapes (CUDA-graph replay
-               between CUDA events: device time, cold L2), beside its plain
-               version, a library call where one exists, and the bound
-               from its bytes and FLOPs.
+7. train     — HWA training of full-width granite-3-2b cut to 8 layers
+               through Trainer.run (K=2, H=2, I=3, fused sync, SGD,
+               4 x 512 tokens per replica, 10 steps, 5 syncs, W̿ evaluated
+               at every sync and on 8 training sequences): finite,
+               falling loss, a W̿ that changes at every sync and whose
+               loss on the training sequences falls, exact launch counts;
+               step time, tokens/s, mfu, sync time, peak memory.
+   trace     — torch.profiler over 2 inner steps and 1 sync.
+   reference — the model cut to 2 layers: loss, grads and W̿ after one
+               step and one sync, kernel path against plain path.
+6. yardstick — each kernel timed at its main path's shapes (CUDA-graph
+               replay between CUDA events: device time, cold L2), beside
+               its plain version, a library call where one exists, and
+               the bound from its bytes and FLOPs.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -44,18 +58,28 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.common.packing import ALIGN  # noqa: E402
+from repro_torch.common.pytree import (tree_flatten, tree_leaves,  # noqa: E402
+                                       tree_unflatten)
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.hwa import HWAConfig, hwa_init  # noqa: E402
+from repro_torch.data import DataPipeline, make_markov_lm_dataset  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
-from repro_torch.kernels.ref import (flash_attention_fwd_ref,  # noqa: E402
-                                     paged_attention_ref)
+from repro_torch.kernels import wa_update as wa  # noqa: E402
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,  # noqa: E402
+                                     flash_attention_fwd_ref,
+                                     paged_attention_ref, wa_sync_fused_ref)
 from repro_torch.models.cache import TRASH_PAGE  # noqa: E402
 from repro_torch.models.registry import (build_model,  # noqa: E402
                                          lm_paged_decode_step,
                                          lm_paged_prefill_chunk)
 from repro_torch.serve.engine import PagedDecodeEngine  # noqa: E402
 from repro_torch.serve.scheduler import ContinuousScheduler, Request  # noqa: E402
+from repro_torch.train.trainer import TrainConfig, Trainer, lm_task  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores,
 # f32 outside the tensor cores, HBM3 bandwidth.
@@ -64,8 +88,13 @@ PEAK_BYTES = 3.35e12
 
 FLASH_SRC = "src/repro_torch/csrc/flash_fwd.cu"
 PAGED_SRC = "src/repro_torch/csrc/paged_attention.cu"
+SYNC_SRC = "src/repro_torch/csrc/wa_update.cu"
+BWD_SRC = "src/repro_torch/csrc/flash_bwd.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention.py:68"
 PAGED_TPU = "src/repro/kernels/paged_attention.py:71"
+SYNC_TPU = "src/repro/kernels/wa_update.py:128"
+DQ_TPU = "src/repro/kernels/flash_attention_bwd.py:67"
+DKV_TPU = "src/repro/kernels/flash_attention_bwd.py:102"
 
 # tolerances of the JAX reference's own tests: flash 3e-2 bf16 / 2e-5 f32
 # (tests/test_attention_ops.py:89-92), paged 2e-2 bf16 / 2e-5 f32
@@ -87,6 +116,18 @@ def _close(got, want, tol):
     err = (got - want).abs()
     ok = bool((err <= tol + tol * want.abs()).all())
     return float(err.max()) if err.numel() else 0.0, ok
+
+
+def _reset_counts():
+    """Zero every kernel wrapper's launch count (before a main path)."""
+    fa.LAUNCHES = pa.LAUNCHES = wa.LAUNCHES = 0
+    fab.DQ_LAUNCHES = fab.DKV_LAUNCHES = 0
+
+
+def _counts():
+    return {"flash_fwd": fa.LAUNCHES, "paged_attention": pa.LAUNCHES,
+            "wa_sync_fused": wa.LAUNCHES, "flash_bwd_dq": fab.DQ_LAUNCHES,
+            "flash_bwd_dkv": fab.DKV_LAUNCHES}
 
 
 # ------------------------------------------------------------ 1. device
@@ -212,11 +253,139 @@ def _paged_case(device, *, lens, Hq, Hkv, D, ps, TW, dtype, window=None,
             "max_abs_err": err, "tol": tol, "pass": ok}
 
 
+def _ulps(got, want):
+    """Largest distance in units in the last place between two f32
+    tensors of equal shape (0 = bit-identical). Only the elements whose
+    bits differ are widened, so a multi-GB buffer needs no copy."""
+    a = got.reshape(-1).view(torch.int32)
+    b = want.reshape(-1).view(torch.int32)
+    where = (a != b).nonzero()[:, 0]
+    if where.numel() == 0:
+        return 0
+    a, b = a[where].long(), b[where].long()
+    # sign-magnitude bits onto a line where adjacent floats differ by one
+    a = torch.where(a < 0, -(a & 0x7FFFFFFF) - 1, a)
+    b = torch.where(b < 0, -(b & 0x7FFFFFFF) - 1, b)
+    return int((a - b).abs().max())
+
+
+def _sync_case(device, *, K, I, full, P, seed=0):
+    """The fused sync kernel against its plain version on the same inputs:
+    ring, total and avg must agree to 0 ULP, and the kernel may touch no
+    ring row but ``idx``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    stacked = torch.randn((K, P), generator=gen, device=device)
+    stacked[:, :8] = -0.0                  # signed zeros: XLA's sum order
+    ring = torch.randn((I, P), generator=gen, device=device)
+    total = torch.randn((P,), generator=gen, device=device)
+    idx = I - 1
+    scal = (torch.tensor(idx, dtype=torch.int32, device=device),
+            torch.tensor(full, dtype=torch.float32, device=device),
+            torch.tensor(1.0 / min(I, 2), dtype=torch.float32,
+                         device=device))
+    ring_p, total_p = ring.clone(), total.clone()
+    _, _, avg_p = wa_sync_fused_ref(stacked, ring_p, total_p, *scal)
+    ring_k, total_k = ring, total             # the kernel writes in place
+    _, _, avg_k = wa.wa_sync_fused(stacked, ring_k, total_k, *scal)
+    _sync(device)
+    pairs = ((ring_k, ring_p), (total_k, total_p), (avg_k, avg_p))
+    ulp = max(_ulps(x, y) for x, y in pairs)
+    err = 0.0 if ulp == 0 else max(float((x - y).abs().max())
+                                   for x, y in pairs)
+    return {"shape": f"K{K} I{I} P{P} full{full}", "max_abs_err": err,
+            "max_ulp": ulp, "tol": "0 ULP", "pass": ulp == 0}
+
+
+def _bwd_case(device, *, B, S, Hq, Hkv, D, dtype, T=None, window=None,
+              cap=0.0, seed=0, through_ops=False):
+    """dq/dk/dv of the CUDA backward against the plain backward.
+
+    Direct (default): the plain backward gets the forward kernel's own
+    (O, lse), so the two sweeps alone are compared; a fully-masked row
+    must get dq exactly 0. ``through_ops``: autograd through the port's
+    differentiable ``kernels.ops.flash_attention`` (forward kernel, two
+    backward sweeps, head_dim padding) against the plain forward and
+    backward end to end, as tests/test_attention_ops.py holds the
+    reference's grads to naive autodiff."""
+    T = T or S
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = _randn(gen, (B, S, Hq, D), dtype, device)
+    k = _randn(gen, (B, T, Hkv, D), dtype, device)
+    v = _randn(gen, (B, T, Hkv, D), dtype, device)
+    dout = _randn(gen, (B, S, Hq, D), dtype, device)
+    opts = dict(window=window, logit_softcap=cap)
+    if through_ops:
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = kops.flash_attention(*leaves, **opts)
+        got = torch.autograd.grad(out, leaves, dout)
+        o_r, lse_r = flash_attention_fwd_ref(q, k, v, **opts)
+        want = flash_attention_bwd_ref(q, k, v, o_r, lse_r, dout, **opts)
+    else:
+        out, lse = fa.flash_attention_fwd(q, k, v, **opts)
+        got = fab.flash_attention_bwd(q, k, v, out, lse, dout, **opts)
+        want = flash_attention_bwd_ref(q, k, v, out, lse, dout, **opts)
+    _sync(device)
+    tol = FLASH_TOL[dtype]
+    errs, ok = [], all(bool(torch.isfinite(g).all()) for g in got)
+    for g, w in zip(got, want):
+        e, good = _close(g, w, tol)
+        errs.append(e)
+        ok = ok and good
+    dead = torch.arange(S, device=device) - (T - 1) >= (window or 10**9)
+    if dead.any():
+        ok = ok and not bool(got[0][:, dead].any())
+    return {"shape": f"B{B} S{S} T{T} Hq{Hq} Hkv{Hkv} D{D} "
+                     f"{str(dtype)[6:]} w{window} cap{cap}"
+                     f"{' ops' if through_ops else ''}",
+            "max_abs_err": max(errs), "dq_dk_dv_err": errs, "tol": tol,
+            "pass": ok}
+
+
+#: the flash gradient matrix of tests/test_attention_ops.py (B = 2):
+#: S, Hq, Hkv, D, window, cap, dtype
+GRAD_MATRIX = [
+    (64, 4, 4, 64, None, 0.0, torch.float32),
+    (80, 4, 2, 64, None, 0.0, torch.float32),
+    (256, 4, 2, 64, None, 0.0, torch.float32),
+    (128, 4, 2, 128, None, 0.0, torch.float32),
+    (128, 4, 2, 72, None, 0.0, torch.float32),
+    (128, 4, 4, 64, None, 0.0, torch.float32),
+    (128, 4, 1, 64, None, 0.0, torch.float32),
+    (128, 4, 2, 64, 32, 0.0, torch.float32),
+    (128, 4, 2, 64, None, 15.0, torch.float32),
+    (128, 4, 2, 64, 24, 15.0, torch.float32),
+    (160, 4, 1, 72, 48, 8.0, torch.float32),
+    (128, 4, 2, 64, None, 0.0, torch.bfloat16),
+    (128, 4, 4, 64, 32, 15.0, torch.bfloat16),
+]
+
+
+def train_param_count(cfg) -> int:
+    """Parameters of a dense config (embed, head, per-layer attention,
+    MLP and two norm scales, final norm), without building them."""
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    H, Kv, P = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    per_layer = 2 * D * H * P + 2 * D * Kv * P + 3 * D * F + 2 * D
+    return 2 * V * D + cfg.n_layers * per_layer + D
+
+
+def train_matmul_param_count(cfg) -> int:
+    """The parameters that enter a matmul, the N of ``mfu``'s 6*N*tokens:
+    all but the embedding table (a gather) and the norm scales."""
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    H, Kv, P = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    per_layer = 2 * D * H * P + 2 * D * Kv * P + 3 * D * F
+    return V * D + cfg.n_layers * per_layer
+
+
 def phase_kernels(device):
     flash = [
         # granite-3-2b prefill chunk
         _flash_case(device, B=1, S=512, T=512, Hq=32, Hkv=8, D=64,
                     dtype=torch.bfloat16),
+        # the training shape (one replica's batch of one layer)
+        _flash_case(device, B=4, S=512, T=512, Hq=32, Hkv=8, D=64,
+                    dtype=torch.bfloat16, seed=4),
         # ragged S (not a tile multiple), f32
         _flash_case(device, B=2, S=300, T=300, Hq=8, Hkv=2, D=64,
                     dtype=torch.float32, seed=1),
@@ -236,7 +405,33 @@ def phase_kernels(device):
                     ps=4, TW=5, dtype=torch.float32, window=16, cap=30.0,
                     seed=1),
     ]
-    result = {"flash_fwd": flash, "paged_attention": paged}
+    P_train = -(-train_param_count(train_config()) // ALIGN) * ALIGN
+    sync = [_sync_case(device, K=K, I=I, full=full, P=3 * ALIGN,
+                       seed=10 * K + I)
+            for K in (1, 2, 3, 4) for I in (1, 3) for full in (0.0, 1.0)]
+    # the training run's packed size (K = 2, I = 3)
+    sync.insert(0, _sync_case(device, K=2, I=3, full=1.0, P=P_train, seed=1))
+    torch.cuda.empty_cache()
+    bwd = [
+        # the training shape, through the wrappers the model calls
+        _bwd_case(device, B=4, S=512, Hq=32, Hkv=8, D=64,
+                  dtype=torch.bfloat16, through_ops=True),
+        _bwd_case(device, B=4, S=512, Hq=32, Hkv=8, D=64,
+                  dtype=torch.bfloat16),
+        # ragged S (not a tile multiple), f32
+        _bwd_case(device, B=2, S=300, Hq=8, Hkv=2, D=64,
+                  dtype=torch.float32, seed=1),
+        # queries past a window's key horizon: fully-masked rows
+        _bwd_case(device, B=1, S=192, T=64, Hq=4, Hkv=2, D=64,
+                  dtype=torch.float32, window=16, seed=3),
+        # softcap 30, head_dim 128, bf16
+        _bwd_case(device, B=2, S=256, Hq=8, Hkv=4, D=128,
+                  dtype=torch.bfloat16, window=64, cap=30.0, seed=2),
+    ] + [_bwd_case(device, B=2, S=S, Hq=Hq, Hkv=Hkv, D=D, dtype=dt,
+                   window=w, cap=cap, seed=i, through_ops=True)
+         for i, (S, Hq, Hkv, D, w, cap, dt) in enumerate(GRAD_MATRIX)]
+    result = {"flash_fwd": flash, "paged_attention": paged,
+              "wa_sync_fused": sync, "flash_bwd": bwd}
     summary = {name: {"cases": len(cases),
                       "max_abs_err": max(c["max_abs_err"] for c in cases),
                       "pass": all(c["pass"] for c in cases),
@@ -330,13 +525,12 @@ def phase_serve(device, cfg=None, *, n_requests=12, max_batch=8,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     _sync(dev)
-    fa.LAUNCHES = 0
-    pa.LAUNCHES = 0
+    _reset_counts()
     t0 = time.perf_counter()
     outs = ContinuousScheduler(eng).run(reqs)
     _sync(dev)
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd": fa.LAUNCHES, "paged_attention": pa.LAUNCHES}
+    launches = _counts()
 
     admissions = len(log["admit_at_step"])
     steps = len(step_clock.spans)
@@ -353,7 +547,8 @@ def phase_serve(device, cfg=None, *, n_requests=12, max_batch=8,
         raise AssertionError("no admission happened mid-run")
     if dev.type == "cuda":
         want = {"flash_fwd": cfg.n_layers * admissions,
-                "paged_attention": cfg.n_layers * steps}
+                "paged_attention": cfg.n_layers * steps,
+                "wa_sync_fused": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
         if launches != want:
             raise AssertionError(f"launch counts {launches} != {want}")
 
@@ -420,7 +615,7 @@ def _profile(fn, device):
     return wall, busy, launches, rows
 
 
-def _report_trace(label, n, untraced_ms, wall, busy, launches, rows):
+def _report_trace(label, n, untraced_ms, wall, busy, launches, rows, top=6):
     """Device busy time per call from the trace; the idle share is taken
     against the UNTRACED median of phase 4 (the profiler slows the host,
     so the traced wall time overstates idleness; both are printed)."""
@@ -434,7 +629,7 @@ def _report_trace(label, n, untraced_ms, wall, busy, launches, rows):
           f"{untraced_ms:.3f} ms -> device idle "
           f"{100 * (1 - busy_ms / untraced_ms):.1f}% (traced wall "
           f"{wall / n:.3f} ms) | {CARD['line']}")
-    for name, ms, calls in rows[:6]:
+    for name, ms, calls in rows[:top]:
         print(f"[trace]   {100 * ms / busy:5.1f}% {ms / n:8.4f} ms/call "
               f"x{calls // n} {name[:90]}")
 
@@ -526,6 +721,307 @@ def phase_reference(device, n_layers=2, prompt_len=300, seed=0):
     if not ok:
         raise AssertionError("kernel path disagrees with the plain path")
     return errs
+
+
+# ------------------------------------------------------------- 7. train
+
+#: the training run: full-width granite-3-2b cut from 40 to TRAIN_LAYERS
+#: layers (at 40 the HWA state — K bf16 replicas, f32 momentum, the f32
+#: ring of I slots and total, the (K, P) f32 pack at sync — needs ~130 GB).
+#: lr 0.1 is a hand choice, not the result of a sweep.
+TRAIN_LAYERS = 8
+TRAIN = dict(K=2, H=2, I=3, batch=4, seq=512, steps=10, n_train=64,
+             n_test=8, lr=0.1)
+
+
+def train_config(n_layers=TRAIN_LAYERS):
+    return get_config("granite-3-2b").with_(n_layers=n_layers,
+                                            attn_impl="flash_pallas",
+                                            remat="full")
+
+
+def _train_setup(device, cfg, *, steps=None, seed=0):
+    """The HWA trainer of the training phase: the port's Markov dataset at
+    the model's vocabulary (built first, so its V x V transition matrix is
+    gone before the model state exists), K replicas of batch x seq tokens,
+    SGD (momentum 0.9, weight decay 5e-4, cosine schedule)."""
+    ds = make_markov_lm_dataset(vocab=cfg.vocab_size, seq_len=TRAIN["seq"],
+                                n_train=TRAIN["n_train"],
+                                n_test=TRAIN["n_test"], seed=seed,
+                                device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    pipe = DataPipeline(ds, batch_size=TRAIN["batch"],
+                        n_replicas=TRAIN["K"], seed=seed)
+    tc = TrainConfig(method="hwa", total_steps=steps or TRAIN["steps"],
+                     batch_size=TRAIN["batch"], base_lr=TRAIN["lr"],
+                     momentum=0.9, weight_decay=5e-4, seed=seed,
+                     hwa=HWAConfig(n_replicas=TRAIN["K"],
+                                   sync_period=TRAIN["H"],
+                                   window=TRAIN["I"], use_kernels=True))
+    return Trainer(lm_task(build_model(cfg), pipe, device=device, seed=seed),
+                   tc)
+
+
+def _probe_loss(trainer, params, batches) -> float:
+    """Mean loss of ``params`` over ``batches`` of (inputs, targets)."""
+    return float(np.mean([float(trainer._eval_batch(params, i, t)[0])
+                          for i, t in batches]))
+
+
+def _rel_change(leaves, prev_host) -> float:
+    """||W - W_prev|| / ||W_prev|| over all leaves, in f32, one leaf on
+    the device at a time."""
+    num = den = 0.0
+    for x, p in zip(leaves, prev_host):
+        p = p.to(x.device).float()
+        num += float((x.float() - p).square().sum())
+        den += float(p.square().sum())
+    return (num / den) ** 0.5
+
+
+def phase_train(device):
+    """HWA training of full-width granite-3-2b (depth cut to TRAIN_LAYERS)
+    through ``Trainer.run``: K replicas, a fused sync every H steps, W̿
+    evaluated at every sync. The loss must be finite at every step and
+    fall, W̿ must change at every sync and its loss on training sequences
+    must fall, and the kernels' launch counts must be exact."""
+    dev = torch.device(device)
+    cfg = train_config()
+    trainer = _train_setup(dev, cfg)
+    step_clock, sync_clock = _Clock(dev), _Clock(dev)
+    losses = []
+    hwa_step, sync_step = trainer._hwa_step, trainer._sync_step
+    timed_step, timed_sync = step_clock.wrap(hwa_step), \
+        sync_clock.wrap(sync_step)
+
+    def logged_step(state, step):
+        state, m = timed_step(state, step)
+        losses.append(m["per_replica_loss"])
+        return state, m
+
+    # W̿ is also evaluated on training sequences (replica 0's batches of
+    # steps 0-1), and its change from the previous sync is measured: a W̿
+    # that learns shows a falling train-probe loss whatever the test loss
+    # does. Both run outside the clocks; the previous W̿ waits on the host
+    # so that it adds nothing to the device's peak.
+    pipe = trainer.task.pipeline
+    probe = [pipe.replica_batch(0, s) for s in range(TRAIN["H"])]
+    init = trainer.task.init()
+    wa_probe = {"init_test": trainer.evaluate(init)["test_loss"],
+                "init_train": _probe_loss(trainer, init, probe),
+                "train": [], "rel_change": [], "prev": None}
+    del init
+
+    def checked_sync(state):
+        state, m = timed_sync(state)
+        wa_probe["train"].append(_probe_loss(trainer, state.wa, probe))
+        leaves = tree_leaves(state.wa)
+        if wa_probe["prev"] is not None:
+            wa_probe["rel_change"].append(_rel_change(leaves,
+                                                      wa_probe["prev"]))
+        wa_probe["prev"] = [x.detach().to("cpu") for x in leaves]
+        return state, m
+
+    trainer._hwa_step, trainer._sync_step = logged_step, checked_sync
+    n_eval_batches = len(list(pipe.eval_batches()))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = trainer.run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    # the trace phase reuses the trainer: without the clocks and probes
+    trainer._hwa_step, trainer._sync_step = hwa_step, sync_step
+
+    K, H, steps = TRAIN["K"], TRAIN["H"], TRAIN["steps"]
+    syncs = steps // H
+    per_step = torch.stack(losses).float().cpu()          # (steps, K)
+    if not bool(torch.isfinite(per_step).all()):
+        raise AssertionError(f"non-finite training loss: {per_step}")
+    step_loss = per_step.mean(1).tolist()
+    first, last = float(np.mean(step_loss[:2])), float(np.mean(step_loss[-2:]))
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first two {first:.4f}, "
+                             f"last two {last:.4f}")
+    L = cfg.n_layers
+    evals = (len(out["history"]) + 1) * n_eval_batches   # + final evaluate
+    evals += syncs * len(probe)                           # W̿ train probe
+    want = {"flash_fwd": steps * K * L * 2 + evals * L, "paged_attention": 0,
+            "wa_sync_fused": syncs, "flash_bwd_dq": steps * K * L,
+            "flash_bwd_dkv": steps * K * L}
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    if len(out["history"]) != syncs or not all(
+            np.isfinite(h["test_loss"]) for h in out["history"]):
+        raise AssertionError(f"W̿ evaluations: {out['history']}")
+    wa_train, wa_change = wa_probe["train"], wa_probe["rel_change"]
+    if not (all(c > 0 for c in wa_change) and len(wa_change) == syncs - 1):
+        raise AssertionError(f"W̿ did not change at every sync: {wa_change}")
+    if not (np.isfinite(wa_train).all() and wa_train[-1] < wa_train[0]
+            and wa_train[-1] < wa_probe["init_train"]):
+        raise AssertionError(f"W̿'s loss on training sequences did not fall: "
+                             f"init {wa_probe['init_train']}, per sync "
+                             f"{wa_train}")
+
+    step_ms, sync_ms = step_clock.ms(), sync_clock.ms()
+    n_params = train_param_count(cfg)
+    n_matmul = train_matmul_param_count(cfg)
+    tokens = K * TRAIN["batch"] * TRAIN["seq"]
+    med_step = float(np.median(step_ms))
+    res = {
+        "layers": L, "params": n_params, "steps": steps, "syncs": syncs,
+        "launches": launches, "step_loss": step_loss,
+        "wa_test_loss": [h["test_loss"] for h in out["history"]],
+        "init_test_loss": wa_probe["init_test"],
+        "init_train_probe_loss": wa_probe["init_train"],
+        "wa_train_probe_loss": wa_train, "wa_rel_change": wa_change,
+        "median_step_ms": med_step, "step_ms": step_ms,
+        "tokens_per_step": tokens, "tok_s": tokens / (med_step / 1e3),
+        "mfu": 6 * n_matmul * tokens / (med_step / 1e3) / PEAK_FLOPS[
+            torch.bfloat16], "matmul_params": n_matmul,
+        "median_sync_ms": float(np.median(sync_ms)), "sync_ms": sync_ms,
+        "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                         if dev.type == "cuda" else float("nan")),
+        "wall_s": wall, "lr": TRAIN["lr"],
+    }
+    print(f"[train] granite-3-2b L{L} (cut from 40) d{cfg.d_model} "
+          f"H{cfg.n_heads}/{cfg.n_kv_heads} ff{cfg.d_ff} V{cfg.vocab_size} "
+          f"bf16 remat=full, {n_params / 1e6:.1f}M params: HWA K{K} H{H} "
+          f"I{TRAIN['I']} fused sync, SGD lr {TRAIN['lr']} m0.9 wd5e-4 "
+          f"cosine, {TRAIN['batch']}x{TRAIN['seq']} tokens per replica, "
+          f"{steps} steps, {syncs} syncs, launches {launches}")
+    print(f"[train] loss per step {[round(x, 4) for x in step_loss]} "
+          f"(first two {first:.4f} -> last two {last:.4f})")
+    print(f"[train] W̿ per sync: test loss "
+          f"{[round(x, 4) for x in res['wa_test_loss']]} (init "
+          f"{wa_probe['init_test']:.4f}), loss on training sequences "
+          f"{[round(x, 4) for x in wa_train]} (init "
+          f"{wa_probe['init_train']:.4f}), ||dW̿||/||W̿|| from the previous "
+          f"sync {[float(f'{x:.4g}') for x in wa_change]}")
+    print(f"[train] median inner step {med_step:.3f} ms (K={K} replicas, "
+          f"{tokens} tokens), {res['tok_s']:.1f} tok/s, mfu "
+          f"{res['mfu']:.4f} (6*N*tokens over 989 TFLOP/s, N = the "
+          f"{n_matmul / 1e6:.1f}M matmul parameters), median sync "
+          f"{res['median_sync_ms']:.3f} ms, peak memory "
+          f"{res['peak_mem_gib']:.3f} GiB, wall {wall:.2f} s | {CARD['line']}")
+    return res, trainer
+
+
+def phase_train_trace(device, trainer, train):
+    """torch.profiler over 2 inner steps and 1 sync of the training run's
+    model (a fresh HWA state from its final W̿): device busy, idle share
+    against the untraced medians, top kernels."""
+    dev = torch.device(device)
+    params = trainer.task.init()
+    state = hwa_init(trainer.hwa_cfg, params, trainer.optimizer)
+    del params
+    state, _ = trainer._hwa_step(state, 0)             # warm
+    box = {"state": state}
+
+    def work():
+        st, _ = trainer._hwa_step(box["state"], 1)
+        st, _ = trainer._hwa_step(st, 2)
+        box["state"], _ = trainer._sync_step(st)
+
+    stats = _profile(work, dev)
+    untraced = 2 * train["median_step_ms"] + train["median_sync_ms"]
+    _report_trace("train (2 inner steps + 1 sync)", 1, untraced, *stats,
+                  top=12)
+    del box, state
+    return stats
+
+
+#: the kernel path against the plain path at 2 layers, bf16. Loss and
+#: grads: the activations round to bf16 at different places on the two
+#: attention paths (REF_LOSS_TOL absolute on the loss, REF_GRAD_TOL of the
+#: largest |grad| of a leaf). W̿ after a step and a sync: the replicas'
+#: steps differ as the grads do, and rounding the new weight may flip:
+#: each element agrees to REF_WA_ULPS ULPs of its dtype plus REF_GRAD_TOL
+#: of the largest step of its leaf.
+REF_LOSS_TOL = 0.05
+REF_GRAD_TOL = 0.05
+REF_WA_ULPS = 2
+
+
+def phase_train_reference(device, n_layers=2, seed=0):
+    """The training model cut to ``n_layers``: loss and a few grad leaves
+    of the kernel path (flash kernels, fused sync) against the plain path
+    (naive attention, plain mean and window push) on the same weights and
+    batches, then one HWA step plus one sync on each path and W̿."""
+    from repro_torch.core.hwa import hwa_inner_step, hwa_sync
+    dev = torch.device(device)
+    base = train_config(n_layers)
+    trainer = _train_setup(dev, base, steps=2)
+    params = trainer.task.init()
+    batch = trainer.task.pipeline.replica_batch(0, 0)
+    batch = {"tokens": batch[0], "targets": batch[1]}
+    loss, grads, wa_out = {}, {}, {}
+    for name, impl, kern in (("kernel", "flash_pallas", True),
+                             ("plain", "naive", False)):
+        cfg = base.with_(attn_impl=impl)
+        lm = build_model(cfg)
+        leaves, treedef = tree_flatten(params)
+        live = [x.detach().clone().requires_grad_(True) for x in leaves]
+        l, _ = lm.loss(tree_unflatten(treedef, live), batch)
+        g = torch.autograd.grad(l, live)
+        loss[name] = float(l.detach())
+        # embed, head, layer-0 wq and w_down: both ends and the middle
+        names = ("embed", "head", "stack.0.attn.wq", "stack.0.mlp.w_down")
+        flat_names = _leaf_names(params)
+        grads[name] = {n: g[flat_names.index(n)].float() for n in names}
+        hcfg = HWAConfig(n_replicas=TRAIN["K"], sync_period=1,
+                         window=TRAIN["I"], use_kernels=kern)
+        state = hwa_init(hcfg, params, trainer.optimizer)
+        batches = trainer.task.pipeline.stacked_batch(0)
+        state, _ = hwa_inner_step(
+            hcfg, state, batches,
+            lambda p, b, lm=lm: lm.loss(p, {"tokens": b[0], "targets": b[1]}),
+            trainer.optimizer, trainer.schedule(0))
+        state, _ = hwa_sync(hcfg, state)
+        wa_out[name] = [x.detach() for x in tree_leaves(state.wa)]
+        del state
+    dloss = abs(loss["kernel"] - loss["plain"])
+    grad_rel = {n: float((grads["kernel"][n] - grads["plain"][n]).abs().max()
+                         / grads["plain"][n].abs().max())
+                for n in grads["plain"]}
+    wa_err = 0.0
+    for a, b, w0 in zip(wa_out["kernel"], wa_out["plain"],
+                        tree_leaves(params)):
+        eps = torch.finfo(a.dtype).eps
+        a, b = a.float(), b.float()
+        beyond = torch.clamp((a - b).abs() - REF_WA_ULPS * eps * b.abs(),
+                             min=0)
+        step = torch.clamp((b - w0.float()).abs().max(), min=1e-30)
+        wa_err = max(wa_err, float(beyond.max() / step))
+    ok = (dloss <= REF_LOSS_TOL and max(grad_rel.values()) <= REF_GRAD_TOL
+          and wa_err <= REF_GRAD_TOL and np.isfinite(loss["kernel"]))
+    print(f"[train-reference] granite-3-2b cut to {n_layers} layers, bf16, "
+          f"kernel path vs plain path: loss {loss['kernel']:.5f} vs "
+          f"{loss['plain']:.5f} (|d| {dloss:.5f}, tol {REF_LOSS_TOL}); "
+          f"grad max|d|/max|g| "
+          f"{ {n: round(v, 5) for n, v in grad_rel.items()} } (tol "
+          f"{REF_GRAD_TOL}); W̿ after 1 step + 1 sync: max|d| beyond "
+          f"{REF_WA_ULPS} ULP {wa_err:.5f} of the leaf's step (tol "
+          f"{REF_GRAD_TOL}): {'pass' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("training kernel path disagrees with the "
+                             "plain path")
+    return {"dloss": dloss, "grad_rel": grad_rel, "wa_err": wa_err}
+
+
+def _leaf_names(tree, prefix=""):
+    """Dotted names of a tree's leaves in flatten order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, x in enumerate(tree)
+                for n in _leaf_names(x, f"{prefix}{i}.")]
+    return [prefix[:-1]]
 
 
 # --------------------------------------------------------- 6. yardstick
@@ -643,6 +1139,126 @@ def phase_yardstick(device, serve, kernels):
     return entries
 
 
+def _sdpa_bwd_ms(sets, iters):
+    """The backward of torch's scaled_dot_product_attention on the same
+    inputs (B, H, S, D): its forward+backward minus its forward, each
+    timed by CUDA-graph replay. Timed here only: the port never calls it."""
+    lib = []
+    for q, k, v, dout in sets:
+        q, k, v, dout = (x.transpose(1, 2).detach() for x in (q, k, v, dout))
+        lib.append((q.requires_grad_(True), k.requires_grad_(True),
+                    v.requires_grad_(True), dout))
+
+    def fwd(q, k, v, dout):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    def fwd_bwd(q, k, v, dout):
+        return torch.autograd.grad(fwd(q, k, v, dout), (q, k, v), dout)
+
+    return _time_ms(fwd_bwd, lib, iters) - _time_ms(fwd, lib, iters)
+
+
+def phase_yardstick_train(device, train, kernels):
+    """The three kernels of the training path at its shapes: the fused
+    sync at the run's packed size (K = 2, I = 3), and the two backward
+    sweeps at one layer's attention (B4 S512 Hq32 Hkv8 D64 bf16)."""
+    dev = torch.device(device)
+    K, I = TRAIN["K"], TRAIN["I"]
+    P = -(-train["params"] // ALIGN) * ALIGN
+    gen = torch.Generator(device=dev).manual_seed(11)
+    stacked = torch.randn((K, P), generator=gen, device=dev)
+    ring = torch.randn((I, P), generator=gen, device=dev)
+    total = torch.randn((P,), generator=gen, device=dev)
+    scal = (torch.tensor(1, dtype=torch.int32, device=dev),
+            torch.tensor(1.0, device=dev), torch.tensor(1.0 / I, device=dev))
+    sset = [(stacked, ring, total)]
+    s_ms = _time_ms(lambda st, r, t: wa.wa_sync_fused(st, r, t, *scal),
+                    sset, 10)
+    s_plain = _time_ms(lambda st, r, t: wa_sync_fused_ref(st, r, t, *scal),
+                       sset, 3, warmup=1)
+    s_bytes = (K + 5) * 4 * P                 # K + 2 reads, 3 writes
+    s_bound, s_by = _bound((K + 3) * P, s_bytes, torch.float32)
+    del stacked, ring, total, sset
+    torch.cuda.empty_cache()
+
+    B, S, Hq, Hkv, D = 4, 512, 32, 8, 64
+    dt = torch.bfloat16
+    sets, bsets = [], []
+    for _ in range(8):
+        q = _randn(gen, (B, S, Hq, D), dt, dev)
+        k = _randn(gen, (B, S, Hkv, D), dt, dev)
+        v = _randn(gen, (B, S, Hkv, D), dt, dev)
+        dout = _randn(gen, (B, S, Hq, D), dt, dev)
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        sets.append((q, k, v, out, lse, dout, delta))
+        bsets.append((q, k, v, dout))
+    lib = fab._lib()
+
+    def shape():          # the stream is read per call: capture runs on its own
+        return (B, S, S, Hq, Hkv, D, 0, 0.0, D ** -0.5, 1,
+                torch.cuda.current_stream(dev).cuda_stream)
+
+    def dq_only(q, k, v, out, lse, dout, delta):
+        dq = torch.empty_like(q)
+        build.check_launch(lib, lib.flash_bwd_dq_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *shape()), "dq")
+
+    def dkv_only(q, k, v, out, lse, dout, delta):
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        build.check_launch(lib, lib.flash_bwd_dkv_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *shape()), "dkv")
+
+    dq_ms = _time_ms(dq_only, sets, 100)
+    dkv_ms = _time_ms(dkv_only, sets, 100)
+    b_plain = _time_ms(lambda q, k, v, out, lse, dout, delta:
+                       flash_attention_bwd_ref(q, k, v, out, lse, dout),
+                       sets, 5, warmup=1)
+    b_lib = _sdpa_bwd_ms(bsets, 50)
+    pairs = S * (S + 1) // 2
+    prod = 2 * B * Hq * D * pairs             # one causal product, in FLOPs
+    q_bytes, kv_bytes, row_bytes = 2 * B * S * Hq * D, 2 * B * S * Hkv * D, \
+        4 * B * Hq * S
+    dq_bound, dq_by = _bound(3 * prod, 3 * q_bytes + 2 * kv_bytes
+                             + 2 * row_bytes, dt)
+    dkv_bound, dkv_by = _bound(4 * prod, 2 * q_bytes + 4 * kv_bytes
+                               + 2 * row_bytes, dt)
+    bwd = kernels["flash_bwd"][1]             # the training shape, direct
+    launches = train["launches"]
+    entries = [
+        {"name": "wa_sync_fused", "route": "cuda", "source": SYNC_SRC,
+         "replaces": SYNC_TPU, "launches": launches["wa_sync_fused"],
+         "max_abs_err": max(c["max_abs_err"]
+                            for c in kernels["wa_sync_fused"]),
+         "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
+         "bound_by": s_by, "library_ms": None},
+        {"name": "flash_bwd_dq", "route": "cuda", "source": BWD_SRC,
+         "replaces": DQ_TPU, "launches": launches["flash_bwd_dq"],
+         "max_abs_err": bwd["dq_dk_dv_err"][0], "ms": dq_ms,
+         "plain_ms": b_plain, "bound_ms": dq_bound, "bound_by": dq_by,
+         "library_ms": b_lib},
+        {"name": "flash_bwd_dkv", "route": "cuda", "source": BWD_SRC,
+         "replaces": DKV_TPU, "launches": launches["flash_bwd_dkv"],
+         "max_abs_err": max(bwd["dq_dk_dv_err"][1:]), "ms": dkv_ms,
+         "plain_ms": b_plain, "bound_ms": dkv_bound, "bound_by": dkv_by,
+         "library_ms": b_lib},
+    ]
+    print(f"[yardstick] wa_sync_fused K{K} I{I} P{P} f32: {s_ms:.4f} ms "
+          f"(plain {s_plain:.3f}, library none, bound {s_bound:.4f} by "
+          f"{s_by}) | {CARD['line']}")
+    print(f"[yardstick] flash_bwd B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} bf16: dq "
+          f"{dq_ms:.4f} ms (bound {dq_bound:.5f} by {dq_by}), dk/dv "
+          f"{dkv_ms:.4f} ms (bound {dkv_bound:.5f} by {dkv_by}); plain "
+          f"backward {b_plain:.3f} ms, sdpa backward {b_lib:.4f} ms (both "
+          f"sweeps) | {CARD['line']}")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -654,9 +1270,23 @@ def main() -> int:
     kernels = phase_kernels(device)
     serve, eng = phase_serve(device)
     phase_trace(device, eng, serve)
-    del eng
+    del eng                  # its timing wrappers hold it in a cycle: collect
+    gc.collect()
     phase_reference(device)
+    torch.cuda.empty_cache()
+    train, trainer = phase_train(device)
+    phase_train_trace(device, trainer, train)
+    del trainer
+    torch.cuda.empty_cache()
+    phase_train_reference(device)
+    torch.cuda.empty_cache()
     entries = phase_yardstick(device, serve, kernels)
+    entries += phase_yardstick_train(device, train, kernels)
+    # the flash forward runs on both paths: its launches are the sum
+    entries[0]["launches_by_path"] = {
+        "serve": serve["launches"]["flash_fwd"],
+        "train": train["launches"]["flash_fwd"]}
+    entries[0]["launches"] = sum(entries[0]["launches_by_path"].values())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""JAX parameter trees, as numpy arrays, to the port's tensors and back.
+"""JAX parameter trees and HWA states, as numpy arrays, to the port's
+tensors and back.
 
 The port keeps the JAX package's parameter layout (nested dicts and
 lists, stacked layers, the same leaf names), so a bridge is a leaf-for-
@@ -61,3 +62,32 @@ def params_to_numpy(tree, bf16_dtype=None):
         return leaf(x)
 
     return walk(tree)
+
+
+def hwa_state_from_numpy(state, device=None):
+    """A JAX ``HWAState`` whose leaves are numpy arrays (``jax.device_get``
+    of one) -> the port's ``core.hwa.HWAState`` on ``device``: the stacked
+    inner parameters and optimizer state, the f32 window ring, total,
+    count and cursor, W̿ and the counters. Read by attribute, so nothing
+    of the JAX package is imported."""
+    from repro_torch.common.packing import pack_spec
+    from repro_torch.core.hwa import HWAState
+    from repro_torch.core.offline import WindowState
+
+    ws = state.window_state
+    if ws.kind != "ring" or getattr(ws, "comp", None) is not None:
+        raise NotImplementedError("only the f32 ring window is ported")
+    wa = params_from_numpy(state.wa, device)
+    window_state = WindowState(
+        ring=params_from_numpy(ws.ring, device),
+        total=params_from_numpy(ws.total, device),
+        count=params_from_numpy(ws.count, device).to(torch.int32),
+        next_idx=params_from_numpy(ws.next_idx, device).to(torch.int32),
+        window=int(ws.window), kind=ws.kind, spec=pack_spec(wa))
+    return HWAState(inner=params_from_numpy(state.inner, device),
+                    inner_opt=params_from_numpy(state.inner_opt, device),
+                    window_state=window_state, wa=wa,
+                    cycle=params_from_numpy(state.cycle, device)
+                    .to(torch.int32),
+                    step=params_from_numpy(state.step, device)
+                    .to(torch.int32))

@@ -1,0 +1,138 @@
+"""Parameter packing: a parameter tree as ONE flat, ALIGN-padded buffer.
+
+Counterpart of ``repro.common.packing``, single-device layout only
+(``shards == 1``, no groups). The WA state (ring, total) lives in this
+layout for the whole run, so one sync is one kernel launch over the
+whole parameter set however many leaves the tree has. Leaves are laid
+out in JAX's flatten order (``common.pytree``) at the same offsets, and
+the tail is zero-padded to a multiple of :data:`ALIGN`, so a packed
+buffer is byte-equal to the reference's. Packing copies values and
+never computes with them: any elementwise update of the buffer is
+bit-identical to the same update applied leaf by leaf.
+
+The sharded and grouped layouts, ``repack`` and the JSON spec wait for
+ROADMAP.md Queue A 8 and 13.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
+
+import torch
+
+from repro_torch.common.pytree import tree_flatten, tree_unflatten
+
+PyTree = Any
+
+# The reference's packed alignment (one (8, 1024) f32 tile): kept so the
+# two packages lay a tree out identically. The CUDA sync kernel needs only
+# P % 4 == 0 (float4 loads), which this implies.
+ALIGN = 8 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSpec:
+    """Placement of one leaf inside the packed buffer."""
+    offset: int
+    size: int
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class PackSpec:
+    """Where every leaf of a tree lives in its packed buffer."""
+    treedef: Any
+    leaves: tuple[LeafSpec, ...]
+    size: int          # real elements
+    padded: int        # buffer length, an ``align`` multiple
+    align: int = ALIGN
+
+    @property
+    def n_leaves(self) -> int:
+        return len(self.leaves)
+
+    @property
+    def pad_waste(self) -> float:
+        return 1.0 - self.size / self.padded
+
+
+def pack_spec(tree: PyTree, align: int = ALIGN) -> PackSpec:
+    """The packed layout of ``tree`` (tensors; only shapes and dtypes are
+    read)."""
+    flat, treedef = tree_flatten(tree)
+    leaves, offset = [], 0
+    for leaf in flat:
+        size = leaf.numel()
+        leaves.append(LeafSpec(offset=offset, size=size,
+                               shape=tuple(leaf.shape), dtype=leaf.dtype))
+        offset += size
+    padded = max(align, -(-offset // align) * align)
+    return PackSpec(treedef=treedef, leaves=tuple(leaves), size=offset,
+                    padded=padded, align=align)
+
+
+def pack_leaves(flat: Sequence[torch.Tensor], spec: PackSpec,
+                dtype=torch.float32, n_lead: int = 0) -> torch.Tensor:
+    """Pack already-flattened leaves (``n_lead`` shared leading dims per
+    leaf, e.g. the K of :func:`pack_stacked`). Each leaf is copied once
+    into its slice of one preallocated buffer; the pad tail is zero."""
+    if len(flat) != spec.n_leaves:
+        raise ValueError(f"{len(flat)} leaves for a spec of {spec.n_leaves}")
+    lead = tuple(flat[0].shape[:n_lead]) if flat else ()
+    device = flat[0].device if flat else None
+    buf = torch.empty(lead + (spec.padded,), dtype=dtype, device=device)
+    for leaf, ls in zip(flat, spec.leaves):
+        if tuple(leaf.shape[n_lead:]) != ls.shape:
+            raise ValueError(f"leaf shape {tuple(leaf.shape)} != spec "
+                             f"{ls.shape}")
+        buf[..., ls.offset:ls.offset + ls.size].copy_(
+            leaf.detach().reshape(lead + (ls.size,)))
+    buf[..., spec.size:].zero_()
+    return buf
+
+
+def pack(tree: PyTree, spec: PackSpec | None = None,
+         dtype=torch.float32) -> torch.Tensor:
+    """Flatten ``tree`` into one ``(spec.padded,)`` buffer of ``dtype``."""
+    spec = spec or pack_spec(tree)
+    flat, treedef = tree_flatten(tree)
+    if treedef != spec.treedef:
+        raise ValueError("tree structure does not match the PackSpec")
+    return pack_leaves(flat, spec, dtype)
+
+
+def pack_stacked(tree: PyTree, spec: PackSpec,
+                 dtype=torch.float32) -> torch.Tensor:
+    """Pack a tree whose leaves carry a leading stacked axis K into one
+    ``(K, padded)`` buffer. ``spec`` describes the unstacked leaves."""
+    flat, treedef = tree_flatten(tree)
+    if treedef != spec.treedef:
+        raise ValueError("stacked tree structure does not match PackSpec")
+    if not flat:
+        raise ValueError("pack_stacked needs at least one leaf to infer K")
+    K = flat[0].shape[0]
+    for leaf, ls in zip(flat, spec.leaves):
+        if tuple(leaf.shape) != (K,) + ls.shape:
+            raise ValueError(f"stacked leaf {tuple(leaf.shape)} != "
+                             f"(K,)+{ls.shape}")
+    return pack_leaves(flat, spec, dtype, n_lead=1)
+
+
+def unpack(buf: torch.Tensor, spec: PackSpec, like: PyTree | None = None
+           ) -> PyTree:
+    """Slice the packed buffer back into leaves (leading dims of ``buf``
+    kept). Dtypes come from ``like`` when given, else from the spec. A
+    leaf whose dtype is the buffer's is a view of ``buf``, not a copy."""
+    like_flat = None
+    if like is not None:
+        like_flat, treedef = tree_flatten(like)
+        if treedef != spec.treedef:
+            raise ValueError("``like`` does not match the PackSpec")
+    lead = tuple(buf.shape[:-1])
+    leaves = []
+    for i, ls in enumerate(spec.leaves):
+        dt = like_flat[i].dtype if like_flat is not None else ls.dtype
+        x = buf[..., ls.offset:ls.offset + ls.size].reshape(lead + ls.shape)
+        leaves.append(x.to(dt))
+    return tree_unflatten(spec.treedef, leaves)

@@ -1,0 +1,211 @@
+"""Hierarchical Weight Averaging — the paper's training framework.
+
+Counterpart of ``repro.core.hwa`` (the single-device stacked functions).
+State machine (Algorithms 1 & 2):
+
+  every step   : each of the K replicas takes one optimizer step on its own
+                 batch (different sampling orders)           [hwa_inner_step]
+  every H steps: W̄_e = mean_k W^k ; every replica ← W̄_e ;
+                 slide-window update → W̿_e                   [hwa_sync]
+
+``inner`` is stacked on a leading K axis as in the reference, so the sync
+packs it with one copy. Where the reference vmaps one replica's step over
+K, the port loops over the replicas in Python: each step differentiates a
+detached view ``inner[k]`` and writes the update back in place, which is
+the same math with one replica's gradients alive at a time (and lets the
+flash kernels, called through ``ctypes``, need no batching rule).
+``inner``, ``inner_opt`` and the window buffers are updated in place;
+the functions return the state for the reference's calling pattern.
+
+Not ported yet (they raise ``NotImplementedError``): ``resilient``
+(ROADMAP.md Queue A 12), ``window_stride > 1`` and
+``window_kind="streaming"`` (Queue A 3), bf16/fp8 rings (Queue A 10),
+the two-launch kernel route (Queue B 2-3) and the mesh-native functions
+(Queue A 13).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.common.packing import pack, pack_stacked, unpack
+from repro_torch.common.pytree import tree_flatten, tree_leaves, \
+    tree_mean_axis0, tree_unflatten
+from repro_torch.core.offline import (STREAMING_ITEM, WindowState,
+                                      window_init, window_scalars,
+                                      window_update_packed)
+from repro_torch.core.online import (broadcast_to_replicas, online_average,
+                                     replica_divergence, restart_replicas)
+from repro_torch.kernels import ops as kops
+from repro_torch.optim.base import Optimizer, apply_updates
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class HWAConfig:
+    n_replicas: int = 2          # K (paper Table IV: 2-4; K=2 suffices)
+    sync_period: int = 0         # H; 0 → one epoch (paper default H = N/B)
+    window: int = 20             # I (paper Fig. 13: {20, 50})
+    window_stride: int = 1       # sparse window (§III-B): every J-th cycle
+    window_kind: str = "ring"    # ring | streaming
+    avg_opt_state: bool = False  # also average optimizer moments at sync
+    use_kernels: bool = False    # the fused sync kernel
+    outer_every: int = 1         # H₂ of the two-level sync tree (mesh only)
+    resilient: bool = False      # alive-masked elastic mean
+
+
+@dataclasses.dataclass
+class HWAState:
+    inner: PyTree                # (K, ...) stacked replica params
+    inner_opt: PyTree            # (K, ...) stacked optimizer state
+    window_state: WindowState    # offline module state
+    wa: PyTree                   # current W̿ (unstacked)
+    cycle: torch.Tensor          # e — completed synchronization cycles
+    step: torch.Tensor           # i — global optimizer steps taken
+
+
+def check_config(cfg: HWAConfig) -> None:
+    """Raise for the options this port does not cover yet."""
+    if cfg.resilient:
+        raise NotImplementedError("resilient HWA is not ported yet: "
+                                  "ROADMAP.md Queue A 12")
+    if cfg.window_stride != 1 or cfg.window_kind != "ring":
+        raise NotImplementedError("sparse and streaming windows are not "
+                                  f"ported yet: {STREAMING_ITEM}")
+    if cfg.outer_every != 1:
+        raise NotImplementedError("the two-level sync tree is not ported "
+                                  "yet: ROADMAP.md Queue A 13")
+
+
+def hwa_init(cfg: HWAConfig, params: PyTree, optimizer: Optimizer,
+             ring_dtype=torch.float32) -> HWAState:
+    """All replicas start from the same initialization (Algorithm 1 line
+    1 with a shared init); they diverge through data order."""
+    check_config(cfg)
+    dev = tree_leaves(params)[0].device
+    inner = broadcast_to_replicas(params, cfg.n_replicas)
+    inner_opt = broadcast_to_replicas(optimizer.init(params), cfg.n_replicas)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return HWAState(inner=inner, inner_opt=inner_opt,
+                    window_state=window_init(params, cfg.window,
+                                             cfg.window_kind,
+                                             ring_dtype=ring_dtype),
+                    wa=params, cycle=zero, step=zero.clone())
+
+
+def _replica(tree: PyTree, k: int) -> PyTree:
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [x[k] for x in leaves])
+
+
+def hwa_inner_step(cfg: HWAConfig, state: HWAState, batches: PyTree,
+                   loss_fn: Callable, optimizer: Optimizer, lr
+                   ) -> tuple[HWAState, dict]:
+    """One optimizer step per replica (Algorithm 1 lines 5-7). ``batches``
+    leaves have a leading K axis. Replica k's parameters and optimizer
+    state are updated in place in ``state.inner[k]``/``inner_opt[k]``."""
+    losses, metric_rows = [], []
+    for k in range(cfg.n_replicas):
+        leaves, treedef = tree_flatten(state.inner)
+        live = [x[k].detach().requires_grad_(True) for x in leaves]
+        params = tree_unflatten(treedef, live)
+        loss, metrics = loss_fn(params, _replica(batches, k))
+        grads = torch.autograd.grad(loss, live)
+        with torch.no_grad():
+            opt_k = _replica(state.inner_opt, k)
+            plain = tree_unflatten(treedef, [x.detach() for x in live])
+            updates, opt2 = optimizer.update(
+                tree_unflatten(treedef, list(grads)), opt_k, plain, lr)
+            for dst, src in zip(leaves, tree_leaves(apply_updates(plain,
+                                                                  updates))):
+                dst[k].copy_(src)
+            for dst, src in zip(tree_leaves(state.inner_opt),
+                                tree_leaves(opt2)):
+                dst[k].copy_(src)
+        del grads, live, params
+        losses.append(loss.detach())
+        metric_rows.append({n: v.detach() for n, v in metrics.items()
+                            if torch.is_tensor(v) and v.is_floating_point()
+                            and v.ndim <= 1})
+    losses = torch.stack(losses)
+    scalar = {n: torch.stack([row[n] for row in metric_rows]).mean(0)
+              for n in metric_rows[0]}
+    state.step = state.step + 1
+    return state, {"loss": losses.mean(), "per_replica_loss": losses,
+                   **scalar}
+
+
+def window_push_packed(cfg: HWAConfig, new_buf: torch.Tensor,
+                       window_state: WindowState, cycle: torch.Tensor
+                       ) -> tuple[WindowState, torch.Tensor, torch.Tensor]:
+    """Packed-in/packed-out Algorithm-2 tail: push the packed W̄ into the
+    slide window, with W̿ = W̄ until the first entry exists. Returns
+    (window state, packed W̿_e, incremented cycle counter). This is the
+    plain route; the kernel route is the fused sync."""
+    check_config(cfg)
+    new_ws, avg = window_update_packed(window_state, new_buf)
+    avg = torch.where(new_ws.count == 0, new_buf, avg)
+    return new_ws, avg, cycle + 1
+
+
+def _window_push(cfg: HWAConfig, outer: PyTree, window_state: WindowState,
+                 cycle: torch.Tensor):
+    """Tree-level wrapper of :func:`window_push_packed`: packs W̄ once,
+    unpacks only the final W̿."""
+    new_ws, avg, new_cycle = window_push_packed(
+        cfg, pack(outer, window_state.spec), window_state, cycle)
+    return new_ws, unpack(avg, window_state.spec, like=outer), new_cycle
+
+
+def _sync_fused(cfg: HWAConfig, state: HWAState):
+    """Whole sync in ONE kernel launch over packed state: the K replicas
+    packed into (K, P), then the K-mean and the window push in one pass,
+    (K+2) reads + 3 writes. W̄ for the restart is read back from the ring
+    slot just written; only W̄ and W̿ are unpacked. The window scalars stay
+    on the device (no host synchronization)."""
+    ws = state.window_state
+    I = ws.window
+    stacked = pack_stacked(state.inner, ws.spec)
+    idx = ws.next_idx
+    full_flag, new_count, inv_count = window_scalars(ws)
+    ring, total, avg = kops.hwa_sync_packed(stacked, ws.ring, ws.total, idx,
+                                            full_flag, inv_count)
+    del stacked
+    new_ws = WindowState(ring=ring, total=total, count=new_count,
+                         next_idx=torch.remainder(idx + 1, I)
+                         .to(torch.int32),
+                         window=I, kind=ws.kind, spec=ws.spec)
+    # the slot just written IS W̄_e (a device-side gather: no host read)
+    outer = unpack(ring.index_select(0, idx.reshape(1).long())[0], ws.spec)
+    wa = unpack(avg, ws.spec)
+    return outer, new_ws, wa, state.cycle + 1
+
+
+def hwa_sync(cfg: HWAConfig, state: HWAState) -> tuple[HWAState, dict]:
+    """End-of-cycle sync (Algorithm 1 lines 8-12 + Algorithm 2).
+
+    With ``use_kernels`` and the dense f32 ring the sync is one fused
+    launch (:func:`_sync_fused`); otherwise the plain mean (sum/K) and the
+    plain window push. The replicas restart from W̄ in place. Returns
+    (state, metrics)."""
+    check_config(cfg)
+    div = replica_divergence(state.inner)
+    ws = state.window_state
+    if cfg.use_kernels:
+        if ws.ring.dtype != torch.float32:
+            raise NotImplementedError("the compressed fused sync is not "
+                                      "ported yet: ROADMAP.md Queue B 7")
+        outer, window_state, wa, cycle = _sync_fused(cfg, state)
+    else:
+        outer = online_average(state.inner)
+        window_state, wa, cycle = _window_push(cfg, outer, ws, state.cycle)
+    restart_replicas(state.inner, outer)
+    if cfg.avg_opt_state:
+        restart_replicas(state.inner_opt, tree_mean_axis0(state.inner_opt))
+    new_state = HWAState(inner=state.inner, inner_opt=state.inner_opt,
+                         window_state=window_state, wa=wa, cycle=cycle,
+                         step=state.step)
+    return new_state, {"replica_divergence": div, "cycle": cycle}

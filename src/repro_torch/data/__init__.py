@@ -1,0 +1,2 @@
+from repro_torch.data.synthetic import SyntheticDataset, make_markov_lm_dataset
+from repro_torch.data.pipeline import DataPipeline, replica_batch_indices

@@ -32,7 +32,8 @@ def _lib():
     return lib
 
 
-def _check(q, k, v):
+def check_qkv(q, k, v):
+    """Raise on q/k/v the CUDA kernels do not take."""
     if not (q.device == k.device == v.device):
         raise ValueError(f"q/k/v on different devices: {q.device}, "
                          f"{k.device}, {v.device}")
@@ -57,15 +58,18 @@ def _check(q, k, v):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def flash_attention_fwd(q, k, v, *, window=None, logit_softcap=0.0):
+def flash_attention_fwd(q, k, v, *, window=None, logit_softcap=0.0,
+                        sm_scale=None):
     """Causal GQA flash forward. q: (B,S,Hq,D); k/v: (B,T,Hkv,D); query
-    row i and key j at positions i and j. Returns (out (B,S,Hq,D) in q's
-    dtype, lse (B,Hq,S) f32) — lse is what a recompute backward needs."""
+    row i and key j at positions i and j; ``sm_scale`` defaults to
+    D**-0.5. Returns (out (B,S,Hq,D) in q's dtype, lse (B,Hq,S) f32) —
+    lse is what a recompute backward needs."""
     global LAUNCHES
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, window=window,
-                                       logit_softcap=logit_softcap)
-    _check(q, k, v)
+                                       logit_softcap=logit_softcap,
+                                       sm_scale=sm_scale)
+    check_qkv(q, k, v)
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -78,8 +82,37 @@ def flash_attention_fwd(q, k, v, *, window=None, logit_softcap=0.0):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, S, T, Hq, Hkv, D,
         0 if window is None else int(window), float(logit_softcap),
-        float(D) ** -0.5,
+        float(D) ** -0.5 if sm_scale is None else float(sm_scale),
         int(q.dtype == torch.bfloat16), stream)
     build.check_launch(lib, rc, "flash_fwd")
     LAUNCHES += 1
     return out, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention, the counterpart of the reference's
+    ``custom_vjp``: the forward kernel saves (q, k, v, O, lse) and the
+    backward runs the two recompute sweeps (``flash_attention_bwd``), so
+    one gradient costs 1 forward and 2 backward launches. Under
+    ``torch.utils.checkpoint`` the forward runs again inside the
+    backward (and counts a second launch), exactly as ``jax.checkpoint``
+    recomputes it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, logit_softcap, sm_scale):
+        out, lse = flash_attention_fwd(q, k, v, window=window,
+                                       logit_softcap=logit_softcap,
+                                       sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(window=window, logit_softcap=logit_softcap,
+                        sm_scale=sm_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels.flash_attention_bwd import \
+            flash_attention_bwd
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), **ctx.opts)
+        return dq, dk, dv, None, None, None

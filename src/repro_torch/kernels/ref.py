@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.common.pytree import sum_axis0_f32
 from repro_torch.models.attention import NEG_INF, naive_attention
 from repro_torch.models.cache import paged_slot_pages
 from repro_torch.models.common import softcap
@@ -17,17 +18,91 @@ from repro_torch.models.common import softcap
 BLOCK = 64
 
 
-def flash_attention_fwd_ref(q, k, v, *, window=None, logit_softcap=0.0):
+def wa_window_update_ref(ring, total, new, idx, full_flag, inv_count):
+    """Slide-window push of W̄ = ``new``. ring: (I, P) f32 and total: (P,)
+    f32 are written IN PLACE (the reference donates both): ring row
+    ``idx`` takes ``new``, total becomes (total + new) - ring[idx]·full,
+    the reference's association. idx: 0-dim int tensor, full_flag and
+    inv_count: 0-dim f32 tensors, all on the device (nothing is read back
+    to the host). Returns (ring, total, avg = total·inv_count)."""
+    row = idx.reshape(1).long()
+    newf = new.float()
+    old = ring.index_select(0, row)[0] * full_flag
+    total.add_(newf).sub_(old)
+    ring.index_copy_(0, row, newf[None])
+    return ring, total, total * inv_count
+
+
+def wa_sync_fused_ref(stacked, ring, total, idx, full_flag, inv_count):
+    """The whole HWA sync (plain version of ``csrc/wa_update.cu``): the
+    K-replica mean as sum·(1/K), the sum taken sequentially from k = 0 as
+    the kernel takes it, then the window push. stacked: (K, P) f32.
+    Returns (ring, total, avg), ring and total written in place; W̄ is
+    ring[idx]."""
+    K = stacked.shape[0]
+    inv_k = torch.tensor(1.0 / K, dtype=torch.float32)
+    mean = sum_axis0_f32(stacked) * inv_k
+    return wa_window_update_ref(ring, total, mean, idx, full_flag, inv_count)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, window=None,
+                            logit_softcap=0.0, sm_scale=None):
+    """Recompute backward of causal GQA flash attention (the plain version
+    of ``csrc/flash_bwd.cu``), over the full score matrix in f32.
+
+    Same contract as the reference's ``_block_p_ds``: p = exp(capped s −
+    lse) with a fully-masked row's lse (NEG_INF) swapped for 0, p
+    re-masked to 0, dS = p·(dO·Vᵀ − δ) times the softcap derivative
+    1 − (s/c)² (s the capped score) and dscale; δ = rowsum(dO⊙O). The G
+    query heads of a GQA group sum into their kv head. Returns (dq, dk,
+    dv) in the dtypes of q, k, v."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    dscale = float(D) ** -0.5 if sm_scale is None else float(sm_scale)
+    dev = q.device
+
+    def heads(x):                                   # (B,S,Hq,D) -> (B,Hkv,G,S,D)
+        return x.float().reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4)
+
+    qf, dof = heads(q), heads(dout)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]           # (B,Hkv,1,T,D)
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    delta = (dout.float() * out.float()).sum(-1)             # (B,S,Hq)
+    delta = delta.reshape(B, S, Hkv, G).permute(0, 2, 3, 1)[..., None]
+    lse = lse.reshape(B, Hkv, G, S)[..., None]
+    lse_safe = torch.where(lse > 0.5 * NEG_INF, lse, torch.zeros_like(lse))
+    qp = torch.arange(S, device=dev)[:, None]
+    kp = torch.arange(T, device=dev)[None, :]
+    mask = kp <= qp
+    if window is not None:
+        mask &= (qp - kp) < window
+    s = softcap((qf @ kf.transpose(-1, -2)) * dscale, logit_softcap)
+    p = torch.where(mask, torch.exp(s - lse_safe), torch.zeros_like(s))
+    dp = dof @ vf.transpose(-1, -2)
+    ds = p * (dp - delta)
+    if logit_softcap:
+        ds = ds * (1.0 - torch.square(s / logit_softcap))
+    ds = ds * dscale
+    dq = (ds @ kf).permute(0, 3, 1, 2, 4).reshape(B, S, Hq, D)
+    dk = (ds.transpose(-1, -2) @ qf).sum(2).permute(0, 2, 1, 3)
+    dv = (p.transpose(-1, -2) @ dof).sum(2).permute(0, 2, 1, 3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_fwd_ref(q, k, v, *, window=None, logit_softcap=0.0,
+                            sm_scale=None):
     """Blockwise causal GQA flash forward (the plain version of
     ``csrc/flash_fwd.cu``). q: (B,S,Hq,D); k/v: (B,T,Hkv,D); query row i
     and key j sit at positions i and j. Visits only the key blocks between
     the window's band start and the causal diagonal, re-masks p to 0 on
     masked entries, and gives a fully-masked row O = 0 and lse = NEG_INF.
-    Returns (out (B,S,Hq,D) in q's dtype, lse (B,Hq,S) f32)."""
+    ``sm_scale`` defaults to D**-0.5. Returns (out (B,S,Hq,D) in q's
+    dtype, lse (B,Hq,S) f32)."""
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
-    dscale = float(D) ** -0.5
+    dscale = float(D) ** -0.5 if sm_scale is None else float(sm_scale)
     dev = q.device
     qf = q.float().reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4)
     kf = k.float().permute(0, 2, 1, 3)[:, :, None]          # (B,Hkv,1,T,D)

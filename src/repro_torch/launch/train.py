@@ -1,0 +1,76 @@
+"""Training launcher of the port: HWA (and the ported baselines) on the
+smoke config of an architecture.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --steps 8 --k 2 --window 3 --sync-period 2
+
+Runs on the card unless ``--device cpu``. Mirrors the JAX package's
+single-device launcher (``repro.launch.train``); its mesh-native,
+sync-tree, compressed-WA, fault-injection and checkpoint flags are not
+offered until those parts are ported (ROADMAP.md Queue A).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+from repro_torch.configs import ARCH_IDS, get_smoke_config
+from repro_torch.core.hwa import HWAConfig
+from repro_torch.data import DataPipeline, make_markov_lm_dataset
+from repro_torch.device import resolve_device
+from repro_torch.models.registry import build_model
+from repro_torch.train.trainer import PARALLEL, TrainConfig, Trainer, \
+    lm_task
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-3-2b", choices=ARCH_IDS)
+    ap.add_argument("--method", default="hwa",
+                    choices=["base", "ca", "online", "pmsgd", "hwa"])
+    ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--batch-size", type=int, default=16)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=0.3)
+    ap.add_argument("--k", type=int, default=2, help="HWA replicas K")
+    ap.add_argument("--sync-period", type=int, default=0, help="H (0=epoch)")
+    ap.add_argument("--window", type=int, default=10, help="I")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--attn-impl", default="",
+                    choices=["", "naive", "flash_pallas"],
+                    help="override the arch's attention implementation; "
+                         "flash_pallas selects the flash kernels (their "
+                         "plain versions on the CPU)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--out", default="")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch)
+    if args.attn_impl:
+        cfg = cfg.with_(attn_impl=args.attn_impl)
+    lm = build_model(cfg)
+    ds = make_markov_lm_dataset(vocab=cfg.vocab_size, seq_len=args.seq_len,
+                                n_train=2048, n_test=512, seed=args.seed,
+                                device=dev)
+    K = args.k if args.method in PARALLEL else 1
+    pipe = DataPipeline(ds, batch_size=args.batch_size, n_replicas=K,
+                        seed=args.seed)
+    tc = TrainConfig(
+        method=args.method, total_steps=args.steps,
+        batch_size=args.batch_size, base_lr=args.lr, seed=args.seed,
+        hwa=HWAConfig(n_replicas=K, sync_period=args.sync_period,
+                      window=args.window))
+    out = Trainer(lm_task(lm, pipe, seed=args.seed), tc).run(log=True)
+    print(f"[train] {args.arch}/{args.method} on {dev}: final "
+          f"{out['final']}, best {out['best']}")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"final": out["final"], "best": out["best"],
+                       "history": out["history"]}, f, indent=2)
+
+
+if __name__ == "__main__":
+    main()

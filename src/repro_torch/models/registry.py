@@ -4,14 +4,16 @@ Counterpart of ``repro.models.registry``. Parameters are a nested dict
 with the JAX package's layout and leaf names (``embed`` (V, D), ``head``
 (D, V), ``stack``: one stacked dict per pattern spec, ``ln_f``), so the
 bridge moves them leaf for leaf. :class:`LM` is the ``nn.Module`` face of
-the model: it builds parameters on a device and runs the paged serving
-entry points against a parameter tree it is handed, so a server can
+the model: it builds parameters on a device and runs the training loss
+and the paged serving entry points against a parameter tree it is
+handed, so a trainer can differentiate a replica's tree and a server can
 hot-swap the tree between steps.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
@@ -61,6 +63,74 @@ def _assemble_input(cfg, params, batch):
 def _head(cfg, params, x):
     logits = (x @ params["head"]).float()
     return softcap(logits, cfg.final_softcap)
+
+
+# ------------------------------------------------------------------
+# training path
+# ------------------------------------------------------------------
+
+
+def lm_apply(cfg: ModelConfig, params, batch):
+    """Teacher-forcing forward. Returns (logits (B, S, V) f32, aux)."""
+    x, positions = _assemble_input(cfg, params, batch)
+    x, aux = tfm.apply_stack_train(cfg, params["stack"], x, positions)
+    x = apply_norm(cfg, params["ln_f"], x)
+    return _head(cfg, params, x), aux
+
+
+def _xent(logits, targets):
+    """Mean token cross-entropy in f32. logits (..., V), targets (...)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+_XENT_CHUNK = 512
+
+
+def _chunk_sums(cfg, head, xb, tb):
+    logits = _head(cfg, {"head": head}, xb)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tb.long()[..., None])[..., 0]
+    return torch.sum(logz - gold), \
+        torch.sum((torch.argmax(logits, -1) == tb).float())
+
+
+def _head_and_xent(cfg, params, x, targets):
+    """Final projection + cross-entropy, chunked over the sequence as the
+    reference chunks it: past 512 tokens (and at a multiple of 512) each
+    512-token slice's logits are recomputed in the backward
+    (``torch.utils.checkpoint``), which bounds the f32 logits held at
+    (B, 512, V). Returns (loss_mean, acc_mean)."""
+    S = targets.shape[1]
+    if S % _XENT_CHUNK or S <= _XENT_CHUNK:
+        logits = _head(cfg, params, x)
+        acc = torch.mean((torch.argmax(logits, -1) == targets).float())
+        return _xent(logits, targets), acc
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    acc_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, S, _XENT_CHUNK):
+        xb, tb = x[:, c:c + _XENT_CHUNK], targets[:, c:c + _XENT_CHUNK]
+        if torch.is_grad_enabled():
+            l, a = checkpoint(_chunk_sums, cfg, params["head"], xb, tb,
+                              use_reentrant=False)
+        else:
+            l, a = _chunk_sums(cfg, params["head"], xb, tb)
+        loss_sum, acc_sum = loss_sum + l, acc_sum + a
+    n_tok = targets.numel()
+    return loss_sum / n_tok, acc_sum / n_tok
+
+
+def lm_loss(cfg: ModelConfig, params, batch):
+    """Returns (total, {"loss", "aux", "acc"}): total = mean token
+    cross-entropy + router_aux_coef * aux."""
+    x, positions = _assemble_input(cfg, params, batch)
+    x, aux = tfm.apply_stack_train(cfg, params["stack"], x, positions)
+    x = apply_norm(cfg, params["ln_f"], x)
+    loss, acc = _head_and_xent(cfg, params, x, batch["targets"])
+    total = loss + cfg.router_aux_coef * aux
+    return total, {"loss": loss, "aux": aux, "acc": acc}
 
 
 # ------------------------------------------------------------------
@@ -123,6 +193,12 @@ class LM(nn.Module):
 
     def init(self, generator: torch.Generator, device=None):
         return init_lm(self.cfg, generator, device)
+
+    def apply(self, params, batch):
+        return lm_apply(self.cfg, params, batch)
+
+    def loss(self, params, batch):
+        return lm_loss(self.cfg, params, batch)
 
     def init_paged_cache(self, max_batch, n_pages, page_size, dtype=None,
                          device=None):

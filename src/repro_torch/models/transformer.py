@@ -1,4 +1,5 @@
-"""Decoder stack of the dense LM: init and the paged serving path.
+"""Decoder stack of the dense LM: init, the training path and the paged
+serving path.
 
 Counterpart of ``repro.models.transformer``. A model is a *pattern* of
 sub-layer specs (a "super-block") repeated ``n_layers / len(pattern)``
@@ -11,7 +12,8 @@ the stacked layers, the port runs a Python loop:
   gemma2  : [local attn, global attn] x 23
 
 Only attention sub-layers of the dense family are ported; the MoE,
-recurrent (mLSTM/sLSTM) and hybrid kinds raise ``NotImplementedError``.
+recurrent (mLSTM/sLSTM) and hybrid kinds raise ``NotImplementedError``,
+as does ``remat="dots"`` (ROADMAP.md Queue A 5).
 
 The paged path updates the page pools IN PLACE (``index_put_``) where
 the JAX package returns new pools through donated buffers.
@@ -21,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import run_attention
 from repro_torch.models.cache import (TRASH_PAGE, init_paged_pool,
@@ -161,6 +164,76 @@ def iter_layers(cfg: ModelConfig, stack_params, caches):
     for n in range(n_blocks):
         for spec, p, c in zip(pattern, stack_params, caches):
             yield spec, _layer(p, n), _layer(c["pages"], n)
+
+
+# ------------------------------------------------------------------
+# training path (teacher forcing over the full sequence)
+# ------------------------------------------------------------------
+
+#: the ROADMAP item that ports the selective ("dots") rematerialization
+REMAT_DOTS_ITEM = "ROADMAP.md Queue A 5 (remat='dots')"
+
+
+def apply_layer_train(cfg, spec: LayerSpec, p, x, positions):
+    """Full-sequence layer application. Returns (x, aux) — aux is the MoE
+    router loss, zero for the dense family."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.kind != "attn" or spec.use_moe:
+        raise NotImplementedError(
+            f"layer kind {spec.kind!r} (use_moe={spec.use_moe}) is not "
+            f"ported yet")
+    h = apply_norm(cfg, p["ln1"], x)
+    k, v = _project_kv(cfg, p["attn"], h, positions)
+    attn_out = _attn_call(cfg, p["attn"], h, positions, k, v, positions,
+                          spec.window)
+    if "ln1_post" in p:
+        attn_out = apply_norm(cfg, p["ln1_post"], attn_out)
+    x = x + attn_out
+    mlp_out = _apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+    if "ln2_post" in p:
+        mlp_out = apply_norm(cfg, p["ln2_post"], mlp_out)
+    return x + mlp_out, aux
+
+
+def _maybe_remat(cfg: ModelConfig, fn):
+    """``remat="full"``: the block's activations are recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant, so parameters
+    captured by the block still get their gradients), as
+    ``jax.checkpoint`` does; ``"none"``: kept."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        raise NotImplementedError(f"remat='dots' is not ported yet: "
+                                  f"{REMAT_DOTS_ITEM}")
+    if cfg.remat != "full":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+
+    def remat(x, layer_params):
+        if not torch.is_grad_enabled():
+            return fn(x, layer_params)
+        return checkpoint(fn, x, layer_params, use_reentrant=False)
+    return remat
+
+
+def apply_stack_train(cfg: ModelConfig, stack_params, x, positions):
+    """x: (B, S, D) -> (y, aux_loss_sum). Runs the super-blocks in order
+    (the reference scans them), each under :func:`_maybe_remat`."""
+    pattern = block_pattern(cfg)
+    n_blocks = cfg.n_layers // len(pattern)
+
+    def block(x, layer_params):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for spec, p in zip(pattern, layer_params):
+            x, a = apply_layer_train(cfg, spec, p, x, positions)
+            aux = aux + a
+        return x, aux
+
+    block = _maybe_remat(cfg, block)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for n in range(n_blocks):
+        x, a = block(x, [_layer(p, n) for p in stack_params])
+        aux = aux + a
+    return x, aux
 
 
 # ------------------------------------------------------------------

@@ -36,6 +36,7 @@ def smoke():
 
 FLASH_CASES = [
     dict(B=1, S=512, T=512, Hq=32, Hkv=8, D=64, dtype=torch.bfloat16),
+    dict(B=4, S=512, T=512, Hq=32, Hkv=8, D=64, dtype=torch.bfloat16),
     dict(B=2, S=300, T=300, Hq=8, Hkv=2, D=64, dtype=torch.float32),
     dict(B=2, S=80, T=80, Hq=4, Hkv=4, D=128, dtype=torch.float32, window=24,
          cap=15.0),
@@ -52,6 +53,60 @@ PAGED_CASES = [
     dict(lens=[12, 7, 1], Hq=2, Hkv=2, D=64, ps=2, TW=32,
          dtype=torch.float32),
 ]
+
+
+SYNC_CASES = [dict(K=K, I=I, full=full, P=3 * 8192)
+              for K in (1, 2, 3, 4) for I in (1, 3) for full in (0.0, 1.0)]
+
+BWD_CASES = [
+    dict(B=4, S=512, Hq=32, Hkv=8, D=64, dtype=torch.bfloat16),
+    dict(B=4, S=512, Hq=32, Hkv=8, D=64, dtype=torch.bfloat16,
+         through_ops=True),
+    dict(B=2, S=300, Hq=8, Hkv=2, D=64, dtype=torch.float32),
+    dict(B=1, S=192, T=64, Hq=4, Hkv=2, D=64, dtype=torch.float32,
+         window=16),
+    dict(B=2, S=256, Hq=8, Hkv=4, D=128, dtype=torch.bfloat16, window=64,
+         cap=30.0),
+    dict(B=2, S=160, Hq=4, Hkv=1, D=72, dtype=torch.float32, window=48,
+         cap=8.0, through_ops=True),
+    dict(B=2, S=128, Hq=4, Hkv=2, D=128, dtype=torch.float32,
+         through_ops=True),
+]
+
+
+@pytest.mark.parametrize("case", SYNC_CASES)
+def test_sync_kernel_is_0ulp_against_plain(smoke, case):
+    res = smoke._sync_case("cuda", **case)
+    assert res["pass"], res
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_bwd_kernels_match_plain(smoke, case):
+    res = smoke._bwd_case("cuda", **case)
+    assert res["pass"], res
+
+
+def test_train_wrappers_count_launches(smoke):
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import wa_update as wa
+    q = torch.randn(1, 64, 4, 64, device="cuda", requires_grad=True)
+    k = torch.randn(1, 64, 2, 64, device="cuda", requires_grad=True)
+    before = (fab.DQ_LAUNCHES, fab.DKV_LAUNCHES, wa.LAUNCHES)
+    kops.flash_attention(q, k, k).sum().backward()
+    ring = torch.zeros(3, 8192, device="cuda")
+    total = torch.zeros(8192, device="cuda")
+    scal = (torch.tensor(0, dtype=torch.int32, device="cuda"),
+            torch.tensor(0.0, device="cuda"), torch.tensor(1.0, device="cuda"))
+    kops.hwa_sync_packed(torch.ones(2, 8192, device="cuda"), ring, total,
+                         *scal)
+    assert (fab.DQ_LAUNCHES, fab.DKV_LAUNCHES, wa.LAUNCHES) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1)
+    assert bool((ring[0] == 1).all()) and bool((ring[1:] == 0).all())
+    with pytest.raises(TypeError):
+        kops.hwa_sync_packed(torch.ones(2, 8192, device="cuda",
+                                        dtype=torch.float64),
+                             ring, total, *scal)
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
