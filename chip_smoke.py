@@ -12,9 +12,13 @@ raising on any failure:
 3. kernels   — each CUDA kernel against its plain PyTorch version on the
                card, at the main paths' shapes and edge cases: flash
                forward and paged decode with the JAX reference tests'
-               tolerances, the fused HWA sync at 0 ULP (K 1-4, I 1 and 3,
-               the training run's packed size), the flash backward sweeps
-               on the gradient matrix of tests/test_attention_ops.py.
+               tolerances; the five WA kernels (the f32 sync, the window
+               update, the online mean, and the bf16-ring update and
+               sync) at 0 ULP, bits compared (K 1-4, I 1 and 3, full 0
+               and 1, the training run's packed size with every ring row
+               but idx untouched, a bf16 stack, an inv_k override, the
+               per-leaf wrappers on a ragged leaf); the flash backward
+               sweeps on the gradient matrix of tests/test_attention_ops.py.
 4. serve     — granite-3-2b at full width and depth (bf16, random weights
                from a seed) serves 12 requests through PagedDecodeEngine
                with 8 slots; the kernels' launch counts must equal
@@ -32,7 +36,19 @@ raising on any failure:
                step time, tokens/s, mfu, sync time, peak memory.
    trace     — torch.profiler over 2 inner steps and 1 sync.
    reference — the model cut to 2 layers: loss, grads and W̿ after one
-               step and one sync, kernel path against plain path.
+               step and one sync, kernel path against plain path; then the
+               streaming window and the fp8 ring, kernel route (online
+               mean + plain update) against plain route over 3 syncs
+               (W̿ within 1.25 rel-ULP, replicas bit-equal).
+8. windows   — the training run (same model, data, seed, optimizer, K, H,
+               I) under three other windows, 10 steps and 5 syncs each:
+               8a bf16 ring at stride 1 (one bf16 fused sync per sync),
+               8b f32 ring at stride 2 through Trainer.run (online mean
+               every sync, window update on cycles 1, 3, 5), 8c bf16 ring
+               at stride 2. Gates: finite, falling loss; exact launch
+               counts; W̿ unchanged to the bit on skipped cycles and
+               changed on taken ones; 8a's W̿ within the reference's bf16
+               budget (4.0 rel-ULP) of phase 7's f32-ring W̿.
 6. yardstick — each kernel timed at its main path's shapes (CUDA-graph
                replay between CUDA events: device time, cold L2), beside
                its plain version, a library call where one exists, and
@@ -43,6 +59,7 @@ The second-to-last line is ``{"kernels": [...]}``, the last
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -59,6 +76,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.common.packing import ALIGN  # noqa: E402
+from repro_torch.common.quant import max_ulp, rel_ulp_error  # noqa: E402
 from repro_torch.common.pytree import (tree_flatten, tree_leaves,  # noqa: E402
                                        tree_unflatten)
 from repro_torch.configs import get_config  # noqa: E402
@@ -72,7 +90,10 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import wa_update as wa  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,  # noqa: E402
                                      flash_attention_fwd_ref,
-                                     paged_attention_ref, wa_sync_fused_ref)
+                                     online_mean_ref, paged_attention_ref,
+                                     wa_sync_fused_c_ref, wa_sync_fused_ref,
+                                     wa_window_update_c_ref,
+                                     wa_window_update_ref)
 from repro_torch.models.cache import TRASH_PAGE  # noqa: E402
 from repro_torch.models.registry import (build_model,  # noqa: E402
                                          lm_paged_decode_step,
@@ -93,6 +114,10 @@ BWD_SRC = "src/repro_torch/csrc/flash_bwd.cu"
 FLASH_TPU = "src/repro/kernels/flash_attention.py:68"
 PAGED_TPU = "src/repro/kernels/paged_attention.py:71"
 SYNC_TPU = "src/repro/kernels/wa_update.py:128"
+WA_TPU = {"wa_window_update": "src/repro/kernels/wa_update.py:89",
+          "online_mean": "src/repro/kernels/wa_update.py:272",
+          "wa_window_update_c": "src/repro/kernels/wa_update.py:173",
+          "wa_sync_fused_c": "src/repro/kernels/wa_update.py:222"}
 DQ_TPU = "src/repro/kernels/flash_attention_bwd.py:67"
 DKV_TPU = "src/repro/kernels/flash_attention_bwd.py:102"
 
@@ -122,12 +147,25 @@ def _reset_counts():
     """Zero every kernel wrapper's launch count (before a main path)."""
     fa.LAUNCHES = pa.LAUNCHES = wa.LAUNCHES = 0
     fab.DQ_LAUNCHES = fab.DKV_LAUNCHES = 0
+    wa.WINDOW_UPDATE_LAUNCHES = wa.ONLINE_MEAN_LAUNCHES = 0
+    wa.WINDOW_UPDATE_C_LAUNCHES = wa.SYNC_FUSED_C_LAUNCHES = 0
 
 
 def _counts():
     return {"flash_fwd": fa.LAUNCHES, "paged_attention": pa.LAUNCHES,
             "wa_sync_fused": wa.LAUNCHES, "flash_bwd_dq": fab.DQ_LAUNCHES,
-            "flash_bwd_dkv": fab.DKV_LAUNCHES}
+            "flash_bwd_dkv": fab.DKV_LAUNCHES,
+            "wa_window_update": wa.WINDOW_UPDATE_LAUNCHES,
+            "online_mean": wa.ONLINE_MEAN_LAUNCHES,
+            "wa_window_update_c": wa.WINDOW_UPDATE_C_LAUNCHES,
+            "wa_sync_fused_c": wa.SYNC_FUSED_C_LAUNCHES}
+
+
+def _want(**nonzero):
+    """The launch counts of a main path: ``nonzero`` and 0 elsewhere."""
+    want = dict.fromkeys(_counts(), 0)
+    want.update(nonzero)
+    return want
 
 
 # ------------------------------------------------------------ 1. device
@@ -254,19 +292,16 @@ def _paged_case(device, *, lens, Hq, Hkv, D, ps, TW, dtype, window=None,
 
 
 def _ulps(got, want):
-    """Largest distance in units in the last place between two f32
-    tensors of equal shape (0 = bit-identical). Only the elements whose
-    bits differ are widened, so a multi-GB buffer needs no copy."""
-    a = got.reshape(-1).view(torch.int32)
-    b = want.reshape(-1).view(torch.int32)
-    where = (a != b).nonzero()[:, 0]
+    """Largest distance in units in the last place of their dtype (f32 or
+    bf16) between two tensors of equal shape; 0 = the same bits, and +0
+    against -0 counts 1. Only the elements whose bits differ are
+    widened, so a multi-GB buffer needs no copy."""
+    view = torch.int32 if got.element_size() == 4 else torch.int16
+    a, b = got.reshape(-1), want.reshape(-1)
+    where = (a.view(view) != b.view(view)).nonzero()[:, 0]
     if where.numel() == 0:
         return 0
-    a, b = a[where].long(), b[where].long()
-    # sign-magnitude bits onto a line where adjacent floats differ by one
-    a = torch.where(a < 0, -(a & 0x7FFFFFFF) - 1, a)
-    b = torch.where(b < 0, -(b & 0x7FFFFFFF) - 1, b)
-    return int((a - b).abs().max())
+    return max(1, max_ulp(a[where], b[where], got.dtype))
 
 
 def _sync_case(device, *, K, I, full, P, seed=0):
@@ -294,6 +329,97 @@ def _sync_case(device, *, K, I, full, P, seed=0):
                                    for x, y in pairs)
     return {"shape": f"K{K} I{I} P{P} full{full}", "max_abs_err": err,
             "max_ulp": ulp, "tol": "0 ULP", "pass": ulp == 0}
+
+
+def _wa_case(device, kernel, *, K=2, I=3, full=1.0, P, stack_dtype=None,
+             inv_k=None, seed=0):
+    """One of the four slice-3 WA kernels against its plain version on the
+    same inputs: every output (ring, total, comp, avg, or the mean) must
+    have the plain version's bits, signed zeros included, and the ring
+    rows other than idx must keep their bits."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, dtype=torch.float32):
+        x = torch.randn(shape, generator=gen, device=device)
+        x.reshape(-1)[:8] = -0.0
+        return x.to(dtype)
+
+    idx = I - 1
+    scal = (torch.tensor(idx, dtype=torch.int32, device=device),
+            torch.tensor(full, dtype=torch.float32, device=device),
+            torch.tensor(1.0 / min(I, 2), dtype=torch.float32,
+                         device=device))
+    ring_dt = torch.bfloat16 if kernel.endswith("_c") else torch.float32
+    kept = None
+    if kernel == "online_mean":
+        stacked = rnd(K, P, dtype=stack_dtype or torch.float32)
+        got = [wa.online_mean(stacked, inv_k)]
+        want = [online_mean_ref(stacked, inv_k)]
+        shape = f"K{K} P{P} {str(stacked.dtype)[6:]} inv_k {inv_k}"
+    else:
+        ring = rnd(I, P, dtype=ring_dt)
+        kept = ring[torch.arange(I, device=device) != idx].clone()
+        total = rnd(P)
+        comp = rnd(P) * 1e-6
+        ring_p, total_p, comp_p = ring.clone(), total.clone(), comp.clone()
+        if kernel in ("wa_window_update", "wa_window_update_c"):
+            new = rnd(P)
+            if kernel == "wa_window_update":
+                want = wa_window_update_ref(ring_p, total_p, new, *scal)
+                got = wa.wa_window_update(ring, total, new, *scal)
+            else:
+                want = wa_window_update_c_ref(ring_p, None, total_p, comp_p,
+                                              new, *scal)
+                want = want[:1] + want[2:]
+                got = wa.wa_window_update_c(ring, total, comp, new, *scal)
+        else:
+            stacked = rnd(K, P)
+            want = wa_sync_fused_c_ref(stacked, ring_p, None, total_p,
+                                       comp_p, *scal)
+            want = want[:1] + want[2:]
+            got = wa.wa_sync_fused_c(stacked, ring, total, comp, *scal)
+            del stacked
+        shape = f"K{K} I{I} P{P} full{full}"
+    _sync(device)
+    ulp = max(_ulps(g, w) for g, w in zip(got, want))
+    err = 0.0 if ulp == 0 else max(float((g.float() - w.float()).abs().max())
+                                   for g, w in zip(got, want))
+    ok = ulp == 0
+    if kept is not None:
+        rows = got[0][torch.arange(I, device=device) != idx]
+        bits = torch.int16 if ring_dt == torch.bfloat16 else torch.int32
+        ok = ok and torch.equal(rows.view(bits), kept.view(bits))
+    return {"kernel": kernel, "shape": shape, "max_abs_err": err,
+            "max_ulp": ulp, "tol": "0 ULP", "pass": bool(ok)}
+
+
+def _leaf_case(device, seed=0):
+    """The per-leaf wrappers (``kernels.ops.wa_window_update`` and
+    ``online_mean``) on a ragged leaf, on the card against the same
+    wrappers handed CPU copies (which run the plain versions)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (301, 1001)                      # not an ALIGN multiple
+    ring = torch.randn((3,) + shape, generator=gen, device=device)
+    total = torch.randn(shape, generator=gen, device=device)
+    new = torch.randn(shape, generator=gen, device=device).bfloat16()
+    args = (1, 1.0, 1.0 / 3)
+    got = list(kops.wa_window_update(ring, total, new, *args))
+    want = list(kops.wa_window_update(ring.cpu(), total.cpu(), new.cpu(),
+                                      *args))
+    for dt in (torch.float32, torch.bfloat16):
+        stacked = torch.randn((3,) + shape, generator=gen,
+                              device=device).to(dt)
+        got.append(kops.online_mean(stacked))
+        want.append(kops.online_mean(stacked.cpu()))
+    _sync(device)
+    ok = all(tuple(g.shape) == tuple(w.shape) and g.dtype == w.dtype
+             for g, w in zip(got, want))
+    ulp = max(_ulps(g.cpu(), w) for g, w in zip(got, want))
+    return {"kernel": "per-leaf", "shape": f"leaf {shape}",
+            "max_abs_err": 0.0 if ulp == 0 else max(
+                float((g.cpu().float() - w.float()).abs().max())
+                for g, w in zip(got, want)),
+            "max_ulp": ulp, "tol": "0 ULP", "pass": ok and ulp == 0}
 
 
 def _bwd_case(device, *, B, S, Hq, Hkv, D, dtype, T=None, window=None,
@@ -412,6 +538,26 @@ def phase_kernels(device):
     # the training run's packed size (K = 2, I = 3)
     sync.insert(0, _sync_case(device, K=2, I=3, full=1.0, P=P_train, seed=1))
     torch.cuda.empty_cache()
+    slice3 = {}
+    for kernel in ("wa_window_update", "online_mean", "wa_window_update_c",
+                   "wa_sync_fused_c"):
+        cases = [_wa_case(device, kernel, P=P_train, seed=2)]
+        torch.cuda.empty_cache()
+        Ks = (1, 2, 3, 4) if kernel in ("online_mean", "wa_sync_fused_c") \
+            else (2,)
+        Is = (1,) if kernel == "online_mean" else (1, 3)
+        fulls = (1.0,) if kernel == "online_mean" else (0.0, 1.0)
+        cases += [_wa_case(device, kernel, K=K, I=I, full=full, P=3 * ALIGN,
+                           seed=100 * K + 10 * I + int(full))
+                  for K in Ks for I in Is for full in fulls]
+        if kernel == "online_mean":
+            cases += [_wa_case(device, kernel, K=K, P=3 * ALIGN,
+                               stack_dtype=torch.bfloat16, seed=K)
+                      for K in (1, 2, 3)]
+            cases.append(_wa_case(device, kernel, K=2, P=3 * ALIGN,
+                                  inv_k=0.125, seed=9))
+            cases.append(_leaf_case(device))
+        slice3[kernel] = cases
     bwd = [
         # the training shape, through the wrappers the model calls
         _bwd_case(device, B=4, S=512, Hq=32, Hkv=8, D=64,
@@ -431,7 +577,7 @@ def phase_kernels(device):
                    window=w, cap=cap, seed=i, through_ops=True)
          for i, (S, Hq, Hkv, D, w, cap, dt) in enumerate(GRAD_MATRIX)]
     result = {"flash_fwd": flash, "paged_attention": paged,
-              "wa_sync_fused": sync, "flash_bwd": bwd}
+              "wa_sync_fused": sync, "flash_bwd": bwd, **slice3}
     summary = {name: {"cases": len(cases),
                       "max_abs_err": max(c["max_abs_err"] for c in cases),
                       "pass": all(c["pass"] for c in cases),
@@ -546,9 +692,8 @@ def phase_serve(device, cfg=None, *, n_requests=12, max_batch=8,
     if n_requests > max_batch and not any(s > 0 for s in log["admit_at_step"]):
         raise AssertionError("no admission happened mid-run")
     if dev.type == "cuda":
-        want = {"flash_fwd": cfg.n_layers * admissions,
-                "paged_attention": cfg.n_layers * steps,
-                "wa_sync_fused": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        want = _want(flash_fwd=cfg.n_layers * admissions,
+                     paged_attention=cfg.n_layers * steps)
         if launches != want:
             raise AssertionError(f"launch counts {launches} != {want}")
 
@@ -850,9 +995,9 @@ def phase_train(device):
     L = cfg.n_layers
     evals = (len(out["history"]) + 1) * n_eval_batches   # + final evaluate
     evals += syncs * len(probe)                           # W̿ train probe
-    want = {"flash_fwd": steps * K * L * 2 + evals * L, "paged_attention": 0,
-            "wa_sync_fused": syncs, "flash_bwd_dq": steps * K * L,
-            "flash_bwd_dkv": steps * K * L}
+    want = _want(flash_fwd=steps * K * L * 2 + evals * L,
+                 wa_sync_fused=syncs, flash_bwd_dq=steps * K * L,
+                 flash_bwd_dkv=steps * K * L)
     if dev.type == "cuda" and launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if len(out["history"]) != syncs or not all(
@@ -887,6 +1032,8 @@ def phase_train(device):
         "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
                          if dev.type == "cuda" else float("nan")),
         "wall_s": wall, "lr": TRAIN["lr"],
+        # for phase 8: the per-replica losses and the final W̿ (host)
+        "per_step_loss": per_step.tolist(), "final_wa": wa_probe["prev"],
     }
     print(f"[train] granite-3-2b L{L} (cut from 40) d{cfg.d_model} "
           f"H{cfg.n_heads}/{cfg.n_kv_heads} ff{cfg.d_ff} V{cfg.vocab_size} "
@@ -933,6 +1080,162 @@ def phase_train_trace(device, trainer, train):
                   top=12)
     del box, state
     return stats
+
+
+# ------------------------------------------------------------ 8. windows
+
+#: phase 8's runs: (name, ring dtype, window_stride, through Trainer.run)
+WINDOW_RUNS = (("8a", torch.bfloat16, 1, False),
+               ("8b", torch.float32, 2, True),
+               ("8c", torch.bfloat16, 2, False))
+#: benchmarks/thresholds.json ulp_budgets: a compressed ring's W̿ within
+#: 4 ULPs of its dtype (``rel_ulp_error``) of the f32 ring's
+ULP_BUDGET = 4.0
+
+
+def _window_run(device, trainer, train, name, ring_dtype, stride, via_run):
+    """The training run under another window: ``trainer``'s model, data,
+    optimizer and K/H/I, with ``window_stride`` and ``ring_dtype``. Runs
+    through ``Trainer.run`` (``via_run``) or drives the trainer's step and
+    sync on a state that ``hwa_init`` built with the ring dtype. Returns
+    the run's record; raises if a gate fails."""
+    dev = torch.device(device)
+    K, H, steps = TRAIN["K"], TRAIN["H"], TRAIN["steps"]
+    syncs = steps // H
+    L = train["layers"]
+    base_cfg, hwa_step, sync_step = trainer.hwa_cfg, trainer._hwa_step, \
+        trainer._sync_step
+    cfg = dataclasses.replace(base_cfg, window_stride=stride)
+    trainer.hwa_cfg = cfg
+    step_clock, sync_clock = _Clock(dev), _Clock(dev)
+    timed_step, timed_sync = step_clock.wrap(hwa_step), \
+        sync_clock.wrap(sync_step)
+    losses, deltas = [], []
+    init = trainer.task.init()
+    names = _leaf_names(init)
+    box = {"prev": [x.detach().to("cpu") for x in tree_leaves(init)]}
+    del init
+
+    def logged_step(state, step):
+        state, m = timed_step(state, step)
+        losses.append(m["per_replica_loss"])
+        return state, m
+
+    def checked_sync(state):
+        # outside the clock: the ring's size, and W̿ against the last one
+        state, m = timed_sync(state)
+        ring = state.window_state.ring
+        box["ring"] = (ring.numel(), ring.element_size())
+        leaves = tree_leaves(state.wa)
+        same = all(torch.equal(x, p.to(x.device))
+                   for x, p in zip(leaves, box["prev"]))
+        deltas.append((same, _rel_change(leaves, box["prev"])))
+        box["prev"] = [x.detach().to("cpu") for x in leaves]
+        return state, m
+
+    trainer._hwa_step, trainer._sync_step = logged_step, checked_sync
+    n_eval_batches = len(list(trainer.task.pipeline.eval_batches()))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    if via_run:
+        out = trainer.run()
+        evals = (len(out["history"]) + 1) * n_eval_batches
+        del out
+    else:
+        params = trainer.task.init()
+        state = hwa_init(cfg, params, trainer.optimizer, ring_dtype=ring_dtype)
+        del params
+        for step in range(steps):
+            state, _ = trainer._hwa_step(state, step)
+            if (step + 1) % H == 0:
+                state, _ = trainer._sync_step(state)
+        del state
+        evals = 0
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else float("nan"))
+    trainer.hwa_cfg, trainer._hwa_step, trainer._sync_step = \
+        base_cfg, hwa_step, sync_step
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    taken = [(c - 1) % stride == 0 for c in range(1, syncs + 1)]
+    if stride == 1 and ring_dtype == torch.bfloat16:
+        route, wa_counts = "_sync_fused_c", {"wa_sync_fused_c": syncs}
+    else:
+        update = "wa_window_update_c" if ring_dtype == torch.bfloat16 \
+            else "wa_window_update"
+        route = "two-launch"
+        wa_counts = {"online_mean": syncs, update: sum(taken)}
+    want = _want(flash_fwd=steps * K * L * 2 + evals * L,
+                 flash_bwd_dq=steps * K * L, flash_bwd_dkv=steps * K * L,
+                 **wa_counts)
+    per_step = torch.stack(losses).float().cpu()
+    step_loss = per_step.mean(1).tolist()
+    first, last = np.mean(step_loss[:2]), np.mean(step_loss[-2:])
+    fails = []
+    if not bool(torch.isfinite(per_step).all()) or not last < first:
+        fails.append(f"loss not finite or not falling: {step_loss}")
+    if dev.type == "cuda" and launches != want:
+        fails.append(f"launch counts {launches} != {want}")
+    for c, ((same, rel), take) in enumerate(zip(deltas, taken), 1):
+        if take and (same or not rel > 0):
+            fails.append(f"W̿ did not change on taken cycle {c}")
+        if not take and not same:
+            fails.append(f"W̿ changed on skipped cycle {c} ({rel})")
+    res = {"run": name, "ring_dtype": str(ring_dtype)[6:], "stride": stride,
+           "route": route, "via_run": via_run, "launches": launches,
+           "step_loss": step_loss, "taken": taken,
+           "wa_unchanged": [d[0] for d in deltas],
+           "wa_rel_change": [d[1] for d in deltas],
+           "losses_bit_equal_to_phase7":
+               per_step.tolist() == train["per_step_loss"],
+           "median_sync_ms": float(np.median(sync_clock.ms())),
+           "median_step_ms": float(np.median(step_clock.ms())),
+           "peak_mem_gib": peak, "ring_bytes": box["ring"][0] * box["ring"][1],
+           "ring_bytes_f32": box["ring"][0] * 4, "wall_s": wall}
+    if name == "8a":
+        # the bf16 ring's final W̿ against phase 7's f32 ring's, leaf by leaf
+        errs = [rel_ulp_error(p7.to(dev), x.to(dev), "bf16")
+                for p7, x in zip(train["final_wa"], box["prev"])]
+        worst = int(np.argmax(errs))
+        res["wa_rel_ulp_bf16"] = errs[worst]
+        res["wa_rel_ulp_worst_leaf"] = (f"{names[worst]} "
+                                        f"{str(box['prev'][worst].dtype)[6:]}")
+        if not res["wa_rel_ulp_bf16"] <= ULP_BUDGET:
+            fails.append(f"W̿ {res['wa_rel_ulp_bf16']} bf16 rel-ULP from "
+                         f"phase 7's (budget {ULP_BUDGET})")
+    print(f"[windows] {name}: {res['ring_dtype']} ring, stride {stride}, "
+          f"{route} ({'Trainer.run' if via_run else 'hwa_init + steps'}): "
+          f"loss per step {[round(x, 4) for x in step_loss]}, per-replica "
+          f"losses bit-equal to phase 7: {res['losses_bit_equal_to_phase7']}"
+          f"; per sync taken {taken}, W̿ unchanged {res['wa_unchanged']}, "
+          f"||dW̿||/||W̿|| {[float(f'{x:.4g}') for x in res['wa_rel_change']]}"
+          + (f"; final W̿ vs phase 7's {res['wa_rel_ulp_bf16']:.4f} bf16 "
+             f"rel-ULP at {res['wa_rel_ulp_worst_leaf']} (budget "
+             f"{ULP_BUDGET})" if name == "8a" else ""))
+    print(f"[windows] {name}: launches {launches}; median sync "
+          f"{res['median_sync_ms']:.3f} ms, median step "
+          f"{res['median_step_ms']:.3f} ms, peak memory {peak:.3f} GiB, ring "
+          f"{res['ring_bytes'] / 2**30:.3f} GiB ({res['ring_dtype']}; f32 "
+          f"{res['ring_bytes_f32'] / 2**30:.3f} GiB), wall {wall:.2f} s | "
+          f"{CARD['line']}")
+    if fails:
+        raise AssertionError(f"phase 8 run {name}: {fails}")
+    return res
+
+
+def phase_windows(device, trainer, train):
+    """Phase 8: the training run under the three windows of WINDOW_RUNS,
+    each run's state dropped before the next starts."""
+    return {name: _window_run(device, trainer, train, name, dt, stride, run)
+            for name, dt, stride, run in WINDOW_RUNS}
 
 
 #: the kernel path against the plain path at 2 layers, bf16. Loss and
@@ -1010,7 +1313,91 @@ def phase_train_reference(device, n_layers=2, seed=0):
     if not ok:
         raise AssertionError("training kernel path disagrees with the "
                              "plain path")
-    return {"dloss": dloss, "grad_rel": grad_rel, "wa_err": wa_err}
+    routes = _window_routes(dev, trainer, build_model(base), params)
+    return {"dloss": dloss, "grad_rel": grad_rel, "wa_err": wa_err,
+            "window_routes": routes}
+
+
+#: the 2-layer route check's W̿ limit, in ``rel_ulp_error`` units of the
+#: window's dtype (bf16 for the streaming window, fp8 for the fp8 ring).
+#: The routes feed the window the f32 mean and its bf16 rounding, less
+#: than half a bf16 ULP apart, so a stored value (an fp8 slot, the
+#: streaming window's bf16 W̿) may round one step apart: at most 1 ULP of
+#: its dtype at its magnitude, plus 1/16 of an fp8 ULP for the bf16 cast
+#: of the fp8 ring's W̿. A push that stores a zero W̄ (a lost slot or scale
+#: row) reads 1 / (3 eps) at I = 3 slots, far above it.
+ROUTE_ULP_LIMIT = 1.25
+
+
+def _window_routes(dev, trainer, lm, params, syncs=3):
+    """The streaming window and the fp8 ring at 2 layers: the kernel route
+    (the online-mean kernel, then the plain update, as in the reference)
+    against the plain route (the plain mean in the leaves' dtype and the
+    plain update) over ``syncs`` steps and syncs on the same weights,
+    batches and attention path. The plain route feeds the window the mean
+    rounded to bf16, the kernel route the f32 mean, so W̿ agrees within
+    ROUTE_ULP_LIMIT, and the replicas restart from the same bf16 mean on
+    both routes: bit-equal. Two wrong pushes are read against the plain
+    W̿ beside it, ungated: one that stored a zero W̄ ((syncs - 1) / syncs
+    of the plain W̿, with ``syncs`` = I slots), and one that was dropped
+    (the plain W̿ one sync earlier)."""
+    from repro_torch.core.hwa import hwa_inner_step, hwa_sync
+    K, I, L = TRAIN["K"], TRAIN["I"], lm.cfg.n_layers
+    pipe = trainer.task.pipeline
+
+    def loss(p, b):
+        return lm.loss(p, {"tokens": b[0], "targets": b[1]})
+
+    out = {}
+    for kind, ring_dtype, unit in (("streaming", torch.float32, "bf16"),
+                                   ("ring", torch.float8_e4m3fn, "fp8")):
+        runs = {}
+        for kern in (True, False):
+            hcfg = HWAConfig(n_replicas=K, sync_period=1, window=I,
+                             window_kind=kind, use_kernels=kern)
+            state = hwa_init(hcfg, params, trainer.optimizer,
+                             ring_dtype=ring_dtype)
+            _reset_counts()
+            for step in range(syncs):
+                earlier = [x.detach().clone() for x in tree_leaves(state.wa)]
+                state, _ = hwa_inner_step(hcfg, state,
+                                          pipe.stacked_batch(step), loss,
+                                          trainer.optimizer,
+                                          trainer.schedule(step))
+                state, _ = hwa_sync(hcfg, state)
+            _sync(dev)
+            runs[kern] = ([x.detach() for x in tree_leaves(state.wa)],
+                          [x.detach() for x in tree_leaves(state.inner)],
+                          _counts(), earlier)
+            del state, earlier
+        err = max(rel_ulp_error(p, k, unit)
+                  for k, p in zip(runs[True][0], runs[False][0]))
+        lost = max(rel_ulp_error(p, p.float() * ((syncs - 1) / syncs), unit)
+                   for p in runs[False][0])
+        dropped = max(rel_ulp_error(p, e, unit)
+                      for p, e in zip(runs[False][0], runs[False][3]))
+        same_inner = all(torch.equal(a, b)
+                         for a, b in zip(runs[True][1], runs[False][1]))
+        want = _want(flash_fwd=syncs * K * L * 2, flash_bwd_dq=syncs * K * L,
+                     flash_bwd_dkv=syncs * K * L, online_mean=syncs)
+        finite = all(bool(torch.isfinite(x).all()) for x in runs[True][0])
+        ok = (err <= ROUTE_ULP_LIMIT and same_inner and finite
+              and (dev.type != "cuda" or runs[True][2] == want))
+        name = f"{kind} {str(ring_dtype)[6:]}"
+        out[name] = {"wa_rel_ulp": err, "zero_push_rel_ulp": lost,
+                     "dropped_push_rel_ulp": dropped, "unit": unit, "inner_bit_equal": same_inner,
+                     "launches": runs[True][2], "pass": ok}
+        print(f"[train-reference] {name} window, {syncs} steps + syncs: "
+              f"kernel route (online_mean kernel + plain update) vs plain "
+              f"route W̿ {err:.4f} {unit} rel-ULP (limit {ROUTE_ULP_LIMIT}; "
+              f"a push of a zero W̄ reads {lost:.4f}, a dropped push "
+              f"{dropped:.4f}), replicas bit-equal "
+              f"{same_inner}, kernel-route launches {runs[True][2]}: "
+              f"{'pass' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} window: kernel route disagrees "
+                                 f"with the plain route")
+    return out
 
 
 def _leaf_names(tree, prefix=""):
@@ -1259,6 +1646,70 @@ def phase_yardstick_train(device, train, kernels):
     return entries
 
 
+def phase_yardstick_windows(device, train, kernels, windows):
+    """The four slice-3 WA kernels at the training run's packed size
+    (P = 687.9M, K = 2, I = 3): the window update, the online mean (with
+    ``torch.mean`` as the library call), and the bf16-ring update and
+    sync. Their launches are phase 8's, summed over its runs."""
+    dev = torch.device(device)
+    K, I = TRAIN["K"], TRAIN["I"]
+    P = -(-train["params"] // ALIGN) * ALIGN
+    gen = torch.Generator(device=dev).manual_seed(12)
+    scal = (torch.tensor(1, dtype=torch.int32, device=dev),
+            torch.tensor(1.0, device=dev), torch.tensor(1.0 / I, device=dev))
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # name: (inputs, kernel, plain, library, bytes, f32 operations); bytes
+    # count each input read once and each output written once
+    cases = {
+        "wa_window_update": (
+            lambda: (rnd(I, P), rnd(P), rnd(P)),
+            lambda r, t, n: wa.wa_window_update(r, t, n, *scal),
+            lambda r, t, n: wa_window_update_ref(r, t, n, *scal), None,
+            24 * P, 4 * P),
+        "online_mean": (
+            lambda: (rnd(K, P),), wa.online_mean, online_mean_ref,
+            lambda x: torch.mean(x, 0), (4 * K + 4) * P, (K + 1) * P),
+        "wa_window_update_c": (
+            lambda: (rnd(I, P, dtype=bf16), rnd(P), rnd(P) * 1e-6, rnd(P)),
+            lambda r, t, c, n: wa.wa_window_update_c(r, t, c, n, *scal),
+            lambda r, t, c, n: wa_window_update_c_ref(r, None, t, c, n,
+                                                      *scal),
+            None, 28 * P, 8 * P),
+        "wa_sync_fused_c": (
+            lambda: (rnd(K, P), rnd(I, P, dtype=bf16), rnd(P),
+                     rnd(P) * 1e-6),
+            lambda x, r, t, c: wa.wa_sync_fused_c(x, r, t, c, *scal),
+            lambda x, r, t, c: wa_sync_fused_c_ref(x, r, None, t, c, *scal),
+            None, (4 * K + 24) * P, (K + 8) * P),
+    }
+    entries = []
+    for name, (make, kernel, plain, library, nbytes, flops) in cases.items():
+        sets = [make()]
+        ms = _time_ms(kernel, sets, 10)
+        plain_ms = _time_ms(plain, sets, 3, warmup=1)
+        lib_ms = _time_ms(library, sets, 10) if library else None
+        bound, by = _bound(flops, nbytes, torch.float32)
+        del sets
+        torch.cuda.empty_cache()
+        by_run = {run: rec["launches"][name] for run, rec in windows.items()}
+        entries.append({
+            "name": name, "route": "cuda", "source": SYNC_SRC,
+            "replaces": WA_TPU[name], "launches": sum(by_run.values()),
+            "launches_by_path": by_run,
+            "max_abs_err": max(c["max_abs_err"] for c in kernels[name]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms})
+        print(f"[yardstick] {name} K{K} I{I} P{P}: {ms:.4f} ms (plain "
+              f"{plain_ms:.3f}, library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} (torch.mean)'}"
+              f", bound {bound:.4f} by {by}) | {CARD['line']}")
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1276,12 +1727,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     train, trainer = phase_train(device)
     phase_train_trace(device, trainer, train)
+    windows = phase_windows(device, trainer, train)
     del trainer
+    train.pop("final_wa")
+    gc.collect()
     torch.cuda.empty_cache()
     phase_train_reference(device)
     torch.cuda.empty_cache()
     entries = phase_yardstick(device, serve, kernels)
     entries += phase_yardstick_train(device, train, kernels)
+    entries += phase_yardstick_windows(device, train, kernels, windows)
     # the flash forward runs on both paths: its launches are the sum
     entries[0]["launches_by_path"] = {
         "serve": serve["launches"]["flash_fwd"],

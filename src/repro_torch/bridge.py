@@ -3,9 +3,9 @@ tensors and back.
 
 The port keeps the JAX package's parameter layout (nested dicts and
 lists, stacked layers, the same leaf names), so a bridge is a leaf-for-
-leaf copy. bf16 crosses as a 16-bit integer view, so the bits are exact;
-bf16 is recognised by itemsize and dtype name, without importing the
-package that defines the numpy bf16 type.
+leaf copy. bf16 and fp8-e4m3 cross as 16- and 8-bit integer views, so
+the bits are exact; both are recognised by itemsize and dtype name,
+without importing the package that defines the numpy types.
 """
 from __future__ import annotations
 
@@ -15,15 +15,16 @@ import torch
 from repro_torch.device import resolve_device
 
 
-def _is_bf16(arr: np.ndarray) -> bool:
-    return arr.dtype.itemsize == 2 and arr.dtype.name == "bfloat16"
+#: narrow float dtypes numpy lacks: (name, itemsize) -> (bits view, torch)
+_VIEWS = {("bfloat16", 2): (np.int16, torch.bfloat16),
+          ("float8_e4m3fn", 1): (np.uint8, torch.float8_e4m3fn)}
 
 
 def _leaf_to_torch(arr, device) -> torch.Tensor:
     arr = np.array(arr, copy=True)        # writable and contiguous
-    if _is_bf16(arr):
-        return torch.from_numpy(arr.view(np.int16)).view(
-            torch.bfloat16).to(device)
+    view = _VIEWS.get((arr.dtype.name, arr.dtype.itemsize))
+    if view is not None:
+        return torch.from_numpy(arr.view(view[0])).view(view[1]).to(device)
     return torch.from_numpy(arr).to(device)
 
 
@@ -45,13 +46,16 @@ def params_from_numpy(tree, device=None):
 def params_to_numpy(tree, bf16_dtype=None):
     """The reverse of :func:`params_from_numpy`. bf16 leaves come back as
     ``bf16_dtype`` (a numpy bf16 dtype the caller supplies) viewed from
-    their bits, or as ``uint16`` bits when it is None."""
+    their bits, or as ``uint16`` bits when it is None; fp8 leaves come
+    back as their ``uint8`` bits."""
 
     def leaf(t: torch.Tensor):
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             bits = t.view(torch.int16).numpy().view(np.uint16)
             return bits if bf16_dtype is None else bits.view(bf16_dtype)
+        if t.dtype == torch.float8_e4m3fn:
+            return t.view(torch.uint8).numpy()
         return t.numpy()
 
     def walk(x):
@@ -67,27 +71,33 @@ def params_to_numpy(tree, bf16_dtype=None):
 def hwa_state_from_numpy(state, device=None):
     """A JAX ``HWAState`` whose leaves are numpy arrays (``jax.device_get``
     of one) -> the port's ``core.hwa.HWAState`` on ``device``: the stacked
-    inner parameters and optimizer state, the f32 window ring, total,
-    count and cursor, W̿ and the counters. Read by attribute, so nothing
-    of the JAX package is imported."""
+    inner parameters and optimizer state, the window's kind, ring (None
+    for the streaming window; f32, bf16 or fp8), total, Kahan comp, fp8
+    scales, count and cursor, W̿ and the counters. Read by attribute, so
+    nothing of the JAX package is imported."""
     from repro_torch.common.packing import pack_spec
     from repro_torch.core.hwa import HWAState
     from repro_torch.core.offline import WindowState
 
+    def opt(x):
+        return None if x is None else params_from_numpy(x, device)
+
+    def int32(x):
+        return params_from_numpy(x, device).to(torch.int32)
+
     ws = state.window_state
-    if ws.kind != "ring" or getattr(ws, "comp", None) is not None:
-        raise NotImplementedError("only the f32 ring window is ported")
     wa = params_from_numpy(state.wa, device)
+    ring = opt(ws.ring)
+    spec = pack_spec(wa)
+    if ring is not None:
+        spec = spec.with_ring_dtype(ring.dtype)
     window_state = WindowState(
-        ring=params_from_numpy(ws.ring, device),
-        total=params_from_numpy(ws.total, device),
-        count=params_from_numpy(ws.count, device).to(torch.int32),
-        next_idx=params_from_numpy(ws.next_idx, device).to(torch.int32),
-        window=int(ws.window), kind=ws.kind, spec=pack_spec(wa))
+        ring=ring, total=params_from_numpy(ws.total, device),
+        count=int32(ws.count), next_idx=int32(ws.next_idx),
+        window=int(ws.window), kind=ws.kind, spec=spec,
+        comp=opt(getattr(ws, "comp", None)),
+        scales=opt(getattr(ws, "scales", None)))
     return HWAState(inner=params_from_numpy(state.inner, device),
                     inner_opt=params_from_numpy(state.inner_opt, device),
                     window_state=window_state, wa=wa,
-                    cycle=params_from_numpy(state.cycle, device)
-                    .to(torch.int32),
-                    step=params_from_numpy(state.step, device)
-                    .to(torch.int32))
+                    cycle=int32(state.cycle), step=int32(state.step))

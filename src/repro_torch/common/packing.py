@@ -10,8 +10,10 @@ buffer is byte-equal to the reference's. Packing copies values and
 never computes with them: any elementwise update of the buffer is
 bit-identical to the same update applied leaf by leaf.
 
-The sharded and grouped layouts, ``repack`` and the JSON spec wait for
-ROADMAP.md Queue A 8 and 13.
+A spec also names the storage dtype of the WA ring laid out by it
+(``ring_dtype``: precision metadata, not layout) and, for an fp8 ring,
+its number of per-block scales. The sharded and grouped layouts,
+``repack`` and the JSON spec wait for ROADMAP.md Queue A 8 and 13.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ class PackSpec:
     size: int          # real elements
     padded: int        # buffer length, an ``align`` multiple
     align: int = ALIGN
+    ring_dtype: str = "float32"   # WA ring storage dtype (not layout)
 
     @property
     def n_leaves(self) -> int:
@@ -55,6 +58,20 @@ class PackSpec:
     @property
     def pad_waste(self) -> float:
         return 1.0 - self.size / self.padded
+
+    @property
+    def scale_blocks(self) -> int:
+        """fp8 scales per ring row: one per ``align`` block."""
+        return self.padded // self.align
+
+    def with_ring_dtype(self, dtype) -> "PackSpec":
+        """This layout with its WA ring precision set (a dtype or a
+        ``f32``/``bf16``/``fp8`` token); the layout is untouched."""
+        from repro_torch.common.quant import wa_dtype
+        name = str(wa_dtype(dtype)).removeprefix("torch.")
+        if name == self.ring_dtype:
+            return self
+        return dataclasses.replace(self, ring_dtype=name)
 
 
 def pack_spec(tree: PyTree, align: int = ALIGN) -> PackSpec:

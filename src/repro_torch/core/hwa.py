@@ -17,11 +17,11 @@ flash kernels, called through ``ctypes``, need no batching rule).
 ``inner``, ``inner_opt`` and the window buffers are updated in place;
 the functions return the state for the reference's calling pattern.
 
-Not ported yet (they raise ``NotImplementedError``): ``resilient``
-(ROADMAP.md Queue A 12), ``window_stride > 1`` and
-``window_kind="streaming"`` (Queue A 3), bf16/fp8 rings (Queue A 10),
-the two-launch kernel route (Queue B 2-3) and the mesh-native functions
-(Queue A 13).
+Every window of the reference is ported: the f32 ring, the bf16 and fp8
+rings (``hwa_init(ring_dtype=...)``), the sparse stride and the
+streaming window. Not ported yet (they raise ``NotImplementedError``):
+``resilient`` (ROADMAP.md Queue A 12) and the two-level sync tree and
+mesh-native functions (Queue A 13).
 """
 from __future__ import annotations
 
@@ -33,12 +33,12 @@ import torch
 from repro_torch.common.packing import pack, pack_stacked, unpack
 from repro_torch.common.pytree import tree_flatten, tree_leaves, \
     tree_mean_axis0, tree_unflatten
-from repro_torch.core.offline import (STREAMING_ITEM, WindowState,
+from repro_torch.core.offline import (WindowState, window_average_packed,
                                       window_init, window_scalars,
                                       window_update_packed)
 from repro_torch.core.online import (broadcast_to_replicas, online_average,
                                      replica_divergence, restart_replicas)
-from repro_torch.kernels import ops as kops
+from repro_torch.kernels import wa_update
 from repro_torch.optim.base import Optimizer, apply_updates
 
 PyTree = Any
@@ -52,7 +52,7 @@ class HWAConfig:
     window_stride: int = 1       # sparse window (§III-B): every J-th cycle
     window_kind: str = "ring"    # ring | streaming
     avg_opt_state: bool = False  # also average optimizer moments at sync
-    use_kernels: bool = False    # the fused sync kernel
+    use_kernels: bool = False    # the WA kernels (fused or two-launch)
     outer_every: int = 1         # H₂ of the two-level sync tree (mesh only)
     resilient: bool = False      # alive-masked elastic mean
 
@@ -72,9 +72,6 @@ def check_config(cfg: HWAConfig) -> None:
     if cfg.resilient:
         raise NotImplementedError("resilient HWA is not ported yet: "
                                   "ROADMAP.md Queue A 12")
-    if cfg.window_stride != 1 or cfg.window_kind != "ring":
-        raise NotImplementedError("sparse and streaming windows are not "
-                                  f"ported yet: {STREAMING_ITEM}")
     if cfg.outer_every != 1:
         raise NotImplementedError("the two-level sync tree is not ported "
                                   "yet: ROADMAP.md Queue A 13")
@@ -83,7 +80,9 @@ def check_config(cfg: HWAConfig) -> None:
 def hwa_init(cfg: HWAConfig, params: PyTree, optimizer: Optimizer,
              ring_dtype=torch.float32) -> HWAState:
     """All replicas start from the same initialization (Algorithm 1 line
-    1 with a shared init); they diverge through data order."""
+    1 with a shared init); they diverge through data order.
+    ``ring_dtype`` (a dtype or a ``f32``/``bf16``/``fp8`` token) selects
+    the compressed window ring (``core.offline.window_init``)."""
     check_config(cfg)
     dev = tree_leaves(params)[0].device
     inner = broadcast_to_replicas(params, cfg.n_replicas)
@@ -142,11 +141,21 @@ def window_push_packed(cfg: HWAConfig, new_buf: torch.Tensor,
                        window_state: WindowState, cycle: torch.Tensor
                        ) -> tuple[WindowState, torch.Tensor, torch.Tensor]:
     """Packed-in/packed-out Algorithm-2 tail: push the packed W̄ into the
-    slide window, with W̿ = W̄ until the first entry exists. Returns
-    (window state, packed W̿_e, incremented cycle counter). This is the
-    plain route; the kernel route is the fused sync."""
-    check_config(cfg)
-    new_ws, avg = window_update_packed(window_state, new_buf)
+    slide window unless the cycle misses ``window_stride`` (the sparse
+    window, §III-B), with W̿ = W̄ until the first entry exists. Returns
+    (window state, packed W̿_e, incremented cycle counter). The update
+    takes its kernel when ``cfg.use_kernels``.
+
+    With a stride > 1 the cycle counter is read back to the host once per
+    call (``int(cycle)``): the reference decides on the device with a
+    ``lax.cond``, which PyTorch has no counterpart of, and computing both
+    branches over P and selecting would double the sync's traffic. A
+    skipped cycle leaves the window as it is and returns its average."""
+    if cfg.window_stride == 1 or int(cycle) % cfg.window_stride == 0:
+        new_ws, avg = window_update_packed(window_state, new_buf,
+                                           use_kernel=cfg.use_kernels)
+    else:
+        new_ws, avg = window_state, window_average_packed(window_state)
     avg = torch.where(new_ws.count == 0, new_buf, avg)
     return new_ws, avg, cycle + 1
 
@@ -165,19 +174,30 @@ def _sync_fused(cfg: HWAConfig, state: HWAState):
     packed into (K, P), then the K-mean and the window push in one pass,
     (K+2) reads + 3 writes. W̄ for the restart is read back from the ring
     slot just written; only W̄ and W̿ are unpacked. The window scalars stay
-    on the device (no host synchronization)."""
+    on the device (no host synchronization).
+
+    A bf16 ring takes the compressed kernel (the reference's
+    ``_sync_fused_c``): the slot is written in bf16 and the f32 total
+    keeps its Kahan compensation. W̄ is then the DECODED slot, so every
+    replica restarts from the bf16-rounded mean that the ring holds."""
     ws = state.window_state
     I = ws.window
     stacked = pack_stacked(state.inner, ws.spec)
     idx = ws.next_idx
     full_flag, new_count, inv_count = window_scalars(ws)
-    ring, total, avg = kops.hwa_sync_packed(stacked, ws.ring, ws.total, idx,
-                                            full_flag, inv_count)
+    comp = ws.comp
+    if ws.ring.dtype == torch.bfloat16:
+        ring, total, comp, avg = wa_update.wa_sync_fused_c(
+            stacked, ws.ring, ws.total, comp, idx, full_flag, inv_count)
+    else:
+        ring, total, avg = wa_update.wa_sync_fused(
+            stacked, ws.ring, ws.total, idx, full_flag, inv_count)
     del stacked
     new_ws = WindowState(ring=ring, total=total, count=new_count,
                          next_idx=torch.remainder(idx + 1, I)
                          .to(torch.int32),
-                         window=I, kind=ws.kind, spec=ws.spec)
+                         window=I, kind=ws.kind, spec=ws.spec, comp=comp,
+                         scales=ws.scales)
     # the slot just written IS W̄_e (a device-side gather: no host read)
     outer = unpack(ring.index_select(0, idx.reshape(1).long())[0], ws.spec)
     wa = unpack(avg, ws.spec)
@@ -187,18 +207,27 @@ def _sync_fused(cfg: HWAConfig, state: HWAState):
 def hwa_sync(cfg: HWAConfig, state: HWAState) -> tuple[HWAState, dict]:
     """End-of-cycle sync (Algorithm 1 lines 8-12 + Algorithm 2).
 
-    With ``use_kernels`` and the dense f32 ring the sync is one fused
-    launch (:func:`_sync_fused`); otherwise the plain mean (sum/K) and the
-    plain window push. The replicas restart from W̄ in place. Returns
-    (state, metrics)."""
+    The route is the reference's. With ``use_kernels``, an f32 or bf16
+    ring at stride 1 syncs in ONE launch (:func:`_sync_fused`). Any
+    other window (a stride >
+    1, the streaming window, an fp8 ring) takes two packed steps: the
+    ``online_mean`` kernel, then the window push, whose update is a
+    kernel for an f32 or bf16 ring and plain otherwise. Without
+    ``use_kernels``: the plain mean (sum/K) and the plain window push.
+    The replicas restart from W̄ in place. Returns (state, metrics)."""
     check_config(cfg)
     div = replica_divergence(state.inner)
     ws = state.window_state
-    if cfg.use_kernels:
-        if ws.ring.dtype != torch.float32:
-            raise NotImplementedError("the compressed fused sync is not "
-                                      "ported yet: ROADMAP.md Queue B 7")
+    if (cfg.use_kernels and ws.kind == "ring" and cfg.window_stride == 1
+            and ws.ring.dtype in wa_update.KERNEL_RING_DTYPES):
         outer, window_state, wa, cycle = _sync_fused(cfg, state)
+    elif cfg.use_kernels and tree_leaves(state.inner):
+        # two packed launches, no unpack and re-pack of W̄ between them
+        buf = wa_update.online_mean(pack_stacked(state.inner, ws.spec))
+        outer = unpack(buf, ws.spec)
+        window_state, avg, cycle = window_push_packed(cfg, buf, ws,
+                                                      state.cycle)
+        wa = unpack(avg, ws.spec)
     else:
         outer = online_average(state.inner)
         window_state, wa, cycle = _window_push(cfg, outer, ws, state.cycle)

@@ -2,18 +2,26 @@
 
     W̿_e = (1/I) Σ_{t=e-I+1..e} W̄_t
 
-Counterpart of ``repro.core.offline``, f32 ring windows only: a ring of
-the last I outer weights and their running f32 sum, both held
-PERSISTENTLY PACKED (``common.packing``): ``ring`` is one (I, P) buffer
-and ``total`` one (P,) buffer over the whole parameter set, so an update
-is O(1) kernel launches however many leaves the tree has. The update
-writes ``ring`` and ``total`` in place, where the reference donates
-them. ``count`` and ``next_idx`` are 0-dim int32 tensors on the
-parameters' device: no update reads them back to the host.
+Counterpart of ``repro.core.offline``, with its two kinds of window:
 
-Not ported yet: the streaming window and the compressed (bf16/fp8)
-rings raise (ROADMAP.md Queue A 10); :func:`window_update_packed` has no
-kernel route until ``wa_window_update_2d`` is ported (Queue B 2).
+- **ring** (exact): the last I outer weights and their running f32 sum,
+  held PERSISTENTLY PACKED (``common.packing``): ``ring`` is one (I, P)
+  buffer and ``total`` one (P,) buffer over the whole parameter set, so
+  an update is one kernel launch however many leaves the tree has. The
+  ring may be stored compressed (``ring_dtype`` bf16, or fp8 with one
+  f32 scale per ALIGN block in ``scales``); the total then accumulates
+  the decoded slots with a Kahan compensation ``comp``.
+- **streaming** (O(1) memory): the running mean
+  ``total += (W̄ - total) / min(count, I)``, no ring.
+
+The sparse stride of §III-B is the caller's: it skips pushes
+(``core.hwa.window_push_packed``).
+
+The ring update writes ``ring``, ``total``, ``comp`` and ``scales`` in
+place, where the reference donates them; the streaming update makes a
+new total, as the reference does. ``count`` and ``next_idx`` are 0-dim
+int32 tensors on the parameters' device: no update reads them back to
+the host.
 """
 from __future__ import annotations
 
@@ -21,45 +29,59 @@ import dataclasses
 
 import torch
 
-from repro_torch.common.packing import PackSpec, pack_spec
+from repro_torch.common.packing import PackSpec, pack, pack_spec, unpack
 from repro_torch.common.pytree import tree_leaves
-from repro_torch.kernels.ref import wa_window_update_ref
-
-#: ROADMAP items of what this module leaves to raise
-COMPRESSED_ITEM = "ROADMAP.md Queue A 10 (compressed WindowState)"
-STREAMING_ITEM = "ROADMAP.md Queue A 3 (streaming and sparse windows)"
+from repro_torch.common.quant import is_compressed, needs_scales, wa_dtype
+from repro_torch.kernels import wa_update
+from repro_torch.kernels.ref import wa_window_update_c_ref, \
+    wa_window_update_ref
 
 
 @dataclasses.dataclass
 class WindowState:
-    ring: torch.Tensor        # (I, P) f32 packed outer weights
-    total: torch.Tensor       # (P,) f32 running sum of the ring
-    count: torch.Tensor       # 0-dim int32: filled slots (<= I)
-    next_idx: torch.Tensor    # 0-dim int32: ring write cursor
+    ring: torch.Tensor | None   # (I, P) packed outer weights (ring kind),
+                                # stored in spec.ring_dtype
+    total: torch.Tensor         # (P,) f32 running sum (ring) / mean
+    count: torch.Tensor         # 0-dim int32: filled slots (<= I)
+    next_idx: torch.Tensor      # 0-dim int32: ring write cursor
     window: int
-    kind: str = "ring"
+    kind: str = "ring"          # ring | streaming
     spec: PackSpec | None = None
+    comp: torch.Tensor | None = None    # (P,) f32 Kahan compensation of
+                                        # the total (compressed rings)
+    scales: torch.Tensor | None = None  # (I, P // ALIGN) f32 per-block
+                                        # fp8 scales (fp8 rings)
 
 
 def window_init(params_like, window: int, kind: str = "ring",
                 ring_dtype=torch.float32) -> WindowState:
     """Pack the layout once; every later update runs on the packed
-    buffers in place. Only the f32 ring is ported."""
-    if kind != "ring":
-        raise NotImplementedError(f"window kind {kind!r} is not ported yet: "
-                                  f"{STREAMING_ITEM}")
-    if ring_dtype != torch.float32:
-        raise NotImplementedError(f"ring dtype {ring_dtype} is not ported "
-                                  f"yet: {COMPRESSED_ITEM}")
+    buffers. ``ring_dtype`` (a dtype or a ``f32``/``bf16``/``fp8``
+    token) selects the compressed ring: a narrow ring, a Kahan ``comp``
+    beside the f32 total and, for fp8, per-block ``scales``. The f32
+    default allocates neither."""
+    if kind not in ("ring", "streaming"):
+        raise ValueError(f"unknown window kind {kind!r}")
+    ring_dtype = wa_dtype(ring_dtype)
     spec = pack_spec(params_like)
     dev = tree_leaves(params_like)[0].device
+    ring = comp = scales = None
+    if kind == "ring":
+        ring = torch.zeros((window, spec.padded), dtype=ring_dtype,
+                           device=dev)
+        if is_compressed(ring_dtype):
+            spec = spec.with_ring_dtype(ring_dtype)
+            comp = torch.zeros((spec.padded,), dtype=torch.float32,
+                               device=dev)
+            if needs_scales(ring_dtype):
+                scales = torch.ones((window, spec.scale_blocks),
+                                    dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     return WindowState(
-        ring=torch.zeros((window, spec.padded), dtype=torch.float32,
-                         device=dev),
+        ring=ring,
         total=torch.zeros((spec.padded,), dtype=torch.float32, device=dev),
         count=zero, next_idx=zero.clone(), window=window, kind=kind,
-        spec=spec)
+        spec=spec, comp=comp, scales=scales)
 
 
 def window_scalars(state: WindowState):
@@ -71,24 +93,59 @@ def window_scalars(state: WindowState):
     return full_flag, new_count, inv_count
 
 
-def window_update_packed(state: WindowState, new: torch.Tensor
+def window_update(state: WindowState, outer, *, use_kernel: bool = False):
+    """Push W̄_e (a tree) into either kind of window; return (new state,
+    W̿_e as a tree in W̄'s dtypes). The ring is never unpacked."""
+    new_state, avg = window_update_packed(state, pack(outer, state.spec),
+                                          use_kernel=use_kernel)
+    return new_state, unpack(avg, state.spec, like=outer)
+
+
+def window_update_packed(state: WindowState, new: torch.Tensor, *,
+                         use_kernel: bool = False
                          ) -> tuple[WindowState, torch.Tensor]:
     """Packed-in/packed-out window update: ``new`` is a (P,) f32 buffer;
-    returns (new state, packed W̿). ``state.ring`` and ``state.total`` are
-    updated in place. Plain route only: the kernel route of the sync is
-    the fused launch (``core.hwa._sync_fused``)."""
-    full_flag, new_count, inv_count = window_scalars(state)
+    returns (new state, packed W̿). With ``use_kernel`` an f32 or bf16
+    ring takes its kernel (``kernels.wa_update``); an fp8 ring and the
+    streaming window take the plain update on either setting, as in the
+    reference."""
+    if state.kind == "streaming":
+        count = torch.clamp(state.count + 1, max=state.window) \
+            .to(torch.int32)
+        total = state.total + (new - state.total) / count.to(torch.float32)
+        return WindowState(ring=None, total=total, count=count,
+                           next_idx=state.next_idx, window=state.window,
+                           kind="streaming", spec=state.spec), total
+    I = state.window
     idx = state.next_idx
-    ring, total, avg = wa_window_update_ref(state.ring, state.total, new, idx,
-                                            full_flag, inv_count)
+    full_flag, new_count, inv_count = window_scalars(state)
+    comp, scales = state.comp, state.scales
+    if state.ring.dtype == torch.float32:
+        update = wa_update.wa_window_update if use_kernel \
+            else wa_window_update_ref
+        ring, total, avg = update(state.ring, state.total, new, idx,
+                                  full_flag, inv_count)
+    elif use_kernel and state.ring.dtype == torch.bfloat16:
+        ring, total, comp, avg = wa_update.wa_window_update_c(
+            state.ring, state.total, comp, new, idx, full_flag, inv_count)
+    else:
+        ring, scales, total, comp, avg = wa_window_update_c_ref(
+            state.ring, scales, state.total, comp, new, idx, full_flag,
+            inv_count)
     return WindowState(ring=ring, total=total, count=new_count,
-                       next_idx=torch.remainder(idx + 1, state.window)
-                       .to(torch.int32),
-                       window=state.window, kind=state.kind,
-                       spec=state.spec), avg
+                       next_idx=torch.remainder(idx + 1, I).to(torch.int32),
+                       window=I, kind=state.kind, spec=state.spec,
+                       comp=comp, scales=scales), avg
 
 
 def window_average_packed(state: WindowState) -> torch.Tensor:
     """Current W̿ as the packed (P,) f32 buffer."""
+    if state.kind == "streaming":
+        return state.total
     denom = torch.clamp(state.count, min=1).to(torch.float32)
     return state.total / denom
+
+
+def window_average(state: WindowState, like):
+    """Current W̿ in the dtypes of ``like``."""
+    return unpack(window_average_packed(state), state.spec, like=like)

@@ -13,13 +13,21 @@ from typing import Any
 
 import torch
 
+from repro_torch.common.packing import pack_spec, pack_stacked, unpack
 from repro_torch.common.pytree import tree_leaves, tree_mean_axis0, tree_map
+from repro_torch.kernels import wa_update
 
 
-def online_average(stacked_params: Any) -> Any:
-    """Outer weights W̄_e from stacked inner weights (K, ...): the plain
-    mean (``jnp.mean``, see ``common.pytree.tree_mean_axis0``) cast to
-    each leaf's dtype. The kernel route is the fused sync (``core.hwa``)."""
+def online_average(stacked_params: Any, *, use_kernel: bool = False) -> Any:
+    """Outer weights W̄_e from stacked inner weights (K, ...), cast to
+    each leaf's dtype. Plain: the mean of ``common.pytree.tree_mean_axis0``
+    (``jnp.mean``'s). Kernel: the K replicas packed into one (K, P) f32
+    buffer and reduced in ONE ``online_mean`` launch however many
+    leaves there are, then unpacked."""
+    if use_kernel and tree_leaves(stacked_params):
+        spec = pack_spec(tree_map(lambda x: x[0], stacked_params))
+        buf = pack_stacked(stacked_params, spec)
+        return unpack(wa_update.online_mean(buf), spec)
     return tree_mean_axis0(stacked_params)
 
 

@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.common.pytree import sum_axis0_f32
+from repro_torch.common.quant import (SCALE_BLOCK, decode_slot, encode_slot,
+                                     fma_f32, kahan_add)
 from repro_torch.models.attention import NEG_INF, naive_attention
 from repro_torch.models.cache import paged_slot_pages
 from repro_torch.models.common import softcap
@@ -33,16 +35,78 @@ def wa_window_update_ref(ring, total, new, idx, full_flag, inv_count):
     return ring, total, total * inv_count
 
 
+def online_mean_ref(stacked, inv_k=None):
+    """The K-replica mean of a (K, P) stack (f32 or bf16) as f32:
+    sum·inv_k, the sum taken in f32 sequentially from k = 0 as the
+    kernels take it, inv_k = f32(1/K) unless given (the partial mean of
+    a sync whose replicas are spread over processes)."""
+    K = stacked.shape[0]
+    inv = torch.tensor(1.0 / K if inv_k is None else inv_k,
+                       dtype=torch.float32)
+    return sum_axis0_f32(stacked) * inv
+
+
 def wa_sync_fused_ref(stacked, ring, total, idx, full_flag, inv_count):
     """The whole HWA sync (plain version of ``csrc/wa_update.cu``): the
     K-replica mean as sum·(1/K), the sum taken sequentially from k = 0 as
     the kernel takes it, then the window push. stacked: (K, P) f32.
     Returns (ring, total, avg), ring and total written in place; W̄ is
     ring[idx]."""
-    K = stacked.shape[0]
-    inv_k = torch.tensor(1.0 / K, dtype=torch.float32)
-    mean = sum_axis0_f32(stacked) * inv_k
-    return wa_window_update_ref(ring, total, mean, idx, full_flag, inv_count)
+    return wa_window_update_ref(ring, total, online_mean_ref(stacked), idx,
+                                full_flag, inv_count)
+
+
+def wa_window_update_c_ref(ring, scales, total, comp, new, idx, full_flag,
+                           inv_count):
+    """Slide-window push into a compressed ring: ring (I, P) bf16
+    (``scales`` None) or block-scaled fp8 (``scales`` (I, P/ALIGN) f32),
+    total and comp (P,) f32 the Kahan pair. The total accumulates the
+    DECODED value the slot will hold, so evicting it I pushes later
+    removes exactly what was added:
+
+        y = (decode(slot) - decode(ring[idx])·full) - comp
+        total' = total + y;  comp' = (total' - total) - y
+
+    For an fp8 slot, decode(slot) is a product (payload · scale), and the
+    jitted reference (XLA on the CPU) contracts it with the eviction into
+    one fused multiply-add: decode(slot) - old·full is rounded once. The
+    port rounds it once too (``common.quant.fma_f32``), so that its fp8
+    totals are the ones the reference's sync produces.
+
+    ring, scales, total and comp are written IN PLACE. Returns (ring,
+    scales, total, comp, avg = total'·inv_count)."""
+    row = idx.reshape(1).long()
+    slot, s_new = encode_slot(new.float(), ring.dtype)
+    # the row moves as integer bits: index_copy_ has no fp8 version
+    bits = ring.view(torch.uint8 if ring.element_size() == 1
+                     else torch.int16)
+    old = decode_slot(bits.index_select(0, row)[0].view(ring.dtype),
+                      None if scales is None else
+                      scales.index_select(0, row)[0])
+    if s_new is None:
+        delta = decode_slot(slot) - old * full_flag
+    else:
+        blocks = (-1, SCALE_BLOCK)
+        delta = fma_f32(slot.float().reshape(blocks), s_new[:, None],
+                        -(old * full_flag).reshape(blocks)).reshape(-1)
+    t, c = kahan_add(total, comp, delta)
+    bits.index_copy_(0, row, slot.view(bits.dtype)[None])
+    if scales is not None:
+        scales.index_copy_(0, row, s_new[None])
+    total.copy_(t)
+    comp.copy_(c)
+    return ring, scales, total, comp, total * inv_count
+
+
+def wa_sync_fused_c_ref(stacked, ring, scales, total, comp, idx, full_flag,
+                        inv_count):
+    """The whole sync over a compressed ring (plain version of
+    ``csrc/wa_update.cu``'s bf16 sync): the K-mean as sum·(1/K), then
+    :func:`wa_window_update_c_ref`. Returns (ring, scales, total, comp,
+    avg); W̄ is the decoded ring[idx]."""
+    return wa_window_update_c_ref(ring, scales, total, comp,
+                                  online_mean_ref(stacked), idx, full_flag,
+                                  inv_count)
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, window=None,

@@ -5,9 +5,13 @@ smoke config of an architecture.
       --steps 8 --k 2 --window 3 --sync-period 2
 
 Runs on the card unless ``--device cpu``. Mirrors the JAX package's
-single-device launcher (``repro.launch.train``); its mesh-native,
-sync-tree, compressed-WA, fault-injection and checkpoint flags are not
-offered until those parts are ported (ROADMAP.md Queue A).
+single-device launcher (``repro.launch.train``); its mesh-native flags
+(``--wa-dtype`` and ``--comms-dtype`` among them: there they compress
+the mesh-native window state), sync-tree, fault-injection and
+checkpoint flags are not offered until those parts are ported
+(ROADMAP.md Queue A 8, 12 and 13). A caller that builds its own
+``TrainConfig`` passes any ``HWAConfig`` window (stride, streaming,
+kernels) through the Trainer unchanged.
 """
 from __future__ import annotations
 

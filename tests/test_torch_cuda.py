@@ -58,6 +58,18 @@ PAGED_CASES = [
 SYNC_CASES = [dict(K=K, I=I, full=full, P=3 * 8192)
               for K in (1, 2, 3, 4) for I in (1, 3) for full in (0.0, 1.0)]
 
+#: the four slice-3 WA kernels (chip_smoke._wa_case), each at 0 ULP
+WA_CASES = (
+    [dict(kernel=k, I=I, full=full, P=3 * 8192)
+     for k in ("wa_window_update", "wa_window_update_c")
+     for I in (1, 3) for full in (0.0, 1.0)]
+    + [dict(kernel="wa_sync_fused_c", K=K, I=I, full=full, P=3 * 8192)
+       for K in (1, 2, 3, 4) for I in (1, 3) for full in (0.0, 1.0)]
+    + [dict(kernel="online_mean", K=K, P=3 * 8192) for K in (1, 2, 3, 4)]
+    + [dict(kernel="online_mean", K=3, P=3 * 8192,
+            stack_dtype=torch.bfloat16),
+       dict(kernel="online_mean", K=2, P=3 * 8192, inv_k=0.125)])
+
 BWD_CASES = [
     dict(B=4, S=512, Hq=32, Hkv=8, D=64, dtype=torch.bfloat16),
     dict(B=4, S=512, Hq=32, Hkv=8, D=64, dtype=torch.bfloat16,
@@ -80,6 +92,48 @@ def test_sync_kernel_is_0ulp_against_plain(smoke, case):
     assert res["pass"], res
 
 
+@pytest.mark.parametrize("case", WA_CASES)
+def test_slice3_wa_kernels_are_0ulp_against_plain(smoke, case):
+    res = smoke._wa_case("cuda", **case)
+    assert res["pass"], res
+
+
+def test_per_leaf_wa_wrappers_match_plain(smoke):
+    res = smoke._leaf_case("cuda")
+    assert res["pass"], res
+
+
+def test_slice3_wrappers_count_launches_and_reject_bad_input(smoke):
+    from repro_torch.kernels import wa_update as wa
+    dev = "cuda"
+    P = 8192
+    scal = (torch.tensor(0, dtype=torch.int32, device=dev),
+            torch.tensor(0.0, device=dev), torch.tensor(1.0, device=dev))
+    ring = torch.zeros(3, P, device=dev)
+    ring_c = torch.zeros(3, P, device=dev, dtype=torch.bfloat16)
+    total, comp, new = (torch.zeros(P, device=dev) for _ in range(3))
+    before = (wa.WINDOW_UPDATE_LAUNCHES, wa.ONLINE_MEAN_LAUNCHES,
+              wa.WINDOW_UPDATE_C_LAUNCHES, wa.SYNC_FUSED_C_LAUNCHES)
+    wa.wa_window_update(ring, total, new + 1, *scal)
+    wa.online_mean(torch.ones(2, P, device=dev, dtype=torch.bfloat16))
+    wa.wa_window_update_c(ring_c, total, comp, new + 2, *scal)
+    wa.wa_sync_fused_c(torch.ones(2, P, device=dev), ring_c, total, comp,
+                       torch.tensor(1, dtype=torch.int32, device=dev),
+                       *scal[1:])
+    assert (wa.WINDOW_UPDATE_LAUNCHES, wa.ONLINE_MEAN_LAUNCHES,
+            wa.WINDOW_UPDATE_C_LAUNCHES, wa.SYNC_FUSED_C_LAUNCHES) == \
+        tuple(b + 1 for b in before)
+    assert bool((ring[0] == 1).all()) and bool((ring[1:] == 0).all())
+    assert bool((ring_c[0] == 2).all()) and bool((ring_c[1] == 1).all())
+    with pytest.raises(TypeError):
+        wa.wa_window_update_c(ring, total, comp, new, *scal)
+    with pytest.raises(TypeError):
+        wa.online_mean(torch.ones(2, P, device=dev, dtype=torch.float16))
+    with pytest.raises(ValueError):
+        wa.wa_window_update(ring[:, :6].contiguous(), total[:6], new[:6],
+                            *scal)
+
+
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_flash_bwd_kernels_match_plain(smoke, case):
     res = smoke._bwd_case("cuda", **case)
@@ -98,15 +152,13 @@ def test_train_wrappers_count_launches(smoke):
     total = torch.zeros(8192, device="cuda")
     scal = (torch.tensor(0, dtype=torch.int32, device="cuda"),
             torch.tensor(0.0, device="cuda"), torch.tensor(1.0, device="cuda"))
-    kops.hwa_sync_packed(torch.ones(2, 8192, device="cuda"), ring, total,
-                         *scal)
+    wa.wa_sync_fused(torch.ones(2, 8192, device="cuda"), ring, total, *scal)
     assert (fab.DQ_LAUNCHES, fab.DKV_LAUNCHES, wa.LAUNCHES) == \
         (before[0] + 1, before[1] + 1, before[2] + 1)
     assert bool((ring[0] == 1).all()) and bool((ring[1:] == 0).all())
     with pytest.raises(TypeError):
-        kops.hwa_sync_packed(torch.ones(2, 8192, device="cuda",
-                                        dtype=torch.float64),
-                             ring, total, *scal)
+        wa.wa_sync_fused(torch.ones(2, 8192, device="cuda",
+                                    dtype=torch.float64), ring, total, *scal)
 
 
 @pytest.mark.parametrize("case", FLASH_CASES)
