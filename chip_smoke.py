@@ -18,7 +18,11 @@ raising on any failure:
                and 1, the training run's packed size with every ring row
                but idx untouched, a bf16 stack, an inv_k override, the
                per-leaf wrappers on a ragged leaf); the flash backward
-               sweeps on the gradient matrix of tests/test_attention_ops.py.
+               sweeps on the gradient matrix of tests/test_attention_ops.py;
+               the bf16 edges of the Hopper flash designs (ragged S,
+               fully-masked rows with O = 0 and lse = -1e30 exactly, GQA
+               groups of 1, 2 and 8, head_dim 128) for the forward and
+               both sweeps, and two dk/dv launches compared bit for bit.
 4. serve     — granite-3-2b at full width and depth (bf16, random weights
                from a seed) serves 12 requests through PagedDecodeEngine
                with 8 slots; the kernels' launch counts must equal
@@ -52,7 +56,8 @@ raising on any failure:
 6. yardstick — each kernel timed at its main path's shapes (CUDA-graph
                replay between CUDA events: device time, cold L2), beside
                its plain version, a library call where one exists, and
-               the bound from its bytes and FLOPs.
+               the bound from its bytes and FLOPs; the flash forward at
+               both of its shapes (serving prefill B1, training B4).
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2.
@@ -226,10 +231,15 @@ def _flash_case(device, *, B, S, T, Hq, Hkv, D, dtype, window=None, cap=0.0,
     tol = FLASH_TOL[dtype]
     err_o, ok_o = _close(out, want_o, tol)
     err_l, ok_l = _close(lse, want_lse, tol)
+    # a fully-masked row (no key within the window) gets O = 0 and lse =
+    # NEG_INF exactly
+    dead = torch.arange(S, device=device) - (T - 1) >= (window or 10**9)
+    ok_dead = not bool(out[:, dead].any()) and \
+        bool((lse[:, :, dead] == -1e30).all())
     return {"shape": f"B{B} S{S} T{T} Hq{Hq} Hkv{Hkv} D{D} "
                      f"{str(dtype)[6:]} w{window} cap{cap}",
             "max_abs_err": max(err_o, err_l), "tol": tol,
-            "pass": ok_o and ok_l}
+            "dead_rows": int(dead.sum()), "pass": ok_o and ok_l and ok_dead}
 
 
 def ring_fill(kfull, vfull, lens, ps, TW):
@@ -467,6 +477,31 @@ def _bwd_case(device, *, B, S, Hq, Hkv, D, dtype, T=None, window=None,
             "pass": ok}
 
 
+def _dkv_repeat_case(device, *, B, S, Hq, Hkv, D, dtype=torch.bfloat16,
+                     window=None, cap=0.0, seed=0):
+    """Two dk/dv launches on the same inputs must give the same bits: the
+    cluster sums its heads' partials in a fixed order, with no atomics."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = _randn(gen, (B, S, Hq, D), dtype, device)
+    k = _randn(gen, (B, S, Hkv, D), dtype, device)
+    v = _randn(gen, (B, S, Hkv, D), dtype, device)
+    dout = _randn(gen, (B, S, Hq, D), dtype, device)
+    opts = dict(window=window, logit_softcap=cap)
+    out, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    runs = [fab.flash_attention_bwd(q, k, v, out, lse, dout, **opts)[1:]
+            for _ in range(2)]
+    _sync(device)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    same = all(torch.equal(a.view(bits), b.view(bits))
+               for a, b in zip(runs[0], runs[1]))
+    return {"shape": f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} {str(dtype)[6:]} "
+                     f"w{window} cap{cap} dk/dv twice",
+            "max_abs_err": 0.0 if same else max(
+                float((a.float() - b.float()).abs().max())
+                for a, b in zip(runs[0], runs[1])),
+            "tol": "bitwise", "pass": same}
+
+
 #: the flash gradient matrix of tests/test_attention_ops.py (B = 2):
 #: S, Hq, Hkv, D, window, cap, dtype
 GRAD_MATRIX = [
@@ -484,6 +519,21 @@ GRAD_MATRIX = [
     (128, 4, 2, 64, None, 0.0, torch.bfloat16),
     (128, 4, 4, 64, 32, 15.0, torch.bfloat16),
 ]
+
+
+def _bf16_edge_cases(case, device):
+    """The bf16 edges of the Hopper flash forward and dk/dv designs,
+    through ``case`` (``_flash_case`` or ``_bwd_case``): a ragged S (TMA
+    zero-fills the last tile), fully-masked rows, GQA groups of 1, 2 and
+    8 (cluster sizes of dk/dv) and head_dim 128 without a window."""
+    shapes = [dict(S=300, T=300, Hq=8, Hkv=2, D=64, seed=11),
+              dict(S=192, T=64, Hq=4, Hkv=2, D=64, window=16, seed=12),
+              dict(S=256, T=256, Hq=8, Hkv=8, D=64, seed=13),
+              dict(S=256, T=256, Hq=32, Hkv=16, D=64, seed=14),
+              dict(S=256, T=256, Hq=32, Hkv=4, D=64, seed=15),
+              dict(S=256, T=256, Hq=8, Hkv=4, D=128, seed=16)]
+    return [case(device, B=1 if sh["T"] < sh["S"] else 2,
+                 dtype=torch.bfloat16, **sh) for sh in shapes]
 
 
 def train_param_count(cfg) -> int:
@@ -521,7 +571,7 @@ def phase_kernels(device):
         # queries past the key horizon of a window: fully-masked rows
         _flash_case(device, B=1, S=192, T=64, Hq=4, Hkv=2, D=64,
                     dtype=torch.float32, window=16, seed=3),
-    ]
+    ] + _bf16_edge_cases(_flash_case, device)
     paged = [
         # granite-3-2b decode: ragged lens incl. 0, 1 and a page crossing
         _paged_case(device, lens=[0, 1, 17, 16, 100, 300, 543, 560], Hq=32,
@@ -575,7 +625,13 @@ def phase_kernels(device):
                   dtype=torch.bfloat16, window=64, cap=30.0, seed=2),
     ] + [_bwd_case(device, B=2, S=S, Hq=Hq, Hkv=Hkv, D=D, dtype=dt,
                    window=w, cap=cap, seed=i, through_ops=True)
-         for i, (S, Hq, Hkv, D, w, cap, dt) in enumerate(GRAD_MATRIX)]
+         for i, (S, Hq, Hkv, D, w, cap, dt) in enumerate(GRAD_MATRIX)] \
+        + _bf16_edge_cases(_bwd_case, device) + [
+        # the cluster's fixed-order sums: two launches, the same bits
+        _dkv_repeat_case(device, B=4, S=512, Hq=32, Hkv=8, D=64, seed=5),
+        _dkv_repeat_case(device, B=2, S=300, Hq=32, Hkv=4, D=64, window=100,
+                         cap=30.0, seed=6),
+    ]
     result = {"flash_fwd": flash, "paged_attention": paged,
               "wa_sync_fused": sync, "flash_bwd": bwd, **slice3}
     summary = {name: {"cases": len(cases),
@@ -1518,7 +1574,8 @@ def phase_yardstick(device, serve, kernels):
          "bound_by": p_by, "library_ms": None},
     ]
     print(f"[yardstick] flash_fwd B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} bf16: "
-          f"{f_ms:.4f} ms (plain {f_plain:.3f}, sdpa {f_lib:.4f}, bound "
+          f"{f_ms:.4f} ms (plain {f_plain:.3f}, sdpa {f_lib:.4f}, "
+          f"{f_ms / f_lib:.2f}x; bound "
           f"{f_bound:.4f} by {f_by}) | {CARD['line']}")
     print(f"[yardstick] paged_attention B{Bp} Hq{Hq} Hkv{Hkv} D{D} ps{ps} "
           f"TW{TW} lens {lens} bf16: {p_ms:.4f} ms (plain {p_plain:.3f}, "
@@ -1547,9 +1604,11 @@ def _sdpa_bwd_ms(sets, iters):
 
 
 def phase_yardstick_train(device, train, kernels):
-    """The three kernels of the training path at its shapes: the fused
-    sync at the run's packed size (K = 2, I = 3), and the two backward
-    sweeps at one layer's attention (B4 S512 Hq32 Hkv8 D64 bf16)."""
+    """The kernels of the training path at its shapes: the fused sync at
+    the run's packed size (K = 2, I = 3), and the flash forward and the
+    two backward sweeps at one layer's attention (B4 S512 Hq32 Hkv8 D64
+    bf16). Returns (the sync's and sweeps' entries, the forward's times
+    at this shape)."""
     dev = torch.device(device)
     K, I = TRAIN["K"], TRAIN["I"]
     P = -(-train["params"] // ALIGN) * ALIGN
@@ -1603,6 +1662,10 @@ def phase_yardstick_train(device, train, kernels):
 
     dq_ms = _time_ms(dq_only, sets, 100)
     dkv_ms = _time_ms(dkv_only, sets, 100)
+    # the forward at the training shape (its 32 launches a step run here)
+    f_ms = _time_ms(lambda q, k, v, *_: fa.flash_attention_fwd(q, k, v),
+                    sets, 100)
+    f_lib = _sdpa_ms([x[:3] for x in bsets], 100)
     b_plain = _time_ms(lambda q, k, v, out, lse, dout, delta:
                        flash_attention_bwd_ref(q, k, v, out, lse, dout),
                        sets, 5, warmup=1)
@@ -1615,6 +1678,10 @@ def phase_yardstick_train(device, train, kernels):
                              + 2 * row_bytes, dt)
     dkv_bound, dkv_by = _bound(4 * prod, 2 * q_bytes + 4 * kv_bytes
                                + 2 * row_bytes, dt)
+    f_bound, f_by = _bound(2 * prod, 2 * q_bytes + 2 * kv_bytes + row_bytes,
+                           dt)
+    fwd_b4 = {"shape": f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} bf16", "ms": f_ms,
+              "library_ms": f_lib, "bound_ms": f_bound, "bound_by": f_by}
     bwd = kernels["flash_bwd"][1]             # the training shape, direct
     launches = train["launches"]
     entries = [
@@ -1638,12 +1705,16 @@ def phase_yardstick_train(device, train, kernels):
     print(f"[yardstick] wa_sync_fused K{K} I{I} P{P} f32: {s_ms:.4f} ms "
           f"(plain {s_plain:.3f}, library none, bound {s_bound:.4f} by "
           f"{s_by}) | {CARD['line']}")
+    print(f"[yardstick] flash_fwd B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} bf16 "
+          f"(training shape): {f_ms:.4f} ms (sdpa {f_lib:.4f}, "
+          f"{f_ms / f_lib:.2f}x; bound {f_bound:.5f} by {f_by}) | "
+          f"{CARD['line']}")
     print(f"[yardstick] flash_bwd B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} bf16: dq "
           f"{dq_ms:.4f} ms (bound {dq_bound:.5f} by {dq_by}), dk/dv "
           f"{dkv_ms:.4f} ms (bound {dkv_bound:.5f} by {dkv_by}); plain "
           f"backward {b_plain:.3f} ms, sdpa backward {b_lib:.4f} ms (both "
-          f"sweeps) | {CARD['line']}")
-    return entries
+          f"sweeps; dk/dv {dkv_ms / b_lib:.2f}x) | {CARD['line']}")
+    return entries, fwd_b4
 
 
 def phase_yardstick_windows(device, train, kernels, windows):
@@ -1735,13 +1806,15 @@ def main() -> int:
     phase_train_reference(device)
     torch.cuda.empty_cache()
     entries = phase_yardstick(device, serve, kernels)
-    entries += phase_yardstick_train(device, train, kernels)
+    train_entries, fwd_b4 = phase_yardstick_train(device, train, kernels)
+    entries += train_entries
     entries += phase_yardstick_windows(device, train, kernels, windows)
     # the flash forward runs on both paths: its launches are the sum
     entries[0]["launches_by_path"] = {
         "serve": serve["launches"]["flash_fwd"],
         "train": train["launches"]["flash_fwd"]}
     entries[0]["launches"] = sum(entries[0]["launches_by_path"].values())
+    entries[0]["at_train_shape"] = fwd_b4
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

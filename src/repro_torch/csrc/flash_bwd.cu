@@ -12,34 +12,51 @@
 //   dS = p * (dO . v - delta) * (1 - (s/c)^2 if softcap) * dscale
 // and accumulates dq = sum_j dS K (dq sweep: keys innermost) and
 // dk = sum_{i,g} dS^T Q, dv = sum_{i,g} p^T dO (dk/dv sweep: queries
-// innermost, the G query heads of a GQA group summed into their kv head in
-// registers: no atomics, so the result is deterministic). Outputs are in the
-// input dtype, accumulated in f32. A fully-masked row (lse = NEG_INF) gets
-// exactly zero gradients.
+// innermost, the G query heads of a GQA group summed into their kv head).
+// Neither sweep uses atomics: the result is deterministic. Outputs are in
+// the input dtype, accumulated in f32. A fully-masked row (lse = NEG_INF)
+// gets exactly zero gradients.
 //
-// What bounds it on this card: at the training shape (B4 S512 Hq32 Hkv8
+// What bounds them on this card: at the training shape (B4 S512 Hq32 Hkv8
 // D64 bf16, causal) the dq sweep does 3 and the dk/dv sweep 4 products of
 // the causal half, ~6.4 and ~8.6 GFLOP, against ~25 MB of operands: both sit
 // above the ~295 flop/byte ridge, so the tensor cores bound them (~6.5 and
-// ~8.7 us). A simple kernel reaches neither: no load/compute overlap.
+// ~8.7 us). What held dk/dv far from that was the chain of one CTA: the CTA
+// of key tile 0 walked the G = 4 query heads of its group times 8 query
+// tiles, 32 tiles in series, each loaded synchronously between barriers.
 //
-// Design (a simple kernel that is right, to be made fast later), the
-// forward's (csrc/flash_fwd.cu) carried over:
-//  - bf16: mma.sync m16n8k16 (bf16 in, f32 accumulate). dq: one CTA per
-//    (64 query rows, query head, batch), 4 warps x 16 rows, Q and dO held as
-//    A fragments, 64-key K/V tiles in padded shared memory, the key loop
-//    from the window's band start to the causal diagonal; dS is re-packed
-//    in registers as the A operand of dS.K. dk/dv: one CTA per (64 keys, kv
-//    head, batch), 4 warps x 16 keys, K and V held as A fragments, the loop
-//    over the group's query heads and over the query tiles that can see the
-//    keys; p^T and dS^T are re-packed as A operands of p^T.dO and dS^T.Q.
-//  - f32: plain FMA kernels, one lane per key (dq) or per query (dk/dv), so
-//    the f32 checks hold 2e-5.
-//  - rows >= S and keys >= T are masked in the kernel and their tiles
-//    zero-filled (0 x NaN is NaN inside an MMA): no padded copies.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// dk/dv, bf16 (redesigned for Hopper; building blocks in hopper.cuh):
+//  - the G query heads of a group come off the serial chain: a thread-block
+//    cluster of C = min(G, 8) CTAs per (64 keys, kv head, batch), CTA r
+//    taking heads r, r + C, ...; at the training shape each CTA walks 8
+//    query tiles, not 32. The C partial dK/dV are summed over distributed
+//    shared memory in fixed rank order (no atomics: bitwise reproducible),
+//    one launch; key tile 0 (the most query tiles) is launched first;
+//  - K and V are loaded once per CTA by TMA; Q, dO, lse and delta tiles of
+//    64 queries stream through a 3-stage ring filled by TMA (4-D maps over
+//    (B, S, Hq, D) in the 128-byte swizzle; 1-D maps over lse and delta),
+//    completion on one mbarrier per stage, one elected thread issuing;
+//    after the loop the ring holds the partial sums, so a CTA takes ~69 KB
+//    at head_dim 64 and three share an SM;
+//  - one warpgroup issues wgmma: S^T = K Q^T and dP^T = V dO^T with both
+//    operands in shared memory, then dV += P^T dO and dK += dS^T Q with P^T
+//    and dS^T taken from the accumulators in registers and dO/Q read as
+//    MN-major operands; the dV/dK products are not waited for: the next
+//    tile's S^T and dP^T are issued behind them. p in the exp2 domain; the
+//    mask only on tiles that cross the diagonal, the window's edge, S or T.
+// dq, bf16: the PR 13 design until its own redesign: mma.sync m16n8k16 (bf16
+//  in, f32 accumulate), one CTA per (64 query rows, query head, batch), 4
+//  warps x 16 rows, Q and dO held as A fragments, 64-key K/V tiles staged
+//  synchronously in padded shared memory, the key loop from the window's
+//  band start to the causal diagonal; dS re-packed in registers as the A
+//  operand of dS.K.
+// f32: plain FMA kernels, one lane per key (dq) or per query (dk/dv), so the
+//  f32 checks hold 2e-5.
+// Rows >= S and keys >= T are masked in the kernels and their tiles
+// zero-filled (0 x NaN is NaN inside an MMA): no padded copies.
+#include "hopper.cuh"
+
+using hopper::pack_bf16;
 
 #define NEG_INF (-1e30f)
 
@@ -69,11 +86,6 @@ __device__ __forceinline__ void p_ds(float qk, float dov, float lse,
     d *= 1.f - u * u;
   }
   ds = d * dscale;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -260,85 +272,246 @@ flash_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 // ---------------------------------------------------- bf16 dk/dv sweep
 
-template <int D, int BQ>
-__global__ void __launch_bounds__(128)
-flash_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
+template <int D>
+struct DkvSmem {
+  static constexpr int STAGES = 3;
+  static constexpr int TILE = BN * D * 2;             // bytes of a 64-row tile
+  static constexpr int V_OFF = TILE;                  // K first
+  static constexpr int RING_OFF = 2 * TILE;
+  // a stage: Q, dO, lse (64 f32), delta (64 f32), padded to 1024 bytes
+  static constexpr int L_OFF = 2 * TILE, E_OFF = L_OFF + 256;
+  static constexpr int STAGE = 2 * TILE + 1024;
+  // after the loop the ring holds this CTA's f32 partial dK and dV
+  static constexpr int PITCH = D + 4;                 // f32 row of a partial
+  static_assert(2 * BN * PITCH * 4 <= STAGES * STAGE, "partials fit the ring");
+  static constexpr int BAR_OFF = RING_OFF + STAGES * STAGE;
+  // + the barriers (K/V, one per stage), + slack for 1024-byte alignment
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + STAGES) + 1024;
+};
+
+// p^T and dS^T of a (64 keys x 64 queries) tile in place, from the raw
+// products s = K Q^T and dp = V dO^T and the queries' lse and delta
+template <bool CAP>
+__device__ __forceinline__ void p_ds_tile(float (&s)[32], float (&dp)[32],
+                                          const float* Ls, const float* Es,
+                                          int t, float dscale, float cap) {
+  using hopper::LOG2E;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 lv = *reinterpret_cast<const float2*>(Ls + 8 * j + 2 * t);
+    const float2 ev = *reinterpret_cast<const float2*>(Es + 8 * j + 2 * t);
+    // lse_safe (NEG_INF swapped for 0) in log2 units
+    const float l2[2] = {(lv.x > 0.5f * NEG_INF ? lv.x : 0.f) * LOG2E,
+                         (lv.y > 0.5f * NEG_INF ? lv.y : 0.f) * LOG2E};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      const float delta = (e & 1) ? ev.y : ev.x;
+      if (CAP) {
+        const float th = tanhf(s[i] * (dscale / cap));  // capped s = cap * th
+        const float p = exp2f(fmaf(cap * th, LOG2E, -l2[e & 1]));
+        dp[i] = p * (dp[i] - delta) * (1.f - th * th) * dscale;
+        s[i] = p;
+      } else {
+        const float p = exp2f(fmaf(s[i], dscale * LOG2E, -l2[e & 1]));
+        dp[i] = p * fmaf(dp[i], dscale, -delta * dscale);
+        s[i] = p;
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(128, D == 64 ? 3 : 1)
+flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap omap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap lmap,
+                      const __grid_constant__ CUtensorMap emap,
                       __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, int S, int T, int Hq,
                       int Hkv, int window, float cap, float dscale) {
-  constexpr int LDS = D + 8;
-  __shared__ __align__(16) __nv_bfloat16 Qs[BQ * LDS];
-  __shared__ __align__(16) __nv_bfloat16 Ds[BQ * LDS];
-  __shared__ float Ls[BQ], Es[BQ];
+  using namespace hopper;
+  using L = DkvSmem<D>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  const uint8_t* Ks = smem;
+  const uint8_t* Vs = smem + L::V_OFF;
+  float* red = reinterpret_cast<float*>(smem + L::RING_OFF);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* kvbar = bars;
+  uint64_t* full = bars + 1;
 
-  const int k0 = blockIdx.x * BN, hk = blockIdx.y, b = blockIdx.z;
+  // cluster of C CTAs along x, one per query head of the group (in turn
+  // when G > C); key tile 0 (the most query tiles) first
+  const int C = gridDim.x, rank = blockIdx.x;
+  const int hk = blockIdx.y % Hkv, b = blockIdx.y / Hkv;
+  const int k0 = blockIdx.z * BN;
   const int G = Hq / Hkv;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int c0 = k0 + warp * 16 + g, c1 = c0 + 8;   // this thread's two keys
-
-  const int64_t q_stride = static_cast<int64_t>(Hq) * D;
-  const int64_t kv_stride = static_cast<int64_t>(Hkv) * D;
-  const int64_t kv_off = static_cast<int64_t>(b) * T * kv_stride + hk * D;
-
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a<D>(kf, k + kv_off, kv_stride, c0, T, t);
-  load_a<D>(vf, v + kv_off, kv_stride, c0, T, t);
-
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.f;
-    dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.f;
-  }
 
   // queries that can see a key of this tile: the causal diagonal up to the
   // window's far edge
   const int last_key = min(T, k0 + BN) - 1;
-  const int q_begin = (k0 / BQ) * BQ;
   const int q_end = window > 0 ? min(S, last_key + window) : S;
+  const int n_qt = q_end > k0 ? (q_end - k0 + BN - 1) / BN : 0;
+  const int n_heads = (G - rank + C - 1) / C;         // this CTA's heads
+  const int n_items = n_heads * n_qt;
 
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = hk * G + gi;
-    const int64_t q_off = static_cast<int64_t>(b) * S * q_stride + h * D;
-    const float* lb = lse + (static_cast<int64_t>(b) * Hq + h) * S;
-    const float* db = delta + (static_cast<int64_t>(b) * Hq + h) * S;
-    for (int qt = q_begin; qt < q_end; qt += BQ) {
-      __syncthreads();
-      stage<D, BQ>(Qs, q + q_off, q_stride, qt, S);
-      stage<D, BQ>(Ds, dout + q_off, q_stride, qt, S);
-      for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
-        Ls[i] = qt + i < S ? lb[qt + i] : 0.f;
-        Es[i] = qt + i < S ? db[qt + i] : 0.f;
-      }
-      __syncthreads();
-      float s[BQ / 8][4], dp[BQ / 8][4];
-      mma_abt<D, BQ>(s, kf, Qs, g, t);              // S^T = K Q^T
-      mma_abt<D, BQ>(dp, vf, Ds, g, t);             // dP^T = V dO^T
-#pragma unroll
-      for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = n * 8 + 2 * t + (e & 1);
-          const int key = e < 2 ? c0 : c1;
-          float p, ds;
-          p_ds(s[n][e], dp[n][e], Ls[qi], Es[qi],
-               live_at(key, qt + qi, S, T, window), cap, dscale, p, ds);
-          s[n][e] = p;
-          dp[n][e] = ds;
-        }
-      }
-      mma_acc<D, BQ>(dva, s, Ds, g, t);             // dv += p^T . dO
-      mma_acc<D, BQ>(dka, dp, Qs, g, t);            // dk += dS^T . Q
+  const CUtensorMap *qm = &qmap, *om = &omap, *lm = &lmap, *em = &emap;
+  auto load_item = [&](int stage, int i) {
+    const int h = hk * G + rank + C * (i / n_qt);
+    const int qt = k0 + (i % n_qt) * BN;
+    uint8_t* dst = smem + L::RING_OFF + stage * L::STAGE;
+    mbar_expect_tx(&full[stage], 2 * L::TILE + 512);
+    tma_tile<D>(dst, qm, &full[stage], h, qt, b);
+    tma_tile<D>(dst + L::TILE, om, &full[stage], h, qt, b);
+    const int row = (b * Hq + h) * S + qt;
+    tma_load_1d(dst + L::L_OFF, lm, &full[stage], row);
+    tma_load_1d(dst + L::E_OFF, em, &full[stage], row);
+  };
+  if (tid == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
+    if (n_items > 0) {
+      mbar_expect_tx(kvbar, 2 * L::TILE);
+      tma_tile<D>(smem, &kmap, kvbar, hk, k0, b);
+      tma_tile<D>(smem + L::V_OFF, &vmap, kvbar, hk, k0, b);
+      for (int s = 0; s < STAGES && s < n_items; ++s) load_item(s, s);
     }
   }
-  store_rows<D>(dk + kv_off, kv_stride, dka, c0, T, t);
-  store_rows<D>(dv + kv_off, kv_stride, dva, c0, T, t);
+  __syncthreads();
+
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  // P^T and dS^T as A fragments, read by the async dV and dK products
+  uint32_t pa[4][4] = {}, da[4][4] = {};
+
+  if (n_items > 0) mbar_wait(kvbar, 0);
+  for (int i = 0; i < n_items; ++i) {
+    const int stage = i % STAGES;
+    const uint32_t parity = (i / STAGES) & 1;
+    const int qt = k0 + (i % n_qt) * BN;
+    const uint8_t* st = smem + L::RING_OFF + stage * L::STAGE;
+    const uint8_t* Qs = st;
+    const uint8_t* Os = st + L::TILE;
+
+    // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries), issued behind
+    // the previous tile's dV and dK products
+    float s[32], dp[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
+    mbar_wait(&full[stage], parity);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_kmajor(Ks, kk), desc_kmajor(Qs, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, desc_kmajor(Vs, kk), desc_kmajor(Os, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();                 // these products and the last tile's
+    fence_regs(s);
+    fence_regs(dp);
+    fence_regs(dka);
+    fence_regs(dva);
+    fence_regs(pa);
+    fence_regs(da);
+    if (i > 0) {                      // the previous stage is free: refill it
+      __syncthreads();
+      const int done = i - 1;
+      if (tid == 0 && done + STAGES < n_items)
+        load_item(done % STAGES, done + STAGES);
+    }
+
+    // p^T and dS^T; the mask only where the tile crosses the diagonal, the
+    // window's edge, S or T
+    const float* Ls = reinterpret_cast<const float*>(st + L::L_OFF);
+    const float* Es = reinterpret_cast<const float*>(st + L::E_OFF);
+    if (cap > 0.f) p_ds_tile<true>(s, dp, Ls, Es, t, dscale, cap);
+    else p_ds_tile<false>(s, dp, Ls, Es, t, dscale, cap);
+    const bool masked = qt < k0 + BN - 1 || k0 + BN > T || qt + BN > S ||
+                        (window > 0 && qt + BN - 1 - k0 >= window);
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        if (!live_at(j % 4 < 2 ? c0 : c1, qt + 8 * (j / 4) + 2 * t + (j & 1), S,
+                     T, window))
+          s[j] = dp[j] = 0.f;
+    }
+
+    // dV += P^T dO, dK += dS^T Q: the accumulators are the A fragments; the
+    // products run while the next tile's S^T and dP^T are issued
+    to_a_frags<64>(pa, s);
+    to_a_frags<64>(da, dp);
+    fence_regs(dva);
+    fence_regs(dka);
+    fence_regs(pa);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(dva, pa[kk], desc_mnmajor(Os, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(dka, da[kk], desc_mnmajor(Qs, kk));
+    wgmma_commit();
+    fence_regs(dva);
+    fence_regs(dka);
+  }
+  wgmma_wait_all();
+  fence_regs(dva);
+  fence_regs(dka);
+  __syncthreads();                    // the ring is free: it takes the sums
+
+  // this CTA's partial dK and dV (f32) into its shared memory ...
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t, r = warp * 16 + g;
+    *reinterpret_cast<float2*>(red + r * L::PITCH + c) =
+        make_float2(dka[4 * j], dka[4 * j + 1]);
+    *reinterpret_cast<float2*>(red + (r + 8) * L::PITCH + c) =
+        make_float2(dka[4 * j + 2], dka[4 * j + 3]);
+    *reinterpret_cast<float2*>(red + (BN + r) * L::PITCH + c) =
+        make_float2(dva[4 * j], dva[4 * j + 1]);
+    *reinterpret_cast<float2*>(red + (BN + r + 8) * L::PITCH + c) =
+        make_float2(dva[4 * j + 2], dva[4 * j + 3]);
+  }
+  cluster_sync();
+  // ... then CTA r sums rows [64r/C, 64(r+1)/C) of dK and dV over the
+  // cluster in rank order and writes them
+  const int r_lo = rank * BN / C, r_hi = (rank + 1) * BN / C;
+  const int64_t kv_stride = static_cast<int64_t>(Hkv) * D;
+  const int64_t kv_off = static_cast<int64_t>(b) * T * kv_stride + hk * D;
+  const int per = (r_hi - r_lo) * (D / 4);
+  for (int idx = tid; idx < 2 * per; idx += blockDim.x) {
+    const int which = idx / per, rem = idx % per;     // 0: dK, 1: dV
+    const int r = r_lo + rem / (D / 4), c = (rem % (D / 4)) * 4;
+    const float* src = red + (which * BN + r) * L::PITCH + c;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int cta = 0; cta < C; ++cta) {
+      const float4 x = ld_dsmem_f4(src, cta);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    const int key = k0 + r;
+    if (key < T) {
+      __nv_bfloat16* dst = (which ? dv : dk) + kv_off + key * kv_stride + c;
+      *reinterpret_cast<uint2*>(dst) =
+          make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+    }
+  }
+  cluster_sync();             // no CTA leaves while another reads its sums
 }
 
 // ------------------------------------------------------------ f32 sweeps
@@ -557,6 +730,49 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+static int launch_dkv_bf16(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, void* dk, void* dv, int B,
+                           int S, int T, int Hq, int Hkv, int window, float cap,
+                           float dscale, cudaStream_t st) {
+  CUtensorMap qmap, omap, kmap, vmap, lmap, emap;
+  const int64_t rows = static_cast<int64_t>(B) * Hq * S;
+  int rc = hopper::map_bf16_bshd(&qmap, q, B, S, Hq, D);
+  if (rc == 0) rc = hopper::map_bf16_bshd(&omap, dout, B, S, Hq, D);
+  if (rc == 0) rc = hopper::map_bf16_bshd(&kmap, k, B, T, Hkv, D);
+  if (rc == 0) rc = hopper::map_bf16_bshd(&vmap, v, B, T, Hkv, D);
+  if (rc == 0) rc = hopper::map_f32_flat(&lmap, lse, rows);
+  if (rc == 0) rc = hopper::map_f32_flat(&emap, delta, rows);
+  if (rc != 0) return rc;
+  constexpr int bytes = DkvSmem<D>::BYTES;
+  static bool configured = false;          // once per process and head_dim
+  if (!configured) {
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        flash_dkv_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes));
+    if (rc != 0) return rc;
+    configured = true;
+  }
+  const int C = min(Hq / Hkv, 8);                   // CTAs per cluster
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, Hkv * B, (T + BN - 1) / BN);
+  cfg.blockDim = dim3(128, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, flash_dkv_bf16_kernel<D>, qmap, omap, kmap, vmap, lmap, emap,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, T,
+      Hq, Hkv, window, cap, dscale));
+}
+
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const void* dout, const float* lse,
                                     const float* delta, void* dk, void* dv,
@@ -565,21 +781,13 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    using bf = __nv_bfloat16;
-    const dim3 grid((T + BN - 1) / BN, Hkv, B);
-    auto qq = static_cast<const bf*>(q), kk = static_cast<const bf*>(k),
-         vv = static_cast<const bf*>(v), oo = static_cast<const bf*>(dout);
-    auto gk = static_cast<bf*>(dk), gv = static_cast<bf*>(dv);
     if (D == 64)
-      flash_dkv_bf16_kernel<64, 64><<<grid, 128, 0, st>>>(
-          qq, kk, vv, oo, lse, delta, gk, gv, S, T, Hq, Hkv, window, cap,
-          dscale);
-    else if (D == 128)
-      flash_dkv_bf16_kernel<128, 32><<<grid, 128, 0, st>>>(
-          qq, kk, vv, oo, lse, delta, gk, gv, S, T, Hq, Hkv, window, cap,
-          dscale);
-    else
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_dkv_bf16<64>(q, k, v, dout, lse, delta, dk, dv, B, S, T,
+                                 Hq, Hkv, window, cap, dscale, st);
+    if (D == 128)
+      return launch_dkv_bf16<128>(q, k, v, dout, lse, delta, dk, dv, B, S, T,
+                                  Hq, Hkv, window, cap, dscale, st);
+    return static_cast<int>(cudaErrorInvalidValue);
   } else {
     const dim3 grid((T + FB - 1) / FB, Hkv, B);
     auto qq = static_cast<const float*>(q), kk = static_cast<const float*>(k),

@@ -8,28 +8,37 @@
 // l > 0 and NEG_INF (-1e30) elsewhere. Outputs O (B,S,Hq,D) in q's dtype and
 // lse (B,Hq,S) f32.
 //
-// What bounds it on this card: at the serving prefill shape (S = T = 512,
-// Hq = 32, Hkv = 8, D = 64) the causal half of QK^T and PV is ~1.1 GFLOP per
-// layer against ~4.7 MB of q/k/v/O/lse traffic, ~230 FLOP per byte, which sits
-// just below the H100's ~295 FLOP/byte ridge: the tensor cores and the memory
-// are about equally near their limit, and a simple kernel is bound by neither
-// but by latency (no load/compute overlap, one CTA's worth of warps per tile).
+// What bounds it on this card: at the serving prefill shape (B1, S = T =
+// 512, Hq 32, Hkv 8, D 64, bf16) the causal half of QK^T and PV is ~1.1
+// GFLOP against ~4.7 MB of q/k/v/O/lse, 1.1 us on the tensor cores and 1.6
+// us of memory traffic: a few microseconds of work spread over 256 CTAs of
+// at most 8 key tiles each. What sets the time is the chain of one CTA: the
+// heaviest query tile walks 8 key tiles in series, and each tile's loads,
+// two products and softmax follow one another unless they are overlapped.
 //
-// Design (a simple kernel that is right, to be made fast later):
-//  - one CTA per (64-row query tile, query head, batch); 4 warps, each owning
-//    16 query rows; the key loop runs only from the window's band start to the
-//    causal diagonal, so dead key tiles are never visited (block_live);
-//  - bf16: QK^T and PV on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//    f32 accumulate); Q stays in registers as A fragments, K/V tiles of 64 keys
-//    are staged in padded shared memory, the S accumulator fragments are
-//    re-packed in registers as the A operand of PV (no shared-memory trip);
-//  - f32: a plain FMA path (one warp per 4 query rows, one lane per key for
-//    QK^T, one lane per 1/32 of head_dim for PV), so the f32 check can hold
-//    the reference's 2e-5;
-//  - rows >= S and keys >= T are masked in the kernel: no padded copies.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// Design (bf16):
+//  - one CTA per (64-row query tile, query head, batch): one warpgroup of
+//    128 threads issuing wgmma; the grid runs the heaviest query tiles (the
+//    most key tiles) first, so the long chains start at once;
+//  - Q is loaded once and K/V tiles of 64 keys stream through a ring of
+//    STAGES stages in shared memory, filled by TMA from 4-D tensor maps over
+//    (B, T, Hkv, D) in the 128-byte swizzle wgmma reads; one elected thread
+//    issues the loads, completion goes to one mbarrier per tile and operand,
+//    keys past T arrive as zeros, and the next tiles are in flight while one
+//    is multiplied. At head_dim 64 two stages (40 KB a CTA) let four CTAs
+//    share an SM, whose softmax and products interleave;
+//  - S = Q K^T is wgmma m64n64k16 with both operands in shared memory; O +=
+//    P V is m64nDk16 with P taken from S's accumulators in registers and V
+//    read as an MN-major (transposed) operand: no shared-memory trip for P.
+//    P V is not waited for: the next tile's S is issued behind it, and one
+//    wait covers both;
+//  - the softmax runs in the exp2 domain with log2(e) folded into the scale,
+//    and the mask is evaluated only on tiles that cross the causal diagonal,
+//    the window's edge or T.
+//  f32 (the test path of the 2e-5 checks): a plain FMA kernel, one warp per
+//  4 query rows, one lane per key for QK^T and per 1/32 of head_dim for PV.
+//  Rows >= S and keys >= T are masked in the kernels: no padded copies.
+#include "hopper.cuh"
 
 #define NEG_INF (-1e30f)
 
@@ -45,116 +54,164 @@ __device__ __forceinline__ float capped(float x, float cap) {
   return cap > 0.f ? cap * tanhf(x / cap) : x;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// raw q.k products -> scaled (and tanh-capped) scores in log2 units
+template <bool CAP>
+__device__ __forceinline__ void log2_scores(float (&s)[32], float dscale,
+                                            float cap) {
+  if (CAP) {
+    const float inv = dscale / cap, c2 = cap * hopper::LOG2E;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = c2 * tanhf(s[i] * inv);
+  } else {
+    const float sc = dscale * hopper::LOG2E;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= sc;
+  }
 }
 
 // ------------------------------------------------------------------ bf16 path
 
-constexpr int BM = 64;   // query rows per CTA (4 warps x 16)
+constexpr int BM = 64;   // query rows per CTA (one warpgroup)
 constexpr int BN = 64;   // keys per tile
 
 template <int D>
+struct FwdSmem {
+  // D 64: 2 stages keep a CTA at 40 KB, so 4 fit an SM (the register
+  // limit) where 3 stages fit 3; D 128 fits 2 CTAs either way
+  static constexpr int STAGES = D == 64 ? 2 : 3;
+  static constexpr int TILE = BN * D * 2;            // bytes of a 64-row tile
+  static constexpr int K_OFF = TILE;                 // Q first
+  static constexpr int V_OFF = K_OFF + STAGES * TILE;
+  static constexpr int BAR_OFF = V_OFF + STAGES * TILE;
+  // + the barriers (Q, K and V per stage), + slack for 1024-byte alignment
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+template <int D>
 __global__ void __launch_bounds__(128)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
                       __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                       int S, int T, int Hq, int Hkv, int window, float cap,
                       float dscale) {
-  constexpr int LDS = D + 8;               // padded row: conflict-free B loads
-  __shared__ __align__(16) __nv_bfloat16 Ks[BN * LDS];
-  __shared__ __align__(16) __nv_bfloat16 Vs[BN * LDS];
+  using namespace hopper;
+  using L = FwdSmem<D>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* Qs = smem;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* qbar = bars;
+  uint64_t* kfull = bars + 1;
+  uint64_t* vfull = bars + 1 + STAGES;
 
-  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  // heaviest query tiles first: z = 0 is the last tile
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;
+  const int h = blockIdx.x, b = blockIdx.y;
   const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;   // this thread's two rows
-
-  const int64_t q_stride = static_cast<int64_t>(Hq) * D;
-  const int64_t kv_stride = static_cast<int64_t>(Hkv) * D;
-  const __nv_bfloat16* qb = q + static_cast<int64_t>(b) * S * q_stride + h * D;
-  const __nv_bfloat16* kb = k + static_cast<int64_t>(b) * T * kv_stride + hk * D;
-  const __nv_bfloat16* vb = v + static_cast<int64_t>(b) * T * kv_stride + hk * D;
-
-  // Q as m16n8k16 A fragments, D/16 k-steps
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    auto ld = [&](int row, int col) -> uint32_t {
-      return row < S ? *reinterpret_cast<const uint32_t*>(qb + row * q_stride + col)
-                     : 0u;
-    };
-    qf[kk][0] = ld(r0, c);
-    qf[kk][1] = ld(r1, c);
-    qf[kk][2] = ld(r0, c + 8);
-    qf[kk][3] = ld(r1, c + 8);
-  }
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
 
   const int last_row = min(S, q0 + BM) - 1;
   int k_begin = window > 0 ? max(0, q0 - (window - 1)) : 0;
   k_begin = (k_begin / BN) * BN;
-  const int k_end = min(T, last_row + 1);          // causal diagonal
+  const int k_end = min(T, last_row + 1);            // causal diagonal
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
 
-  for (int kt = k_begin; kt < k_end; kt += BN) {
-    __syncthreads();                                // previous tile consumed
-    constexpr int CH = D / 8;                       // 16-byte chunks per row
-    for (int c = threadIdx.x; c < BN * CH; c += blockDim.x) {
-      const int row = c / CH, col = (c % CH) * 8, key = kt + row;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (key < T) {
-        kv = *reinterpret_cast<const uint4*>(kb + key * kv_stride + col);
-        vv = *reinterpret_cast<const uint4*>(vb + key * kv_stride + col);
-      }
-      *reinterpret_cast<uint4*>(&Ks[row * LDS + col]) = kv;
-      *reinterpret_cast<uint4*>(&Vs[row * LDS + col]) = vv;
+  const int64_t q_stride = static_cast<int64_t>(Hq) * D;
+  __nv_bfloat16* ob = out + static_cast<int64_t>(b) * S * q_stride + h * D;
+  float* lb = lse + (static_cast<int64_t>(b) * Hq + h) * S;
+
+  if (n_tiles == 0) {                  // no live key: every row fully masked
+    for (int i = tid; i < BM * D / 8; i += blockDim.x) {
+      const int row = q0 + i / (D / 8);
+      if (row < S)
+        *reinterpret_cast<uint4*>(ob + row * q_stride + (i % (D / 8)) * 8) =
+            make_uint4(0, 0, 0, 0);
     }
-    __syncthreads();
+    if (tid < BM && q0 + tid < S) lb[q0 + tid] = NEG_INF;
+    return;
+  }
 
-    // S = Q K^T for this warp's 16 rows x BN keys
-    float s[BN / 8][4];
+  const CUtensorMap *km = &kmap, *vm = &vmap;
+  auto load_kv = [&](int stage, int kt) {
+    mbar_expect_tx(&kfull[stage], L::TILE);
+    tma_tile<D>(smem + L::K_OFF + stage * L::TILE, km, &kfull[stage], hk,
+                kt, b);
+    mbar_expect_tx(&vfull[stage], L::TILE);
+    tma_tile<D>(smem + L::V_OFF + stage * L::TILE, vm, &vfull[stage], hk,
+                kt, b);
+  };
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+    }
+    fence_barrier_init();
+    mbar_expect_tx(qbar, L::TILE);
+    tma_tile<D>(Qs, &qmap, qbar, h, q0, b);
+    for (int s = 0; s < STAGES && s < n_tiles; ++s)
+      load_kv(s, k_begin + s * BN);
+  }
+  __syncthreads();
+
+  float o[D / 2];
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* krow = &Ks[(n * 8 + g) * LDS + 2 * t];
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;   // m in log2 units
+  uint32_t pa[4][4] = {};           // P as A fragments, read by the async P V
+
+  mbar_wait(qbar, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it % STAGES;
+    const uint32_t parity = (it / STAGES) & 1;
+    const int kt = k_begin + it * BN;
+    const uint8_t* Ks = smem + L::K_OFF + stage * L::TILE;
+    const uint8_t* Vs = smem + L::V_OFF + stage * L::TILE;
+
+    // S = Q K^T (64 rows x 64 keys), issued behind the previous tile's P V
+    float s[32];
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-        mma_bf16(s[n], qf[kk], b0, b1);
-      }
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    mbar_wait(&kfull[stage], parity);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_kmajor(Qs, kk), desc_kmajor(Ks, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();                 // this tile's S and the last tile's P V
+    fence_regs(s);
+    fence_regs(o);
+    fence_regs(pa);
+    if (it > 0) {                     // the previous stage is free: refill it
+      __syncthreads();
+      const int done = it - 1;
+      if (tid == 0 && done + STAGES < n_tiles)
+        load_kv(done % STAGES, k_begin + (done + STAGES) * BN);
     }
 
-    // scale, softcap, mask; running row max
+    // scores in log2 units; the mask only where the tile crosses the
+    // diagonal, the window's edge or T
+    if (cap > 0.f) log2_scores<true>(s, dscale, cap);
+    else log2_scores<false>(s, dscale, cap);
+    const bool masked = kt + BN - 1 > q0 || kt + BN > T ||
+                        (window > 0 && q0 + BM - 1 - kt >= window);
+    if (masked) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (!key_live(kt + 8 * (i / 4) + 2 * t + (i & 1), i % 4 < 2 ? r0 : r1,
+                      T, window))
+          s[i] = NEG_INF;
+    }
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt + n * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? r0 : r1;
-        const float x = capped(s[n][e] * dscale, cap);
-        s[n][e] = key_live(key, row, T, window) ? x : NEG_INF;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
@@ -162,48 +219,52 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
     l0 *= a0;
     l1 *= a1;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      o[j][0] *= a0; o[j][1] *= a0; o[j][2] *= a1; o[j][3] *= a1;
+      o[4 * j] *= a0;
+      o[4 * j + 1] *= a0;
+      o[4 * j + 2] *= a1;
+      o[4 * j + 3] *= a1;
     }
-    // p, re-masked to 0 (a fully-masked row has s - m == 0 and would claim 1)
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt + n * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? r0 : r1;
-        const float p = key_live(key, row, T, window)
-                            ? expf(s[n][e] - (e < 2 ? mn0 : mn1)) : 0.f;
-        s[n][e] = p;
-        if (e < 2) l0 += p; else l1 += p;
-      }
+      for (int e = 0; e < 4; ++e)
+        s[4 * j + e] = exp2f(s[4 * j + e] - (e < 2 ? mn0 : mn1));
+    }
+    // p re-masked to 0 (a fully-masked row has s - m == 0 and would claim 1)
+    if (masked) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (!key_live(kt + 8 * (i / 4) + 2 * t + (i & 1), i % 4 < 2 ? r0 : r1,
+                      T, window))
+          s[i] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      l0 += s[4 * j] + s[4 * j + 1];
+      l1 += s[4 * j + 2] + s[4 * j + 3];
     }
 
-    // O += P V: the S accumulators are the A fragments of P
+    // O += P V: S's accumulators are the A fragments of P; the product runs
+    // while the next tile's S is issued
+    to_a_frags<64>(pa, s);
+    mbar_wait(&vfull[stage], parity);
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* v0 = &Vs[(kk * 16 + 2 * t) * LDS + g];
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const __nv_bfloat16* vc = v0 + j * 8;
-        __nv_bfloat162 lo, hi;
-        lo.x = vc[0];        lo.y = vc[LDS];
-        hi.x = vc[8 * LDS];  hi.y = vc[9 * LDS];
-        mma_bf16(o[j], pa, *reinterpret_cast<uint32_t*>(&lo),
-                 *reinterpret_cast<uint32_t*>(&hi));
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(o, pa[kk], desc_mnmajor(Vs, kk));
+    wgmma_commit();
+    fence_regs(o);
   }
+  wgmma_wait_all();
+  fence_regs(o);
 
   // finalize: l was summed per thread; reduce over the quad sharing a row
 #pragma unroll
@@ -213,21 +274,19 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  __nv_bfloat16* ob = out + static_cast<int64_t>(b) * S * q_stride + h * D;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = j * 8 + 2 * t;
     if (r0 < S)
       *reinterpret_cast<uint32_t*>(ob + r0 * q_stride + c) =
-          pack_bf16(o[j][0] * inv0, o[j][1] * inv0);
+          pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
     if (r1 < S)
       *reinterpret_cast<uint32_t*>(ob + r1 * q_stride + c) =
-          pack_bf16(o[j][2] * inv1, o[j][3] * inv1);
+          pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
   }
   if (t == 0) {
-    float* lb = lse + (static_cast<int64_t>(b) * Hq + h) * S;
-    if (r0 < S) lb[r0] = l0 > 0.f ? m0 + logf(l0) : NEG_INF;
-    if (r1 < S) lb[r1] = l1 > 0.f ? m1 + logf(l1) : NEG_INF;
+    if (r0 < S) lb[r0] = l0 > 0.f ? (m0 + log2f(l0)) * LN2 : NEG_INF;
+    if (r1 < S) lb[r1] = l1 > 0.f ? (m1 + log2f(l1)) * LN2 : NEG_INF;
   }
 }
 
@@ -330,41 +389,60 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------------------------- launcher
 
+template <int D>
+static int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                       float* lse, int B, int S, int T, int Hq, int Hkv,
+                       int window, float cap, float dscale, cudaStream_t st) {
+  CUtensorMap qmap, kmap, vmap;
+  int rc = hopper::map_bf16_bshd(&qmap, q, B, S, Hq, D);
+  if (rc == 0) rc = hopper::map_bf16_bshd(&kmap, k, B, T, Hkv, D);
+  if (rc == 0) rc = hopper::map_bf16_bshd(&vmap, v, B, T, Hkv, D);
+  if (rc != 0) return rc;
+  constexpr int bytes = FwdSmem<D>::BYTES;
+  static bool configured = false;          // once per process and head_dim
+  if (!configured) {
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes));
+    if (rc != 0) return rc;
+    configured = true;
+  }
+  const dim3 grid(Hq, B, (S + BM - 1) / BM);
+  flash_fwd_bf16_kernel<D><<<grid, 128, bytes, st>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), lse, S, T, Hq, Hkv,
+      window, cap, dscale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a head_dim the kernel does not take.
+// cudaErrorInvalidValue for a head_dim the kernel does not take or tensors
+// TMA cannot map.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, float* lse, int B, int S, int T,
                                 int Hq, int Hkv, int D, int window, float cap,
                                 float dscale, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    const dim3 grid((S + BM - 1) / BM, Hq, B);
-    const auto* qq = static_cast<const __nv_bfloat16*>(q);
-    const auto* kk = static_cast<const __nv_bfloat16*>(k);
-    const auto* vv = static_cast<const __nv_bfloat16*>(v);
-    auto* oo = static_cast<__nv_bfloat16*>(out);
     if (D == 64)
-      flash_fwd_bf16_kernel<64><<<grid, 128, 0, st>>>(qq, kk, vv, oo, lse, S, T,
-                                                      Hq, Hkv, window, cap, dscale);
-    else if (D == 128)
-      flash_fwd_bf16_kernel<128><<<grid, 128, 0, st>>>(qq, kk, vv, oo, lse, S, T,
-                                                       Hq, Hkv, window, cap, dscale);
-    else
-      return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    const dim3 grid((S + FBM - 1) / FBM, Hq, B);
-    const auto* qq = static_cast<const float*>(q);
-    const auto* kk = static_cast<const float*>(k);
-    const auto* vv = static_cast<const float*>(v);
-    auto* oo = static_cast<float*>(out);
-    if (D == 64)
-      flash_fwd_f32_kernel<64><<<grid, 128, 0, st>>>(qq, kk, vv, oo, lse, S, T,
-                                                     Hq, Hkv, window, cap, dscale);
-    else if (D == 128)
-      flash_fwd_f32_kernel<128><<<grid, 128, 0, st>>>(qq, kk, vv, oo, lse, S, T,
-                                                      Hq, Hkv, window, cap, dscale);
-    else
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_bf16<64>(q, k, v, out, lse, B, S, T, Hq, Hkv, window, cap,
+                             dscale, st);
+    if (D == 128)
+      return launch_bf16<128>(q, k, v, out, lse, B, S, T, Hq, Hkv, window, cap,
+                              dscale, st);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const dim3 grid((S + FBM - 1) / FBM, Hq, B);
+  const auto* qq = static_cast<const float*>(q);
+  const auto* kk = static_cast<const float*>(k);
+  const auto* vv = static_cast<const float*>(v);
+  auto* oo = static_cast<float*>(out);
+  if (D == 64)
+    flash_fwd_f32_kernel<64><<<grid, 128, 0, st>>>(qq, kk, vv, oo, lse, S, T,
+                                                   Hq, Hkv, window, cap, dscale);
+  else if (D == 128)
+    flash_fwd_f32_kernel<128><<<grid, 128, 0, st>>>(qq, kk, vv, oo, lse, S, T,
+                                                    Hq, Hkv, window, cap, dscale);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,8 +8,10 @@ plain C interface:
          -Xcompiler -fPIC -Xptxas -v -o <build>/<name>-<hash>.so <name>.cu
 
 The build directory is ``src/repro_torch/_build/`` (listed in
-``.gitignore``); a library is named by the hash of its source and flags,
-so a changed source is never served from a stale build. Nothing is
+``.gitignore``); a library is named by the hash of its source, of the
+local headers it includes (``#include "x.cuh"``, followed recursively)
+and of the flags, so a changed source or header is never served from a
+stale build. Nothing is
 built at import: :func:`library` builds at first use, once per process.
 PyTorch's extension builder is not used — it includes PyTorch's headers
 and takes minutes per file where this takes seconds.
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -48,10 +51,31 @@ def nvcc_path() -> str:
                        "toolkit is installed")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources_of(src: Path) -> list[Path]:
+    """``src`` and the local headers it includes, recursively, each once,
+    in the order first reached."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / name.decode()).resolve()
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    h = hashlib.sha256()
+    for path in sources_of(src):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(force: bool = False) -> dict[str, dict]:

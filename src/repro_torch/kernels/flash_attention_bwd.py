@@ -59,6 +59,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, window=None,
             raise ValueError(f"{name} must be a contiguous {dtype} tensor of "
                              f"shape {tuple(shape)} on {q.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if t.data_ptr() % 16:                   # TMA reads dout and lse
+            raise ValueError(f"{name} must be 16-byte aligned")
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

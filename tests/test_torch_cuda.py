@@ -43,6 +43,15 @@ FLASH_CASES = [
     dict(B=2, S=256, T=256, Hq=8, Hkv=4, D=128, dtype=torch.bfloat16,
          window=64, cap=50.0),
     dict(B=1, S=192, T=64, Hq=4, Hkv=2, D=64, dtype=torch.float32, window=16),
+    # the bf16 edges of the Hopper design: ragged S, fully-masked rows, GQA
+    # groups of 1, 2 and 8, head_dim 128 without a window
+    dict(B=2, S=300, T=300, Hq=8, Hkv=2, D=64, dtype=torch.bfloat16),
+    dict(B=1, S=192, T=64, Hq=4, Hkv=2, D=64, dtype=torch.bfloat16,
+         window=16),
+    dict(B=2, S=256, T=256, Hq=8, Hkv=8, D=64, dtype=torch.bfloat16),
+    dict(B=2, S=256, T=256, Hq=32, Hkv=16, D=64, dtype=torch.bfloat16),
+    dict(B=2, S=256, T=256, Hq=32, Hkv=4, D=64, dtype=torch.bfloat16),
+    dict(B=2, S=256, T=256, Hq=8, Hkv=4, D=128, dtype=torch.bfloat16),
 ]
 
 PAGED_CASES = [
@@ -83,6 +92,20 @@ BWD_CASES = [
          cap=8.0, through_ops=True),
     dict(B=2, S=128, Hq=4, Hkv=2, D=128, dtype=torch.float32,
          through_ops=True),
+    dict(B=2, S=300, Hq=8, Hkv=2, D=64, dtype=torch.bfloat16),
+    dict(B=1, S=192, T=64, Hq=4, Hkv=2, D=64, dtype=torch.bfloat16,
+         window=16),
+    dict(B=2, S=256, Hq=8, Hkv=8, D=64, dtype=torch.bfloat16),
+    dict(B=2, S=256, Hq=32, Hkv=16, D=64, dtype=torch.bfloat16),
+    dict(B=2, S=256, Hq=32, Hkv=4, D=64, dtype=torch.bfloat16, cap=20.0),
+    dict(B=2, S=256, Hq=8, Hkv=4, D=128, dtype=torch.bfloat16),
+]
+
+#: two dk/dv launches on the same inputs (chip_smoke._dkv_repeat_case)
+DKV_REPEAT_CASES = [
+    dict(B=4, S=512, Hq=32, Hkv=8, D=64),
+    dict(B=2, S=300, Hq=32, Hkv=4, D=64, window=100, cap=30.0),
+    dict(B=2, S=256, Hq=8, Hkv=4, D=128),
 ]
 
 
@@ -137,6 +160,12 @@ def test_slice3_wrappers_count_launches_and_reject_bad_input(smoke):
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_flash_bwd_kernels_match_plain(smoke, case):
     res = smoke._bwd_case("cuda", **case)
+    assert res["pass"], res
+
+
+@pytest.mark.parametrize("case", DKV_REPEAT_CASES)
+def test_dkv_kernel_is_bitwise_reproducible(smoke, case):
+    res = smoke._dkv_repeat_case("cuda", **case)
     assert res["pass"], res
 
 
