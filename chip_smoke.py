@@ -22,7 +22,13 @@ raising on any failure:
                the bf16 edges of the Hopper flash designs (ragged S,
                fully-masked rows with O = 0 and lse = -1e30 exactly, GQA
                groups of 1, 2 and 8, head_dim 128) for the forward and
-               both sweeps, and two dk/dv launches compared bit for bit.
+               both sweeps; head dims that are not kernel instances (160,
+               run at 192, and 40, run at 64) and 192 itself on every
+               attention kernel through the wrappers the model calls; the
+               paged cluster split's edges (every live page on one CTA, a
+               wrapped ring under a window that leaves CTAs without a
+               page, all lens 0); two dk/dv and two paged launches
+               compared bit for bit.
 4. serve     — granite-3-2b at full width and depth (bf16, random weights
                from a seed) serves 12 requests through PagedDecodeEngine
                with 8 slots; the kernels' launch counts must equal
@@ -31,6 +37,9 @@ raising on any failure:
                steps: device busy and idle share, top kernels by time.
 5. reference — the same model cut to 2 layers: logits of the kernel path
                against the plain path on one prefill and one decode step.
+4-5 again    — stablelm-12b (head_dim 160: the kernels and the page pool
+               at 192) at full width and all 40 layers: the same 12
+               requests, launch counts and trace; its 2-layer reference.
 7. train     — HWA training of full-width granite-3-2b cut to 8 layers
                through Trainer.run (K=2, H=2, I=3, fused sync, SGD,
                4 x 512 tokens per replica, 10 steps, 5 syncs, W̿ evaluated
@@ -57,7 +66,9 @@ raising on any failure:
                replay between CUDA events: device time, cold L2), beside
                its plain version, a library call where one exists, and
                the bound from its bytes and FLOPs; the flash forward at
-               both of its shapes (serving prefill B1, training B4).
+               both of its shapes (serving prefill B1, training B4); the
+               forward and the paged kernel at stablelm-12b's serving
+               shapes, their bounds at the true head_dim.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2.
@@ -93,6 +104,8 @@ from repro_torch.kernels import flash_attention_bwd as fab  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import wa_update as wa  # noqa: E402
+from repro_torch.kernels.head_dim import (pad_head_dim,  # noqa: E402
+                                         padded_head_dim)
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,  # noqa: E402
                                      flash_attention_fwd_ref,
                                      online_mean_ref, paged_attention_ref,
@@ -284,11 +297,16 @@ def _paged_inputs(device, *, lens, Hq, Hkv, D, ps, TW, dtype, seed):
 
 def _paged_case(device, *, lens, Hq, Hkv, D, ps, TW, dtype, window=None,
                 cap=0.0, seed=0):
+    """The paged kernel against its plain version, through the wrapper the
+    model calls: the pools at the kernel's head_dim instance (the model
+    allocates them padded), q at the true head_dim, the true scale."""
     q, kp, vp, tables, lens_t = _paged_inputs(
         device, lens=lens, Hq=Hq, Hkv=Hkv, D=D, ps=ps, TW=TW, dtype=dtype,
         seed=seed)
-    got = pa.paged_attention_cuda(q, kp, vp, tables, lens_t, window=window,
-                                  logit_softcap=cap)
+    Dp = padded_head_dim(D)
+    got = pa.paged_attention(q, pad_head_dim(kp, Dp), pad_head_dim(vp, Dp),
+                             tables, lens_t, window=window,
+                             logit_softcap=cap, sm_scale=D ** -0.5)
     want = paged_attention_ref(q, kp, vp, tables, lens_t, window=window,
                                logit_softcap=cap)
     _sync(device)
@@ -299,6 +317,44 @@ def _paged_case(device, *, lens, Hq, Hkv, D, ps, TW, dtype, window=None,
     return {"shape": f"B{len(lens)} Hq{Hq} Hkv{Hkv} D{D} ps{ps} TW{TW} "
                      f"{str(dtype)[6:]} w{window} cap{cap} lens{list(lens)}",
             "max_abs_err": err, "tol": tol, "pass": ok}
+
+
+def _paged_repeat_case(device, *, lens, Hq, Hkv, D, ps, TW,
+                       dtype=torch.bfloat16, window=None, cap=0.0, seed=0):
+    """Two paged launches on the same inputs must give the same bits: the
+    cluster combines its CTAs' partials in a fixed order, no atomics."""
+    q, kp, vp, tables, lens_t = _paged_inputs(
+        device, lens=lens, Hq=Hq, Hkv=Hkv, D=D, ps=ps, TW=TW, dtype=dtype,
+        seed=seed)
+    runs = [pa.paged_attention_cuda(q, kp, vp, tables, lens_t, window=window,
+                                    logit_softcap=cap) for _ in range(2)]
+    _sync(device)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    same = torch.equal(runs[0].view(bits), runs[1].view(bits))
+    return {"shape": f"B{len(lens)} Hq{Hq} Hkv{Hkv} D{D} ps{ps} TW{TW} "
+                     f"{str(dtype)[6:]} w{window} cap{cap} twice",
+            "max_abs_err": 0.0 if same else float(
+                (runs[0].float() - runs[1].float()).abs().max()),
+            "tol": "bitwise", "pass": same}
+
+
+#: paged cases that stress the cluster split (8 CTAs per sequence and kv
+#: head where TW >= 8): every live page on one CTA, a wrapped ring under a
+#: window that leaves CTAs of the cluster with no page, all lens 0
+PAGED_SPLIT_CASES = [
+    dict(lens=[1, 5, 16, 3], Hq=8, Hkv=2, D=64, ps=16, TW=35,
+         dtype=torch.bfloat16, seed=21),
+    dict(lens=[300, 75, 41, 9], Hq=8, Hkv=2, D=64, ps=8, TW=9,
+         dtype=torch.bfloat16, window=40, seed=22),
+    dict(lens=[300, 75, 41, 9], Hq=8, Hkv=2, D=128, ps=8, TW=9,
+         dtype=torch.float32, window=40, cap=30.0, seed=23),
+    dict(lens=[0, 0], Hq=4, Hkv=1, D=64, ps=16, TW=35, dtype=torch.float32,
+         seed=24),
+]
+
+#: head dims that are not kernel instances, on every attention kernel:
+#: stablelm-12b's 160 (runs at 192) and 40 (runs at 64)
+ODD_DIMS = (160, 40)
 
 
 def _ulps(got, want):
@@ -571,7 +627,20 @@ def phase_kernels(device):
         # queries past the key horizon of a window: fully-masked rows
         _flash_case(device, B=1, S=192, T=64, Hq=4, Hkv=2, D=64,
                     dtype=torch.float32, window=16, seed=3),
-    ] + _bf16_edge_cases(_flash_case, device)
+    ] + _bf16_edge_cases(_flash_case, device) + [
+        # head dims that are not instances: padded to 192 and 64
+        _flash_case(device, B=2, S=S, T=S, Hq=8, Hkv=2, D=D, dtype=dt,
+                    window=w, cap=cap, seed=30 + D)
+        for D in ODD_DIMS
+        for S, dt, w, cap in ((256, torch.bfloat16, None, 0.0),
+                              (200, torch.float32, 48, 20.0))] + [
+        # stablelm-12b's prefill chunk (head_dim 160 runs at 192)
+        _flash_case(device, B=1, S=512, T=512, Hq=32, Hkv=8, D=160,
+                    dtype=torch.bfloat16, seed=36),
+        # head_dim 192 itself, fully-masked rows
+        _flash_case(device, B=1, S=192, T=64, Hq=4, Hkv=2, D=192,
+                    dtype=torch.bfloat16, window=16, seed=37),
+    ]
     paged = [
         # granite-3-2b decode: ragged lens incl. 0, 1 and a page crossing
         _paged_case(device, lens=[0, 1, 17, 16, 100, 300, 543, 560], Hq=32,
@@ -580,6 +649,20 @@ def phase_kernels(device):
         _paged_case(device, lens=[50, 33, 17, 200], Hq=8, Hkv=2, D=128,
                     ps=4, TW=5, dtype=torch.float32, window=16, cap=30.0,
                     seed=1),
+        # stablelm-12b decode (head_dim 160 on a pool padded to 192)
+        _paged_case(device, lens=[0, 1, 17, 16, 100, 300, 543, 560], Hq=32,
+                    Hkv=8, D=160, ps=16, TW=35, dtype=torch.bfloat16, seed=2),
+    ] + [_paged_case(device, lens=[3, 40, 129, 77], Hq=8, Hkv=2, D=D, ps=16,
+                     TW=9, dtype=dt, window=w, cap=cap, seed=3 + D)
+         for D in ODD_DIMS
+         for dt, w, cap in ((torch.bfloat16, None, 0.0),
+                            (torch.float32, 50, 30.0))] + [
+        _paged_case(device, **c) for c in PAGED_SPLIT_CASES] + [
+        # the cluster's fixed-order combine: two launches, the same bits
+        _paged_repeat_case(device, lens=[0, 1, 17, 16, 100, 300, 543, 560],
+                           Hq=32, Hkv=8, D=64, ps=16, TW=35, seed=4),
+        _paged_repeat_case(device, lens=[300, 75, 41, 9], Hq=8, Hkv=2, D=192,
+                           ps=8, TW=9, window=40, cap=30.0, seed=5),
     ]
     P_train = -(-train_param_count(train_config()) // ALIGN) * ALIGN
     sync = [_sync_case(device, K=K, I=I, full=full, P=3 * ALIGN,
@@ -627,6 +710,21 @@ def phase_kernels(device):
                    window=w, cap=cap, seed=i, through_ops=True)
          for i, (S, Hq, Hkv, D, w, cap, dt) in enumerate(GRAD_MATRIX)] \
         + _bf16_edge_cases(_bwd_case, device) + [
+        # head dims that are not instances, through the model's wrapper
+        _bwd_case(device, B=2, S=S, Hq=8, Hkv=2, D=D, dtype=dt, window=w,
+                  cap=cap, seed=40 + D, through_ops=True)
+        for D in ODD_DIMS
+        for S, dt, w, cap in ((256, torch.bfloat16, None, 0.0),
+                              (200, torch.float32, 48, 20.0))] + [
+        # head_dim 192: two-warpgroup dk/dv, fully-masked rows get dq = 0
+        _bwd_case(device, B=1, S=192, T=64, Hq=4, Hkv=2, D=192,
+                  dtype=torch.bfloat16, window=16, seed=45),
+        _bwd_case(device, B=2, S=300, Hq=8, Hkv=2, D=192,
+                  dtype=torch.bfloat16, cap=30.0, seed=46),
+        _bwd_case(device, B=1, S=192, T=64, Hq=4, Hkv=2, D=192,
+                  dtype=torch.float32, window=16, seed=47),
+        _dkv_repeat_case(device, B=2, S=256, Hq=8, Hkv=2, D=192, seed=48),
+    ] + [
         # the cluster's fixed-order sums: two launches, the same bits
         _dkv_repeat_case(device, B=4, S=512, Hq=32, Hkv=8, D=64, seed=5),
         _dkv_repeat_case(device, B=2, S=300, Hq=32, Hkv=4, D=64, window=100,
@@ -747,11 +845,17 @@ def phase_serve(device, cfg=None, *, n_requests=12, max_batch=8,
         raise AssertionError(f"{admissions} admissions for {n_requests}")
     if n_requests > max_batch and not any(s > 0 for s in log["admit_at_step"]):
         raise AssertionError("no admission happened mid-run")
+    # the head_dim the kernels run at: the pool's (padded where the paged
+    # kernel runs, kernels/head_dim.py); the flash wrapper pads to the same
+    pool_d = eng.state["caches"][0]["pages"]["k"].shape[-1]
     if dev.type == "cuda":
         want = _want(flash_fwd=cfg.n_layers * admissions,
                      paged_attention=cfg.n_layers * steps)
         if launches != want:
             raise AssertionError(f"launch counts {launches} != {want}")
+        if pool_d != padded_head_dim(cfg.resolved_head_dim):
+            raise AssertionError(f"pool head_dim {pool_d} is not the kernel "
+                                 f"instance of {cfg.resolved_head_dim}")
 
     pre_ms, step_ms = pre_clock.ms(), step_clock.ms()
     # the highest percentile with at least ten samples beyond it
@@ -772,14 +876,16 @@ def phase_serve(device, cfg=None, *, n_requests=12, max_batch=8,
         "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
                          if dev.type == "cuda" else None),
         "first_decode_lens": log["first_decode_lens"],
-        "prompt_lens": lens.tolist(),
+        "prompt_lens": lens.tolist(), "arch": cfg.name,
+        "head_dim": cfg.resolved_head_dim, "kernel_head_dim": pool_d,
     }
     print(f"[serve] {cfg.name} L{cfg.n_layers} d{cfg.d_model} "
-          f"H{cfg.n_heads}/{cfg.n_kv_heads} ff{cfg.d_ff} V{cfg.vocab_size} "
+          f"H{cfg.n_heads}/{cfg.n_kv_heads} hd{cfg.resolved_head_dim} (kernels "
+          f"and pool at {pool_d}) ff{cfg.d_ff} V{cfg.vocab_size} "
           f"{cfg.dtype} on {dev}: {n_requests} requests, {max_batch} slots, "
           f"{admissions} admissions ({res['mid_run_admissions']} mid-run), "
           f"{steps} decode steps, launches {launches}")
-    print(f"[serve] prefill {res['prefill_tok_s']:.1f} tok/s, decode "
+    print(f"[serve] {cfg.name}: prefill {res['prefill_tok_s']:.1f} tok/s, decode "
           f"{res['decode_tok_s']:.1f} tok/s, median step "
           f"{res['median_step_ms']:.3f} ms (p{tail} {res['tail_step_ms']} "
           f"ms, n={steps}), median prefill "
@@ -879,14 +985,15 @@ def phase_trace(device, eng, serve, n_steps=8, prompt_len=256):
 REF_LOGIT_TOL = 0.1
 
 
-def phase_reference(device, n_layers=2, prompt_len=300, seed=0):
-    """Full-width granite-3-2b cut to ``n_layers``: one prefill chunk and
-    one decode step through the kernels against the plain path (naive
+def phase_reference(device, n_layers=2, prompt_len=300, seed=0,
+                    arch="granite-3-2b"):
+    """Full-width ``arch`` cut to ``n_layers``: one prefill chunk and one
+    decode step through the kernels against the plain path (naive
     prefill attention, gather-reference decode) on the same weights and
     inputs. bf16 activations round differently in the two paths, so the
     logits agree to REF_LOGIT_TOL, not bitwise."""
     dev = torch.device(device)
-    base = get_config("granite-3-2b").with_(n_layers=n_layers)
+    base = get_config(arch).with_(n_layers=n_layers)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = build_model(base).init(gen, device=dev)
     rs = np.random.RandomState(seed)
@@ -915,7 +1022,7 @@ def phase_reference(device, n_layers=2, prompt_len=300, seed=0):
     scale = float(logits["naive"][0].abs().max())
     ok = max(errs) <= REF_LOGIT_TOL and all(
         bool(torch.isfinite(t).all()) for t in logits["flash_pallas"])
-    print(f"[reference] granite-3-2b cut to {n_layers} layers, bf16: kernel "
+    print(f"[reference] {arch} cut to {n_layers} layers, bf16: kernel "
           f"path vs plain path max |dlogit| prefill {errs[0]:.5f}, decode "
           f"{errs[1]:.5f} (tol {REF_LOGIT_TOL}, max |logit| {scale:.3f}): "
           f"{'pass' if ok else 'FAIL'}")
@@ -1583,6 +1690,145 @@ def phase_yardstick(device, serve, kernels):
     return entries
 
 
+def phase_yardstick_stablelm(device, serve_slm):
+    """The flash forward and the paged kernel at stablelm-12b's serving
+    shapes: the forward at one 512-token prefill chunk (B1 S512 Hq32 Hkv8,
+    head_dim 160 run at 192), the paged kernel at the serving run's first
+    full decode step (its lens; the pool at 192). Inputs are padded
+    before timing, as the model hands them over (the pool is padded at
+    allocation; q, k and v of a prefill are padded by the wrapper before
+    the kernel), so the times are the kernels'. The bounds count the TRUE
+    head_dim's bytes and FLOPs: padding shows as distance from them.
+    Returns (forward, paged) records."""
+    dev = torch.device(device)
+    dt = torch.bfloat16
+    B, S, Hq, Hkv, D = 1, 512, 32, 8, serve_slm["head_dim"]
+    Dp = padded_head_dim(D)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    true_sets = [(_randn(gen, (B, S, Hq, D), dt, dev),
+                  _randn(gen, (B, S, Hkv, D), dt, dev),
+                  _randn(gen, (B, S, Hkv, D), dt, dev)) for _ in range(16)]
+    sets = [tuple(pad_head_dim(x, Dp) for x in st) for st in true_sets]
+    f_ms = _time_ms(lambda q, k, v: fa.flash_attention_fwd(
+        q, k, v, sm_scale=D ** -0.5), sets, 200)
+    f_plain = _time_ms(lambda q, k, v: flash_attention_fwd_ref(q, k, v),
+                       true_sets, 10, warmup=1)
+    f_lib = _sdpa_ms(true_sets, 200)
+    pairs = S * (S + 1) // 2
+    f_bound, f_by = _bound(4 * B * Hq * D * pairs,
+                           2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+                           + 4 * B * Hq * S, dt)
+    fwd = {"shape": f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} (kernel at {Dp}) bf16",
+           "ms": f_ms, "plain_ms": f_plain, "library_ms": f_lib,
+           "bound_ms": f_bound, "bound_by": f_by,
+           "launches": serve_slm["launches"]["flash_fwd"]}
+
+    lens = serve_slm["first_decode_lens"]
+    Bp, ps, TW = len(lens), 16, 35
+    psets, tsets = [], []
+    for i in range(8):
+        q, kp, vp, tables, lens_t = _paged_inputs(
+            dev, lens=lens, Hq=Hq, Hkv=Hkv, D=D, ps=ps, TW=TW, dtype=dt,
+            seed=30 + i)
+        tsets.append((q, kp, vp, tables, lens_t))
+        psets.append((pad_head_dim(q, Dp), pad_head_dim(kp, Dp),
+                      pad_head_dim(vp, Dp), tables, lens_t))
+    p_ms = _time_ms(lambda *a: pa.paged_attention_cuda(
+        *a, sm_scale=D ** -0.5), psets, 500)
+    p_plain = _time_ms(lambda *a: paged_attention_ref(*a), tsets, 50)
+    tokens = int(sum(lens))
+    p_bound, p_by = _bound(4 * Hq * D * tokens,
+                           2 * (2 * Bp * Hq * D + 2 * tokens * Hkv * D)
+                           + 4 * Bp * (TW + 1), dt)
+    paged = {"shape": f"B{Bp} Hq{Hq} Hkv{Hkv} D{D} (kernel at {Dp}) ps{ps} "
+                      f"TW{TW} lens {lens} bf16",
+             "ms": p_ms, "plain_ms": p_plain, "library_ms": None,
+             "bound_ms": p_bound, "bound_by": p_by,
+             "launches": serve_slm["launches"]["paged_attention"]}
+    print(f"[yardstick] stablelm-12b flash_fwd {fwd['shape']}: {f_ms:.4f} ms "
+          f"(plain {f_plain:.3f}, sdpa {f_lib:.4f}, {f_ms / f_lib:.2f}x; "
+          f"bound {f_bound:.5f} by {f_by} at the true head_dim) | "
+          f"{CARD['line']}")
+    print(f"[yardstick] stablelm-12b paged_attention {paged['shape']}: "
+          f"{p_ms:.4f} ms (plain {p_plain:.3f}, library none, bound "
+          f"{p_bound:.5f} by {p_by} at the true head_dim) | {CARD['line']}")
+    return fwd, paged
+
+
+def _sweep_launchers(dev, dscale):
+    """One dq launch and one dk/dv launch of the backward library, each
+    alone (what phase 6 times), on bf16 (q, k, v, out, lse, dout, delta)
+    sets; shapes are read from the tensors, ``dscale`` is the true head
+    dim's."""
+    lib = fab._lib()
+
+    def shape(q, k):      # the stream is read per call: capture runs on its own
+        B, S, Hq, D = q.shape
+        return (B, S, k.shape[1], Hq, k.shape[2], D, 0, 0.0, dscale, 1,
+                torch.cuda.current_stream(dev).cuda_stream)
+
+    def dq_only(q, k, v, out, lse, dout, delta):
+        dq = torch.empty_like(q)
+        build.check_launch(lib, lib.flash_bwd_dq_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *shape(q, k)),
+            "dq")
+
+    def dkv_only(q, k, v, out, lse, dout, delta):
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        build.check_launch(lib, lib.flash_bwd_dkv_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *shape(q, k)), "dkv")
+
+    return dq_only, dkv_only
+
+
+def phase_yardstick_sweeps_192(device):
+    """The two backward sweeps' head_dim-192 instances at stablelm-12b's
+    attention shape (B1 S512 Hq32 Hkv8, head_dim 160 run at 192): no main
+    path of this script trains stablelm-12b (it does not fit one card
+    with HWA's state), so these are the instances' times on the inputs
+    the wrappers would hand them, beside SDPA's backward at the true
+    head_dim; the bounds count the true head_dim. Returns (dq, dk/dv)
+    records."""
+    dev = torch.device(device)
+    dt = torch.bfloat16
+    B, S, Hq, Hkv, D = 1, 512, 32, 8, 160
+    Dp = padded_head_dim(D)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    sets, bsets = [], []
+    for _ in range(16):
+        q, dout = (_randn(gen, (B, S, Hq, D), dt, dev) for _ in range(2))
+        k, v = (_randn(gen, (B, S, Hkv, D), dt, dev) for _ in range(2))
+        qp, kp, vp, dp = (pad_head_dim(x, Dp) for x in (q, k, v, dout))
+        out, lse = fa.flash_attention_fwd(qp, kp, vp, sm_scale=D ** -0.5)
+        delta = (dp.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        sets.append((qp, kp, vp, out, lse, dp, delta))
+        bsets.append((q, k, v, dout))
+    dq_only, dkv_only = _sweep_launchers(dev, D ** -0.5)
+    dq_ms = _time_ms(dq_only, sets, 100)
+    dkv_ms = _time_ms(dkv_only, sets, 100)
+    b_lib = _sdpa_bwd_ms(bsets, 50)
+    prod = 2 * B * Hq * D * (S * (S + 1) // 2)
+    q_bytes, kv_bytes, row_bytes = 2 * B * S * Hq * D, 2 * B * S * Hkv * D, \
+        4 * B * Hq * S
+    dq_bound, dq_by = _bound(3 * prod, 3 * q_bytes + 2 * kv_bytes
+                             + 2 * row_bytes, dt)
+    dkv_bound, dkv_by = _bound(4 * prod, 2 * q_bytes + 4 * kv_bytes
+                               + 2 * row_bytes, dt)
+    shape = f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} (kernels at {Dp}) bf16"
+    print(f"[yardstick] flash_bwd {shape}: dq {dq_ms:.4f} ms (bound "
+          f"{dq_bound:.5f} by {dq_by}), dk/dv {dkv_ms:.4f} ms (bound "
+          f"{dkv_bound:.5f} by {dkv_by}), both at the true head_dim; sdpa "
+          f"backward {b_lib:.4f} ms | {CARD['line']}")
+    return ({"shape": shape, "ms": dq_ms, "library_ms": b_lib,
+             "bound_ms": dq_bound, "bound_by": dq_by},
+            {"shape": shape, "ms": dkv_ms, "library_ms": b_lib,
+             "bound_ms": dkv_bound, "bound_by": dkv_by})
+
+
 def _sdpa_bwd_ms(sets, iters):
     """The backward of torch's scaled_dot_product_attention on the same
     inputs (B, H, S, D): its forward+backward minus its forward, each
@@ -1641,25 +1887,7 @@ def phase_yardstick_train(device, train, kernels):
             .contiguous()
         sets.append((q, k, v, out, lse, dout, delta))
         bsets.append((q, k, v, dout))
-    lib = fab._lib()
-
-    def shape():          # the stream is read per call: capture runs on its own
-        return (B, S, S, Hq, Hkv, D, 0, 0.0, D ** -0.5, 1,
-                torch.cuda.current_stream(dev).cuda_stream)
-
-    def dq_only(q, k, v, out, lse, dout, delta):
-        dq = torch.empty_like(q)
-        build.check_launch(lib, lib.flash_bwd_dq_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *shape()), "dq")
-
-    def dkv_only(q, k, v, out, lse, dout, delta):
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        build.check_launch(lib, lib.flash_bwd_dkv_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *shape()), "dkv")
-
+    dq_only, dkv_only = _sweep_launchers(dev, D ** -0.5)
     dq_ms = _time_ms(dq_only, sets, 100)
     dkv_ms = _time_ms(dkv_only, sets, 100)
     # the forward at the training shape (its 32 launches a step run here)
@@ -1796,6 +2024,15 @@ def main() -> int:
     gc.collect()
     phase_reference(device)
     torch.cuda.empty_cache()
+    # stablelm-12b at full width and depth: head_dim 160, run at 192
+    serve_slm, eng = phase_serve(device, cfg=get_config("stablelm-12b").with_(
+        attn_impl="flash_pallas"))
+    phase_trace(device, eng, serve_slm)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_reference(device, arch="stablelm-12b")
+    torch.cuda.empty_cache()
     train, trainer = phase_train(device)
     phase_train_trace(device, trainer, train)
     windows = phase_windows(device, trainer, train)
@@ -1806,15 +2043,27 @@ def main() -> int:
     phase_train_reference(device)
     torch.cuda.empty_cache()
     entries = phase_yardstick(device, serve, kernels)
+    fwd_slm, paged_slm = phase_yardstick_stablelm(device, serve_slm)
     train_entries, fwd_b4 = phase_yardstick_train(device, train, kernels)
     entries += train_entries
     entries += phase_yardstick_windows(device, train, kernels, windows)
-    # the flash forward runs on both paths: its launches are the sum
+    # the flash forward runs on three paths, the paged kernel on two: their
+    # launches are the sums
     entries[0]["launches_by_path"] = {
         "serve": serve["launches"]["flash_fwd"],
+        "serve_stablelm": serve_slm["launches"]["flash_fwd"],
         "train": train["launches"]["flash_fwd"]}
     entries[0]["launches"] = sum(entries[0]["launches_by_path"].values())
     entries[0]["at_train_shape"] = fwd_b4
+    entries[0]["at_stablelm_shape"] = fwd_slm
+    entries[1]["launches_by_path"] = {
+        "serve": serve["launches"]["paged_attention"],
+        "serve_stablelm": serve_slm["launches"]["paged_attention"]}
+    entries[1]["launches"] = sum(entries[1]["launches_by_path"].values())
+    entries[1]["at_stablelm_shape"] = paged_slm
+    # the sweeps' head_dim-192 instances (entries 3 and 4: dq, dk/dv)
+    entries[3]["at_stablelm_shape"], entries[4]["at_stablelm_shape"] = \
+        phase_yardstick_sweeps_192(device)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

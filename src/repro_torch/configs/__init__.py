@@ -15,6 +15,8 @@ from repro_torch.models.types import INPUT_SHAPES, InputShape, ModelConfig
 ARCH_IDS = [
     "granite-3-2b",
     "gemma2-27b",
+    "stablelm-12b",
+    "command-r-35b",
 ]
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")

@@ -38,6 +38,8 @@
 //  f32 (the test path of the 2e-5 checks): a plain FMA kernel, one warp per
 //  4 query rows, one lane per key for QK^T and per 1/32 of head_dim for PV.
 //  Rows >= S and keys >= T are masked in the kernels: no padded copies.
+//  Both are instantiated at head_dim 64, 128 and 192; the wrapper pads any
+//  other head_dim up to the next of those (kernels/head_dim.py).
 #include "hopper.cuh"
 
 #define NEG_INF (-1e30f)
@@ -77,8 +79,9 @@ constexpr int BN = 64;   // keys per tile
 template <int D>
 struct FwdSmem {
   // D 64: 2 stages keep a CTA at 40 KB, so 4 fit an SM (the register
-  // limit) where 3 stages fit 3; D 128 fits 2 CTAs either way
-  static constexpr int STAGES = D == 64 ? 2 : 3;
+  // limit) where 3 stages fit 3; D 128 fits 2 CTAs either way; D 192
+  // (O's accumulator alone 96 registers) fits one, at 120 KB with 2
+  static constexpr int STAGES = D == 128 ? 3 : 2;
   static constexpr int TILE = BN * D * 2;            // bytes of a 64-row tile
   static constexpr int K_OFF = TILE;                 // Q first
   static constexpr int V_OFF = K_OFF + STAGES * TILE;
@@ -295,15 +298,23 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
 constexpr int FBM = 16;  // query rows per CTA (4 warps x 4 rows)
 constexpr int FBN = 32;  // keys per tile (one per lane)
 
+// dynamic shared memory of the f32 kernel: Q rows, K (+1: lanes read
+// distinct banks) and V tiles; 61 KB at head_dim 192
+template <int D>
+constexpr int f32_smem_bytes() {
+  return 4 * (FBM * D + FBN * (D + 1) + FBN * D);
+}
+
 template <int D>
 __global__ void __launch_bounds__(128)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int S, int T, int Hq, int Hkv,
                      int window, float cap, float dscale) {
-  __shared__ float Qs[FBM][D];
-  __shared__ float Ks[FBN][D + 1];          // +1: lanes read distinct banks
-  __shared__ float Vs[FBN][D];
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  auto Qs = reinterpret_cast<float (*)[D]>(smem_raw);
+  auto Ks = reinterpret_cast<float (*)[D + 1]>(Qs + FBM);
+  auto Vs = reinterpret_cast<float (*)[D]>(Ks + FBN);
 
   const int q0 = blockIdx.x * FBM, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -414,9 +425,30 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+static int launch_f32(const float* q, const float* k, const float* v,
+                      float* out, float* lse, int B, int S, int T, int Hq,
+                      int Hkv, int window, float cap, float dscale,
+                      cudaStream_t st) {
+  constexpr int bytes = f32_smem_bytes<D>();
+  static bool configured = false;          // once per process and head_dim
+  if (!configured) {
+    const int rc = static_cast<int>(cudaFuncSetAttribute(
+        flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes));
+    if (rc != 0) return rc;
+    configured = true;
+  }
+  const dim3 grid((S + FBM - 1) / FBM, Hq, B);
+  flash_fwd_f32_kernel<D><<<grid, 128, bytes, st>>>(q, k, v, out, lse, S, T,
+                                                    Hq, Hkv, window, cap,
+                                                    dscale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a head_dim the kernel does not take or tensors
-// TMA cannot map.
+// cudaErrorInvalidValue for a head_dim the kernel does not take (64, 128,
+// 192) or tensors TMA cannot map.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, float* lse, int B, int S, int T,
                                 int Hq, int Hkv, int D, int window, float cap,
@@ -429,20 +461,23 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
     if (D == 128)
       return launch_bf16<128>(q, k, v, out, lse, B, S, T, Hq, Hkv, window, cap,
                               dscale, st);
+    if (D == 192)
+      return launch_bf16<192>(q, k, v, out, lse, B, S, T, Hq, Hkv, window, cap,
+                              dscale, st);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((S + FBM - 1) / FBM, Hq, B);
   const auto* qq = static_cast<const float*>(q);
   const auto* kk = static_cast<const float*>(k);
   const auto* vv = static_cast<const float*>(v);
   auto* oo = static_cast<float*>(out);
   if (D == 64)
-    flash_fwd_f32_kernel<64><<<grid, 128, 0, st>>>(qq, kk, vv, oo, lse, S, T,
-                                                   Hq, Hkv, window, cap, dscale);
-  else if (D == 128)
-    flash_fwd_f32_kernel<128><<<grid, 128, 0, st>>>(qq, kk, vv, oo, lse, S, T,
-                                                    Hq, Hkv, window, cap, dscale);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return launch_f32<64>(qq, kk, vv, oo, lse, B, S, T, Hq, Hkv, window, cap,
+                          dscale, st);
+  if (D == 128)
+    return launch_f32<128>(qq, kk, vv, oo, lse, B, S, T, Hq, Hkv, window, cap,
+                           dscale, st);
+  if (D == 192)
+    return launch_f32<192>(qq, kk, vv, oo, lse, B, S, T, Hq, Hkv, window, cap,
+                           dscale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the flash forward
-// (flash_fwd.cu) and the flash backward's dk/dv sweep (flash_bwd.cu): TMA
+// (flash_fwd.cu), the flash backward's two sweeps (flash_bwd.cu) and the
+// paged decode (paged_attention.cu): TMA
 // tile loads into shared memory, mbarriers that report their completion,
 // wgmma (warpgroup matrix multiply) on 128-byte-swizzled tiles, thread-block
 // cluster barriers and distributed shared memory, and the host-side tensor
@@ -7,8 +8,8 @@
 //
 // Tile layout. Every bf16 tile is 64 rows of a (.., rows, heads, head_dim)
 // tensor, loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B in boxes of 64 rows
-// x 64 columns (128 bytes a row, 8 KB a box); a head_dim of 128 is two boxes
-// ("halves") 8 KB apart. Boxes sit at 1024-byte-aligned addresses, so the
+// x 64 columns (128 bytes a row, 8 KB a box); a head_dim of 128 or 192 is
+// two or three boxes ("halves") 8 KB apart. Boxes sit at 1024-byte-aligned addresses, so the
 // swizzle TMA writes is the one wgmma's descriptors read. The same bytes
 // serve as a K-major operand (rows = M or N, head_dim = K: QK^T) and as an
 // MN-major one (rows = K, head_dim = N: PV, P^T dO, dS^T Q).
@@ -227,12 +228,62 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 192, f32) += A (64 x 16, bf16 fragments in registers) . B
+// (16 x 192); B MN-major in shared memory (transposed descriptor)
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x N) += A (64 x 16, registers) . B (16 x N, MN-major), N = D
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
+  static_assert(D == 64 || D == 128 || D == 192, "head_dim instances");
   if constexpr (D == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+  else if constexpr (D == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n192(d, a, db);
 }
 
 // Accumulator layout of an m64nN wgmma (f32): thread (warp w, lane with
@@ -272,6 +323,27 @@ __device__ __forceinline__ float4 ld_dsmem_f4(const void* p, uint32_t rank) {
   asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
                : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(remote)
                : "memory");
+  return v;
+}
+
+// 4 and 8 bytes at `p` in the shared memory of cluster CTA `rank`
+__device__ __forceinline__ float ld_dsmem_f32(const void* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float2 ld_dsmem_f2(const void* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(remote) : "memory");
   return v;
 }
 

@@ -50,11 +50,12 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref,
 VARIANTS = {
     "fwd_as_is": ("flash_fwd", None, None),
     "fwd_stages_3": ("flash_fwd",
-                     "  static constexpr int STAGES = D == 64 ? 2 : 3;\n",
+                     "  static constexpr int STAGES = D == 128 ? 3 : 2;\n",
                      "  static constexpr int STAGES = 3;\n"),
     "dkv_as_is": ("flash_bwd", None, None),
+    # head_dim 192 keeps 3: its two partial sums need the 3-stage ring
     "dkv_stages_2": ("flash_bwd", "  static constexpr int STAGES = 3;\n",
-                     "  static constexpr int STAGES = 2;\n"),
+                     "  static constexpr int STAGES = D == 192 ? 3 : 2;\n"),
     "dkv_one_cta_per_group": ("flash_bwd",
                               "  const int C = min(Hq / Hkv, 8);",
                               "  const int C = 1;"),

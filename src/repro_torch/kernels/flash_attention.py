@@ -12,10 +12,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.head_dim import (HEAD_DIMS, pad_head_dim,
+                                         padded_head_dim)
 from repro_torch.kernels.ref import flash_attention_fwd_ref
-
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (64, 128)
 
 #: kernel launches made in this process (the wrapper adds one per launch)
 LAUNCHES = 0
@@ -33,7 +32,8 @@ def _lib():
 
 
 def check_qkv(q, k, v):
-    """Raise on q/k/v the CUDA kernels do not take."""
+    """Raise on q/k/v the CUDA kernels do not take (a head_dim must
+    already be one of :data:`HEAD_DIMS`: the wrappers pad it)."""
     if not (q.device == k.device == v.device):
         raise ValueError(f"q/k/v on different devices: {q.device}, "
                          f"{k.device}, {v.device}")
@@ -63,12 +63,22 @@ def flash_attention_fwd(q, k, v, *, window=None, logit_softcap=0.0,
     """Causal GQA flash forward. q: (B,S,Hq,D); k/v: (B,T,Hkv,D); query
     row i and key j at positions i and j; ``sm_scale`` defaults to
     D**-0.5. Returns (out (B,S,Hq,D) in q's dtype, lse (B,Hq,S) f32) —
-    lse is what a recompute backward needs."""
+    lse is what a recompute backward needs. On the card a head_dim
+    below 192 that is not an instance runs zero-padded
+    (``kernels.head_dim``)."""
     global LAUNCHES
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, window=window,
                                        logit_softcap=logit_softcap,
                                        sm_scale=sm_scale)
+    D = q.shape[-1]
+    Dp = padded_head_dim(D)
+    if Dp != D:
+        out, lse = flash_attention_fwd(
+            *(pad_head_dim(x, Dp) for x in (q, k, v)), window=window,
+            logit_softcap=logit_softcap,
+            sm_scale=float(D) ** -0.5 if sm_scale is None else sm_scale)
+        return out[..., :D], lse
     check_qkv(q, k, v)
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import check_qkv
+from repro_torch.kernels.head_dim import pad_head_dim, padded_head_dim
 from repro_torch.kernels.ref import flash_attention_bwd_ref
 
 #: kernel launches made in this process, per kernel (the wrapper adds one
@@ -43,12 +44,23 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, window=None,
                         logit_softcap=0.0, sm_scale=None):
     """(dq, dk, dv) of causal GQA flash attention by the two recompute
     sweeps. Shapes as the forward; ``lse`` is its (B, Hq, S) f32 residual,
-    ``out`` its output, ``dout`` the cotangent of ``out``."""
+    ``out`` its output, ``dout`` the cotangent of ``out``. On the card a
+    head_dim that is not an instance runs zero-padded, as the forward."""
     global DQ_LAUNCHES, DKV_LAUNCHES
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, window=window,
                                        logit_softcap=logit_softcap,
                                        sm_scale=sm_scale)
+    D = q.shape[-1]
+    Dp = padded_head_dim(D)
+    if Dp != D:
+        q, k, v, out, dout = (pad_head_dim(x, Dp)
+                              for x in (q, k, v, out, dout))
+        grads = flash_attention_bwd(
+            q, k, v, out, lse, dout, window=window,
+            logit_softcap=logit_softcap,
+            sm_scale=float(D) ** -0.5 if sm_scale is None else sm_scale)
+        return tuple(g[..., :D] for g in grads)
     check_qkv(q, k, v)
     for name, t, shape, dtype in (("out", out, q.shape, q.dtype),
                                   ("dout", dout, q.shape, q.dtype),

@@ -9,10 +9,11 @@ to an ALIGN multiple and call the same kernels; their inputs are left
 as they are.
 
 Unlike the TPU wrapper, :func:`flash_attention` pads no sequence: the
-CUDA kernels mask their own ragged edge (rows >= S, keys >= T). They take
-head_dim 64 or 128; another head_dim is zero-padded up to the next of
-those on the card (grad-exact: zero columns add nothing to q·k and get
-zero gradients), as the reference pads to 128.
+CUDA kernels mask their own ragged edge (rows >= S, keys >= T). On the
+card it pads head_dim once, before the autograd function, to the next
+kernel instance (``kernels.head_dim``: 64, 128 or 192; grad-exact: zero
+columns add nothing to q·k and get zero gradients), where the reference
+pads to a multiple of 128.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.common.packing import ALIGN
 from repro_torch.kernels import wa_update as wa
-from repro_torch.kernels.flash_attention import HEAD_DIMS, FlashAttention
+from repro_torch.kernels.flash_attention import FlashAttention
+from repro_torch.kernels.head_dim import pad_head_dim, padded_head_dim
 
 
 def flash_attention(q, k, v, q_pos=None, k_pos=None, *, window=None,
@@ -31,14 +33,12 @@ def flash_attention(q, k, v, q_pos=None, k_pos=None, *, window=None,
     ignored). Differentiable: the backward is the two recompute sweeps.
     Returns out (B,S,Hq,D)."""
     D = q.shape[-1]
-    pad = 0
-    if q.device.type == "cuda" and D not in HEAD_DIMS:
-        pad = next((h for h in HEAD_DIMS if h > D), D) - D
-        q, k, v = (F.pad(x, (0, pad)) for x in (q, k, v))
+    Dp = padded_head_dim(D) if q.device.type == "cuda" else D
+    q, k, v = (pad_head_dim(x, Dp) for x in (q, k, v))
     out = FlashAttention.apply(q.contiguous(), k.contiguous(),
                                v.contiguous(), window, float(logit_softcap),
                                float(D) ** -0.5)
-    return out[..., :D] if pad else out
+    return out[..., :D] if Dp != D else out
 
 
 def _pad_flat(x, n_lead=0):

@@ -14,10 +14,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.head_dim import (HEAD_DIMS, pad_head_dim,
+                                         padded_head_dim)
 from repro_torch.kernels.ref import paged_attention_ref
-
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (64, 128)
 
 #: kernel launches made in this process (the wrapper adds one per launch)
 LAUNCHES = 0
@@ -59,23 +58,44 @@ def _check(q, k_pages, v_pages, tables, lens):
         raise ValueError(f"want tables (B,TW), lens (B,); got "
                          f"{tuple(tables.shape)}, {tuple(lens.shape)}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"paged kernel supports head_dim {HEAD_DIMS}, got {D}")
+        raise ValueError(f"paged kernel instances are head_dim {HEAD_DIMS}, "
+                         f"got {D}")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("tables", tables), ("lens", lens)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:                   # 16-byte cp.async copies
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def paged_attention_cuda(q, k_pages, v_pages, tables, lens, *, window=None,
-                         logit_softcap=0.0):
+                         logit_softcap=0.0, sm_scale=None):
     """Kernel launch. Same contract as :func:`paged_attention_ref`; table
     entries must be valid pool indices (TRASH_PAGE for unallocated ring
     slots: the lens/ring masking hides them). CPU tensors take the plain
-    version."""
+    version.
+
+    On the card the head_dim of ``q`` runs at its kernel instance
+    (``kernels.head_dim``): q is zero-padded per call and the output
+    sliced back. The pools should already be that wide — the model
+    allocates them padded — and a pool at q's own width is padded here,
+    a full copy. ``sm_scale`` defaults to q's (true) head_dim**-0.5."""
     global LAUNCHES
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, tables, lens,
-                                   window=window, logit_softcap=logit_softcap)
+                                   window=window, logit_softcap=logit_softcap,
+                                   sm_scale=sm_scale)
+    D = q.shape[-1]
+    Dp = padded_head_dim(D)
+    if sm_scale is None:
+        sm_scale = float(D) ** -0.5
+    if Dp != D:
+        out = paged_attention_cuda(
+            pad_head_dim(q, Dp), pad_head_dim(k_pages, Dp),
+            pad_head_dim(v_pages, Dp), tables, lens, window=window,
+            logit_softcap=logit_softcap, sm_scale=sm_scale)
+        return out[..., :D]
     _check(q, k_pages, v_pages, tables, lens)
     B, Hq, D = q.shape
     ps, Hkv = k_pages.shape[1], k_pages.shape[2]
@@ -89,21 +109,23 @@ def paged_attention_cuda(q, k_pages, v_pages, tables, lens, *, window=None,
         tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
         B, Hq, Hkv, D, ps, tables.shape[1],
         0 if window is None else int(window), float(logit_softcap),
-        float(D) ** -0.5, int(q.dtype == torch.bfloat16), stream)
+        float(sm_scale), int(q.dtype == torch.bfloat16), stream)
     build.check_launch(lib, rc, "paged_attention")
     LAUNCHES += 1
     return out
 
 
 def paged_attention(q, k_pages, v_pages, tables, lens, *, window=None,
-                    logit_softcap=0.0, impl: str = "kernel"):
+                    logit_softcap=0.0, sm_scale=None, impl: str = "kernel"):
     """Dispatch: ``impl`` "kernel" (the CUDA kernel; its plain version on
     CPU tensors) or "ref" (the gather reference on any device — what the
     ``naive`` attention config selects, as the JAX package's "jnp")."""
     if impl == "kernel":
         return paged_attention_cuda(q, k_pages, v_pages, tables, lens,
-                                    window=window, logit_softcap=logit_softcap)
+                                    window=window, logit_softcap=logit_softcap,
+                                    sm_scale=sm_scale)
     if impl == "ref":
         return paged_attention_ref(q, k_pages, v_pages, tables, lens,
-                                   window=window, logit_softcap=logit_softcap)
+                                   window=window, logit_softcap=logit_softcap,
+                                   sm_scale=sm_scale)
     raise ValueError(f"unknown paged-attention impl {impl!r}")

@@ -210,12 +210,12 @@ def flash_attention_fwd_ref(q, k, v, *, window=None, logit_softcap=0.0,
 
 
 def paged_attention_ref(q, k_pages, v_pages, tables, lens, *, window=None,
-                        logit_softcap=0.0):
+                        logit_softcap=0.0, sm_scale=None):
     """Gather-based decode attention (the plain version of
     ``csrc/paged_attention.cu``). q: (B, Hq, D) — the ONE current token per
     sequence (post-RoPE); k_pages/v_pages: (NP, ps, Hkv, D); tables: (B, TW)
     physical page per ring slot; lens: (B,) tokens written (query position
-    = lens-1). Returns (B, Hq, D).
+    = lens-1). ``sm_scale`` defaults to 1/sqrt(D). Returns (B, Hq, D).
 
     A slot with len 0 gives zeros, as the kernels (Pallas and CUDA) do;
     the JAX gather reference gives the mean of the trash page's values
@@ -237,5 +237,6 @@ def paged_attention_ref(q, k_pages, v_pages, tables, lens, *, window=None,
     v = v_pages[tables].reshape(B, TW * ps, Hkv, D)
     q_pos = (lens - 1)[:, None]                                 # (B, 1)
     out = naive_attention(q[:, None], k, v, q_pos, k_pos.reshape(B, TW * ps),
-                          window=window, logit_softcap=logit_softcap)[:, 0]
+                          window=window, logit_softcap=logit_softcap,
+                          sm_scale=sm_scale)[:, 0]
     return torch.where((lens > 0)[:, None, None], out, torch.zeros_like(out))

@@ -32,8 +32,11 @@ def _mask(q_pos, k_pos, window):
     return ok
 
 
-def naive_attention(q, k, v, q_pos, k_pos, *, window=None, logit_softcap=0.0):
+def naive_attention(q, k, v, q_pos, k_pos, *, window=None, logit_softcap=0.0,
+                    sm_scale=None):
     """q: (B,S,Hq,D); k/v: (B,T,Hkv,D); q_pos/k_pos: (B,S)/(B,T) or (S,)/(T,).
+    Scores are scaled by 1/sqrt(D), or by ``sm_scale`` where given (a
+    caller whose D is zero-padded passes the true one's).
 
     bf16 operands with f32 accumulation, as the JAX version does: the
     operands are widened exactly (bf16 -> f32 is lossless) and the
@@ -46,8 +49,8 @@ def naive_attention(q, k, v, q_pos, k_pos, *, window=None, logit_softcap=0.0):
     Hkv = k.shape[2]
     G = Hq // Hkv
     qg = q.reshape(B, S, Hkv, G, D).float()
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) \
-        / math.sqrt(D)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
+    scores = scores / math.sqrt(D) if sm_scale is None else scores * sm_scale
     scores = softcap(scores, logit_softcap)
     mask = _mask(q_pos, k_pos, window)
     if mask.ndim == 3:                      # (B,S,T) -> (B,1,1,S,T)

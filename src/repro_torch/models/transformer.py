@@ -25,6 +25,7 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.head_dim import pad_head_dim, padded_head_dim
 from repro_torch.models.attention import run_attention
 from repro_torch.models.cache import (TRASH_PAGE, init_paged_pool,
                                       paged_phys_pages)
@@ -254,18 +255,40 @@ def _paged_attn(cfg, q, pages, tables, lens, window):
     from repro_torch.kernels.paged_attention import paged_attention
     return paged_attention(q, pages["k"], pages["v"], tables, lens,
                            window=window, logit_softcap=cfg.logit_softcap,
+                           sm_scale=cfg.resolved_head_dim ** -0.5,
                            impl=_paged_impl(cfg))
+
+
+def paged_pool_head_dim(cfg: ModelConfig, device) -> int:
+    """The head_dim a page pool is allocated at: where the paged kernel
+    runs (a CUDA device, ``attn_impl="flash_pallas"``) the kernel's
+    instance (``kernels.head_dim``: the pool is padded once, here, and
+    each step's K/V write pads only the new token), elsewhere the true
+    one."""
+    D = cfg.resolved_head_dim
+    if device is None or torch.device(device).type != "cuda" or \
+            _paged_impl(cfg) != "kernel":
+        return D
+    return padded_head_dim(D)
+
+
+def _pool_write(pool, idx, x):
+    """``pool[idx] = x`` in place, ``x`` zero-padded to the pool's
+    head_dim."""
+    pool.index_put_(idx, pad_head_dim(x, pool.shape[-1]))
 
 
 def init_stack_paged_cache(cfg: ModelConfig, max_batch, n_pages, page_size,
                            dtype, device):
     """Per-spec serving caches: attention layers get a page pool (the
     physical page index space is shared across specs — one block-table
-    entry is valid in every layer's pool)."""
+    entry is valid in every layer's pool), at
+    :func:`paged_pool_head_dim`."""
     pattern = block_pattern(cfg)
     n_blocks = cfg.n_layers // len(pattern)
     return [{"pages": init_paged_pool(n_blocks, n_pages, page_size,
-                                      cfg.n_kv_heads, cfg.resolved_head_dim,
+                                      cfg.n_kv_heads,
+                                      paged_pool_head_dim(cfg, device),
                                       dtype, device=device)}
             for _ in pattern]
 
@@ -291,8 +314,8 @@ def apply_layer_decode_paged(cfg, spec: LayerSpec, p, pages, x, pos_b,
     k_new, v_new = _project_kv(cfg, p["attn"], h, q_pos)
     phys, slot = paged_phys_pages(tables, pos_b, page_size)
     idx = (phys.long(), slot.long())
-    pages["k"].index_put_(idx, k_new[:, 0])       # in place (JAX: donated)
-    pages["v"].index_put_(idx, v_new[:, 0])
+    _pool_write(pages["k"], idx, k_new[:, 0])     # in place (JAX: donated)
+    _pool_write(pages["v"], idx, v_new[:, 0])
     q = apply_rope(_proj_heads(h, p["attn"]["wq"]), q_pos, cfg.rope_theta)
     out = _paged_attn(cfg, q[:, 0], pages, tables, pos_b + 1, spec.window)
     H, P, D = p["attn"]["wo"].shape
@@ -338,8 +361,8 @@ def apply_layer_prefill_paged(cfg, spec: LayerSpec, p, pages, x, n_valid: int,
     phys = torch.where(valid, tok_page, torch.full_like(tok_page, TRASH_PAGE))
     pslot = torch.where(valid, torch.remainder(positions, page_size),
                         torch.zeros_like(positions))
-    pages["k"].index_put_((phys, pslot), k[0])    # in place (JAX: donated)
-    pages["v"].index_put_((phys, pslot), v[0])
+    _pool_write(pages["k"], (phys, pslot), k[0])  # in place (JAX: donated)
+    _pool_write(pages["v"], (phys, pslot), v[0])
     attn_out = _attn_call(cfg, p["attn"], h, positions, k, v, positions,
                           spec.window)
     if "ln1_post" in p:

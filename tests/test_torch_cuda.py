@@ -52,6 +52,15 @@ FLASH_CASES = [
     dict(B=2, S=256, T=256, Hq=32, Hkv=16, D=64, dtype=torch.bfloat16),
     dict(B=2, S=256, T=256, Hq=32, Hkv=4, D=64, dtype=torch.bfloat16),
     dict(B=2, S=256, T=256, Hq=8, Hkv=4, D=128, dtype=torch.bfloat16),
+    # head dims that are not instances (160 runs at 192, 40 at 64), and 192
+    dict(B=2, S=256, T=256, Hq=8, Hkv=2, D=160, dtype=torch.bfloat16),
+    dict(B=2, S=200, T=200, Hq=8, Hkv=2, D=160, dtype=torch.float32,
+         window=48, cap=20.0),
+    dict(B=2, S=256, T=256, Hq=8, Hkv=2, D=40, dtype=torch.bfloat16),
+    dict(B=2, S=200, T=200, Hq=8, Hkv=2, D=40, dtype=torch.float32,
+         window=48, cap=20.0),
+    dict(B=1, S=192, T=64, Hq=4, Hkv=2, D=192, dtype=torch.bfloat16,
+         window=16),
 ]
 
 PAGED_CASES = [
@@ -61,6 +70,31 @@ PAGED_CASES = [
          dtype=torch.float32, window=16, cap=30.0),
     dict(lens=[12, 7, 1], Hq=2, Hkv=2, D=64, ps=2, TW=32,
          dtype=torch.float32),
+    # head dims that are not instances, on a pool padded as the model pads
+    dict(lens=[0, 1, 17, 16, 100, 300, 543, 560], Hq=32, Hkv=8, D=160,
+         ps=16, TW=35, dtype=torch.bfloat16),
+    dict(lens=[3, 40, 129, 77], Hq=8, Hkv=2, D=160, ps=16, TW=9,
+         dtype=torch.float32, window=50, cap=30.0),
+    dict(lens=[3, 40, 129, 77], Hq=8, Hkv=2, D=40, ps=16, TW=9,
+         dtype=torch.bfloat16),
+    dict(lens=[3, 40, 129, 77], Hq=8, Hkv=2, D=40, ps=16, TW=9,
+         dtype=torch.float32, window=50, cap=30.0),
+    # the cluster split's edges (chip_smoke.PAGED_SPLIT_CASES)
+    dict(lens=[1, 5, 16, 3], Hq=8, Hkv=2, D=64, ps=16, TW=35,
+         dtype=torch.bfloat16),
+    dict(lens=[300, 75, 41, 9], Hq=8, Hkv=2, D=64, ps=8, TW=9,
+         dtype=torch.bfloat16, window=40),
+    dict(lens=[300, 75, 41, 9], Hq=8, Hkv=2, D=128, ps=8, TW=9,
+         dtype=torch.float32, window=40, cap=30.0),
+    dict(lens=[0, 0], Hq=4, Hkv=1, D=64, ps=16, TW=35, dtype=torch.float32),
+]
+
+#: two paged launches on the same inputs (chip_smoke._paged_repeat_case)
+PAGED_REPEAT_CASES = [
+    dict(lens=[0, 1, 17, 16, 100, 300, 543, 560], Hq=32, Hkv=8, D=64, ps=16,
+         TW=35),
+    dict(lens=[300, 75, 41, 9], Hq=8, Hkv=2, D=192, ps=8, TW=9, window=40,
+         cap=30.0),
 ]
 
 
@@ -99,6 +133,20 @@ BWD_CASES = [
     dict(B=2, S=256, Hq=32, Hkv=16, D=64, dtype=torch.bfloat16),
     dict(B=2, S=256, Hq=32, Hkv=4, D=64, dtype=torch.bfloat16, cap=20.0),
     dict(B=2, S=256, Hq=8, Hkv=4, D=128, dtype=torch.bfloat16),
+    # head dims that are not instances, through the model's wrapper
+    dict(B=2, S=256, Hq=8, Hkv=2, D=160, dtype=torch.bfloat16,
+         through_ops=True),
+    dict(B=2, S=200, Hq=8, Hkv=2, D=160, dtype=torch.float32, window=48,
+         cap=20.0, through_ops=True),
+    dict(B=2, S=256, Hq=8, Hkv=2, D=40, dtype=torch.bfloat16,
+         through_ops=True),
+    dict(B=2, S=200, Hq=8, Hkv=2, D=40, dtype=torch.float32, window=48,
+         cap=20.0, through_ops=True),
+    # head_dim 192: fully-masked rows get dq = 0 exactly; the two-warpgroup
+    # dk/dv with a softcap
+    dict(B=1, S=192, T=64, Hq=4, Hkv=2, D=192, dtype=torch.bfloat16,
+         window=16),
+    dict(B=2, S=300, Hq=8, Hkv=2, D=192, dtype=torch.bfloat16, cap=30.0),
 ]
 
 #: two dk/dv launches on the same inputs (chip_smoke._dkv_repeat_case)
@@ -106,6 +154,7 @@ DKV_REPEAT_CASES = [
     dict(B=4, S=512, Hq=32, Hkv=8, D=64),
     dict(B=2, S=300, Hq=32, Hkv=4, D=64, window=100, cap=30.0),
     dict(B=2, S=256, Hq=8, Hkv=4, D=128),
+    dict(B=2, S=256, Hq=8, Hkv=2, D=192),
 ]
 
 
@@ -202,6 +251,12 @@ def test_paged_kernel_matches_plain(smoke, case):
     assert res["pass"], res
 
 
+@pytest.mark.parametrize("case", PAGED_REPEAT_CASES)
+def test_paged_kernel_is_bitwise_reproducible(smoke, case):
+    res = smoke._paged_repeat_case("cuda", **case)
+    assert res["pass"], res
+
+
 def test_wrappers_count_launches_and_reject_bad_input(smoke):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -210,10 +265,11 @@ def test_wrappers_count_launches_and_reject_bad_input(smoke):
     before = fa.LAUNCHES
     fa.flash_attention_fwd(q, k, k)
     assert fa.LAUNCHES == before + 1
+    # a head_dim above the largest instance (192) is refused; below it
+    # every head_dim runs, zero-padded (tests/test_torch_headdim.py)
+    wide = torch.zeros(1, 64, 4, 200, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention_fwd(q[..., :48].contiguous(),
-                               k[..., :48].contiguous(),
-                               k[..., :48].contiguous())
+        fa.flash_attention_fwd(wide, wide[:, :, :2], wide[:, :, :2])
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(q.half(), k.half(), k.half())
     pages = torch.zeros(3, 4, 2, 64, device="cuda", dtype=torch.bfloat16)
