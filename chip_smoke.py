@@ -62,6 +62,30 @@ raising on any failure:
                counts; W̿ unchanged to the bit on skipped cycles and
                changed on taken ones; 8a's W̿ within the reference's bf16
                budget (4.0 rel-ULP) of phase 7's f32-ring W̿.
+9. phase 9  — 9a: the paper's baselines ca, swa, ema, lookahead and sam
+               through Trainer.run on phase 7's model, data and SGD with
+               one replica, 8 steps each (2 steps an epoch: SWA samples
+               after step 4): finite, falling loss, SWA's sample count by
+               the reference's rule, Lookahead's fast weights equal to
+               its slow ones cast to bf16 after every update, finite
+               losses of each method's evaluated weights, exact launches,
+               and a SAM step launching twice each attention kernel of a
+               ca step; median step and update, peak memory.
+               9b: HWA (K=2, H=2, I=3, fused sync) on the model cut to 2
+               layers, 8 steps, checkpointed every 4 into a temporary
+               session (keep 2): both manifests verify, each save loads
+               back bit for bit, a flipped bit in the newest save falls
+               back to step 4, and the run resumed there ends bit for bit
+               as the uninterrupted run did (W̿ and history); then the
+               window state saved with save_window_state and published
+               through publish_checkpoint into a 2-layer engine equals
+               publish_window_state's params to the bit. GB a save,
+               seconds to save, verify and load.
+               9c: phase 7's W̿ published (publish_window_state) into an
+               engine on its 8-layer model serves phase 4's 12 requests:
+               params bit-equal to window_average cast to bf16, tokens
+               equal to an engine given those params directly, launches
+               8 x admissions and 8 x decode steps; the publish's time.
 6. yardstick — each kernel timed at its main path's shapes (CUDA-graph
                replay between CUDA events: device time, cold L2), beside
                its plain version, a library call where one exists, and
@@ -94,7 +118,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.common.packing import ALIGN  # noqa: E402
 from repro_torch.common.quant import max_ulp, rel_ulp_error  # noqa: E402
 from repro_torch.common.pytree import (tree_flatten, tree_leaves,  # noqa: E402
-                                       tree_unflatten)
+                                       tree_map, tree_unflatten)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.hwa import HWAConfig, hwa_init  # noqa: E402
 from repro_torch.data import DataPipeline, make_markov_lm_dataset  # noqa: E402
@@ -780,10 +804,12 @@ class _Clock:
 
 def phase_serve(device, cfg=None, *, n_requests=12, max_batch=8,
                 page_size=16, prefill_chunk=512, max_new=32, max_seq_len=560,
-                prompt_range=(64, 512), seed=0):
+                prompt_range=(64, 512), seed=0, setup=None):
     """Serve ``n_requests`` random prompts through PagedDecodeEngine and
     ContinuousScheduler. On the card the kernels' launch counts must equal
-    n_layers x admissions (flash) and n_layers x decode steps (paged)."""
+    n_layers x admissions (flash) and n_layers x decode steps (paged).
+    ``setup(engine)``, when given, runs on the built engine first (phase
+    9c publishes W̿ into it there); the result carries the tokens."""
     dev = torch.device(device)
     cfg = cfg or get_config("granite-3-2b").with_(attn_impl="flash_pallas")
     lm = build_model(cfg)
@@ -793,6 +819,8 @@ def phase_serve(device, cfg=None, *, n_requests=12, max_batch=8,
                             max_seq_len=max_seq_len, max_new=max_new,
                             page_size=page_size, prefill_chunk=prefill_chunk,
                             device=dev)
+    if setup is not None:
+        setup(eng)
     rs = np.random.RandomState(0)
     lens = rs.randint(prompt_range[0], prompt_range[1] + 1, size=n_requests)
     reqs = [Request(rid=i, tokens=rs.randint(0, cfg.vocab_size, size=int(n))
@@ -878,6 +906,7 @@ def phase_serve(device, cfg=None, *, n_requests=12, max_batch=8,
         "first_decode_lens": log["first_decode_lens"],
         "prompt_lens": lens.tolist(), "arch": cfg.name,
         "head_dim": cfg.resolved_head_dim, "kernel_head_dim": pool_d,
+        "outputs": toks,
     }
     print(f"[serve] {cfg.name} L{cfg.n_layers} d{cfg.d_model} "
           f"H{cfg.n_heads}/{cfg.n_kv_heads} hd{cfg.resolved_head_dim} (kernels "
@@ -1048,25 +1077,28 @@ def train_config(n_layers=TRAIN_LAYERS):
                                             remat="full")
 
 
-def _train_setup(device, cfg, *, steps=None, seed=0):
+def _train_setup(device, cfg, *, steps=None, seed=0, n_train=None,
+                 replicas=None, **tc_kw):
     """The HWA trainer of the training phase: the port's Markov dataset at
     the model's vocabulary (built first, so its V x V transition matrix is
     gone before the model state exists), K replicas of batch x seq tokens,
-    SGD (momentum 0.9, weight decay 5e-4, cosine schedule)."""
+    SGD (momentum 0.9, weight decay 5e-4, cosine schedule). ``tc_kw``
+    replaces fields of its TrainConfig (another method, checkpoints)."""
     ds = make_markov_lm_dataset(vocab=cfg.vocab_size, seq_len=TRAIN["seq"],
-                                n_train=TRAIN["n_train"],
+                                n_train=n_train or TRAIN["n_train"],
                                 n_test=TRAIN["n_test"], seed=seed,
                                 device=device)
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    pipe = DataPipeline(ds, batch_size=TRAIN["batch"],
-                        n_replicas=TRAIN["K"], seed=seed)
+    K = replicas or TRAIN["K"]
+    pipe = DataPipeline(ds, batch_size=TRAIN["batch"], n_replicas=K,
+                        seed=seed)
     tc = TrainConfig(method="hwa", total_steps=steps or TRAIN["steps"],
                      batch_size=TRAIN["batch"], base_lr=TRAIN["lr"],
                      momentum=0.9, weight_decay=5e-4, seed=seed,
-                     hwa=HWAConfig(n_replicas=TRAIN["K"],
-                                   sync_period=TRAIN["H"],
+                     hwa=HWAConfig(n_replicas=K, sync_period=TRAIN["H"],
                                    window=TRAIN["I"], use_kernels=True))
+    tc = dataclasses.replace(tc, **tc_kw)
     return Trainer(lm_task(build_model(cfg), pipe, device=device, seed=seed),
                    tc)
 
@@ -1123,6 +1155,7 @@ def phase_train(device):
 
     def checked_sync(state):
         state, m = timed_sync(state)
+        wa_probe["state"] = state
         wa_probe["train"].append(_probe_loss(trainer, state.wa, probe))
         leaves = tree_leaves(state.wa)
         if wa_probe["prev"] is not None:
@@ -1144,6 +1177,10 @@ def phase_train(device):
     launches = _counts()
     # the trace phase reuses the trainer: without the clocks and probes
     trainer._hwa_step, trainer._sync_step = hwa_step, sync_step
+    # phase 9c publishes the run's W̿ from its window state: kept on the
+    # host meanwhile, off the device phase 8 measures
+    final_window = tree_map(lambda x: x.to("cpu"),
+                            wa_probe.pop("state").window_state)
 
     K, H, steps = TRAIN["K"], TRAIN["H"], TRAIN["steps"]
     syncs = steps // H
@@ -1197,6 +1234,7 @@ def phase_train(device):
         "wall_s": wall, "lr": TRAIN["lr"],
         # for phase 8: the per-replica losses and the final W̿ (host)
         "per_step_loss": per_step.tolist(), "final_wa": wa_probe["prev"],
+        "final_window": final_window,
     }
     print(f"[train] granite-3-2b L{L} (cut from 40) d{cfg.d_model} "
           f"H{cfg.n_heads}/{cfg.n_kv_heads} ff{cfg.d_ff} V{cfg.vocab_size} "
@@ -1561,6 +1599,375 @@ def _window_routes(dev, trainer, lm, params, syncs=3):
             raise AssertionError(f"{name} window: kernel route disagrees "
                                  f"with the plain route")
     return out
+
+
+# -------------------------------------------------------- 9. phase 9
+
+#: 9a: phase 7's model, data and SGD with one replica; 2 steps an epoch
+BASELINES = dict(methods=("ca", "swa", "ema", "lookahead", "sam"), steps=8,
+                 n_train=2 * TRAIN["batch"], swa_start_frac=0.5,
+                 lookahead_k=3, eval_every=4)
+#: 9b: the same model cut to 2 layers, HWA with the fused sync
+CKPT = dict(layers=2, steps=8, every=4, keep=2)
+
+
+def _host_copy(tree):
+    return tree_map(lambda x: x.detach().to("cpu", copy=True), tree)
+
+
+def _bits_equal(a, b) -> bool:
+    """Two tensors equal to the bit (dtype, shape, bytes)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                       b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def _trees_bits_equal(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        _bits_equal(x.to("cpu"), y.to("cpu")) for x, y in zip(la, lb))
+
+
+def _baseline_run(device, cfg, method):
+    """One baseline through Trainer.run, its step and update timed with
+    CUDA events, the launches of each step read, and the method's own
+    gates checked (SWA's sample count, Lookahead's fast = slow)."""
+    dev = torch.device(device)
+    b = BASELINES
+    trainer = _train_setup(dev, cfg, steps=b["steps"], n_train=b["n_train"],
+                           replicas=1, method=method,
+                           swa_start_frac=b["swa_start_frac"],
+                           lookahead_k=b["lookahead_k"],
+                           eval_every=b["eval_every"])
+    spe = trainer.task.pipeline.steps_per_epoch
+    if spe != 2:
+        raise AssertionError(f"steps_per_epoch {spe} != 2")
+    step_clock, upd_clock = _Clock(dev), _Clock(dev)
+    timed_step = step_clock.wrap(trainer._single_step)
+    losses, per_step = [], []
+    log = {"swa_n": 0, "lookahead_ok": [], "updates": 0}
+
+    def logged_step(params, opt_state, step):
+        before = _counts()
+        out = timed_step(params, opt_state, step)
+        _sync(dev)
+        after = _counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        losses.append(out[2])
+        return out
+
+    def wrap_update(name):
+        timed = upd_clock.wrap(getattr(trainer, name))
+
+        def update(state, params):
+            out = timed(state, params)
+            log["updates"] += 1
+            if name == "_swa_update":
+                log["swa_n"] = int(out.n)
+            if name == "_lookahead_update":
+                slow, fast = out[0].slow, out[1]
+                log["lookahead_ok"].append(all(
+                    _bits_equal(f, s.to(f.dtype)) for f, s in
+                    zip(tree_leaves(fast), tree_leaves(slow))))
+            return out
+        return update
+
+    trainer._single_step = logged_step
+    for name in ("_swa_update", "_ema_update", "_lookahead_update"):
+        setattr(trainer, name, wrap_update(name))
+    n_eval = len(list(trainer.task.pipeline.eval_batches()))
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = trainer.run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+
+    loss = torch.stack(losses).float().cpu()
+    fails = []
+    if not bool(torch.isfinite(loss).all()):
+        fails.append(f"non-finite loss {loss.tolist()}")
+    first, last = float(loss[:2].mean()), float(loss[-2:].mean())
+    if not last < first:
+        fails.append(f"loss did not fall: {first:.4f} -> {last:.4f}")
+    evals = [h["test_loss"] for h in out["history"]] + \
+        [out["final"]["test_loss"]]
+    if not np.isfinite(evals).all():
+        fails.append(f"evaluated weights' loss not finite: {evals}")
+    steps, L = b["steps"], cfg.n_layers
+    swa_start = int(steps * b["swa_start_frac"])
+    want_n = sum(1 for s in range(1, steps + 1)
+                 if s > swa_start and s % spe == 0)
+    if method == "swa" and log["swa_n"] != want_n:
+        fails.append(f"SWA averaged {log['swa_n']} models, the rule says "
+                     f"{want_n}")
+    want_la = steps // b["lookahead_k"]
+    if method == "lookahead" and (len(log["lookahead_ok"]) != want_la
+                                  or not all(log["lookahead_ok"])):
+        fails.append(f"lookahead fast != slow: {log['lookahead_ok']}")
+    passes = 2 if method == "sam" else 1
+    want = _want(flash_fwd=steps * passes * 2 * L
+                 + (len(out["history"]) + 1) * n_eval * L,
+                 flash_bwd_dq=steps * passes * L,
+                 flash_bwd_dkv=steps * passes * L)
+    if cuda and launches != want:
+        fails.append(f"launch counts {launches} != {want}")
+    step_ms = step_clock.ms()
+    res = {"method": method, "loss": loss.tolist(), "evals": evals,
+           "launches": launches, "step_launches": per_step[0],
+           "median_step_ms": float(np.median(step_ms)), "step_ms": step_ms,
+           "median_update_ms": (float(np.median(upd_clock.ms()))
+                                if upd_clock.spans else None),
+           "updates": log["updates"], "swa_n": log["swa_n"],
+           "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                            if cuda else float("nan")),
+           "wall_s": wall}
+    upd = res["median_update_ms"]
+    print(f"[baselines] {method}: loss {[round(x, 4) for x in res['loss']]} "
+          f"({first:.4f} -> {last:.4f}), evaluated {[round(x, 4) for x in evals]}"
+          f", median step {res['median_step_ms']:.3f} ms, "
+          + (f"{log['updates']} updates, median {upd:.3f} ms, "
+             if upd is not None else "")
+          + f"peak memory {res['peak_mem_gib']:.3f} GiB, launches "
+          f"{launches} | {CARD['line']}")
+    del trainer, out
+    if fails:
+        raise AssertionError(f"phase 9a {method}: {fails}")
+    return res
+
+
+def phase_baselines(device, cfg=None):
+    """9a: the paper's baselines (ca, swa, ema, lookahead, sam) on phase
+    7's model, data and SGD with one replica, 8 steps each; SAM must
+    launch each attention kernel twice as often a step as ca."""
+    cuda = torch.device(device).type == "cuda"
+    cfg = cfg or train_config()
+    runs = {}
+    for method in BASELINES["methods"]:
+        runs[method] = _baseline_run(device, cfg, method)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    ca, sam = runs["ca"]["step_launches"], runs["sam"]["step_launches"]
+    if cuda and (any(sam[k] != 2 * ca[k] for k in
+                     ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+                 or ca["flash_bwd_dq"] != cfg.n_layers):
+        raise AssertionError(f"phase 9a: a sam step launched {sam}, a ca "
+                             f"step {ca}")
+    ratio = runs["sam"]["median_step_ms"] / runs["ca"]["median_step_ms"]
+    print(f"[baselines] sam/ca median step {ratio:.3f}x; a ca step launches "
+          f"{ca}, a sam step {sam} | {CARD['line']}")
+    return runs
+
+
+def phase_checkpoint(device, cfg=None):
+    """9b: HWA on the training model cut to 2 layers (K 2, H 2, I 3, the
+    fused sync) checkpointing every 4 of 8 steps into a temporary session
+    directory: both manifests verify, each save loads back bit for bit,
+    a flipped bit in the newest save falls back to the older one, and
+    the run resumed from it ends bit for bit where the uninterrupted run
+    ended. Then the run's window state goes through save_window_state
+    and publish_checkpoint into a 2-layer engine, whose params must equal
+    publish_window_state's of the same state to the bit."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.io import save_window_state
+    from repro_torch.resilience.faults import flip_bit
+    from repro_torch.resilience.session import CheckpointSession
+    from repro_torch.serve.publish import WeightPublisher
+
+    dev = torch.device(device)
+    c = CKPT
+    cfg = cfg or train_config(c["layers"])
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    saves, kept = [], {}
+    real_save = CheckpointSession.save
+
+    def timed_save(self, step, trees, **kw):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = real_save(self, step, trees, **kw)
+        saves.append(time.perf_counter() - t0)
+        return out
+
+    def trainer_for(resume):
+        return _train_setup(dev, cfg, steps=c["steps"], checkpoint_dir=root,
+                            checkpoint_every=c["every"],
+                            checkpoint_keep=c["keep"], resume=resume)
+
+    try:
+        CheckpointSession.save = timed_save
+        trainer = trainer_for(False)
+        sync = trainer._sync_step
+
+        def kept_sync(state):
+            state, m = sync(state)
+            step = int(state.step)
+            if step % c["every"] == 0:
+                # the state the session saves right after this sync
+                kept[step] = (_host_copy(state) if step < c["steps"]
+                              else state)
+            return state, m
+
+        trainer._sync_step = kept_sync
+        n_eval = len(list(trainer.task.pipeline.eval_batches()))
+        _reset_counts()
+        out = trainer.run()
+        _sync(dev)
+        launches = _counts()
+        session = CheckpointSession(root, keep=c["keep"])
+        steps = session.steps()
+        fails = []
+        K, L, n = TRAIN["K"], cfg.n_layers, c["steps"]
+        want = _want(flash_fwd=n * K * L * 2
+                     + (len(out["history"]) + 1) * n_eval * L,
+                     wa_sync_fused=n // TRAIN["H"], flash_bwd_dq=n * K * L,
+                     flash_bwd_dkv=n * K * L)
+        if dev.type == "cuda" and launches != want:
+            fails.append(f"launch counts {launches} != {want}")
+        if steps != [c["every"], c["steps"]]:
+            fails.append(f"checkpoints at {steps}")
+        verify_s, load_s, gb = [], [], []
+        template = kept[c["every"]]
+        for step in steps:
+            t0 = time.perf_counter()
+            ok, problems = session.verify(step)
+            verify_s.append(time.perf_counter() - t0)
+            if not ok:
+                fails.append(f"step {step} does not verify: {problems}")
+            gb.append(sum(f["size"] for f in
+                          session.manifest(step)["files"].values()) / 1e9)
+            t0 = time.perf_counter()
+            loaded = session.load(step, "hwa", template)
+            load_s.append(time.perf_counter() - t0)
+            if not _trees_bits_equal(loaded, kept[step]):
+                fails.append(f"step {step} loads other bits than it saved")
+            del loaded
+        final = kept.pop(c["steps"])
+        del template, kept
+        gc.collect()
+        newest = os.path.join(session.step_dir(c["steps"]), "hwa.npz")
+        flip_bit(newest)
+        t0 = time.perf_counter()
+        fallback = session.latest_intact()
+        scan_s = time.perf_counter() - t0
+        if fallback != c["every"]:
+            fails.append(f"after a flipped bit latest_intact() is "
+                         f"{fallback}, not {c['every']}")
+        resumed = trainer_for(True).run()
+        _sync(dev)
+        if not _trees_bits_equal(resumed["params"], out["params"]):
+            fails.append("the resumed run's W̿ differs from the "
+                         "uninterrupted run's")
+        if resumed["history"] != out["history"]:
+            fails.append(f"histories differ: {resumed['history']} vs "
+                         f"{out['history']}")
+        del resumed
+        # W̿ from a window-state file into a serving engine
+        wpath = os.path.join(root, "window.npz")
+        t0 = time.perf_counter()
+        save_window_state(wpath, final.window_state)
+        wsave_s = time.perf_counter() - t0
+        lm = build_model(cfg)
+        eng = PagedDecodeEngine(
+            lm=lm, params=lm.init(torch.Generator(device=dev).manual_seed(1),
+                                  device=dev),
+            max_batch=8, max_seq_len=560, max_new=32, page_size=16,
+            prefill_chunk=512, device=dev)
+        pub = WeightPublisher(engine=eng)
+        t0 = time.perf_counter()
+        from_file = pub.publish_checkpoint(wpath)
+        _sync(dev)
+        wpub_s = time.perf_counter() - t0
+        live = pub.publish_window_state(final.window_state)
+        if not _trees_bits_equal(from_file, live):
+            fails.append("publish_checkpoint and publish_window_state "
+                         "disagree")
+        wgb = os.path.getsize(wpath) / 1e9
+        del eng, pub, from_file, live, final
+    finally:
+        CheckpointSession.save = real_save
+        shutil.rmtree(root, ignore_errors=True)
+    res = {"params": train_param_count(cfg), "gb_per_save": gb,
+           "save_s": saves, "verify_s": verify_s, "load_s": load_s,
+           "scan_after_flip_s": scan_s, "window_gb": wgb,
+           "window_save_s": wsave_s, "window_publish_s": wpub_s,
+           "launches": launches,
+           "history": [h["test_loss"] for h in out["history"]]}
+    print(f"[checkpoint] granite-3-2b L{cfg.n_layers} "
+          f"({res['params'] / 1e6:.1f}M params), HWA K{TRAIN['K']} "
+          f"H{TRAIN['H']} I{TRAIN['I']} fused sync, {c['steps']} steps, "
+          f"saves at {steps}: {[round(x, 3) for x in gb]} GB a save, save "
+          f"{[round(x, 2) for x in saves]} s (the resumed run's last), "
+          f"verify {[round(x, 2) for x in verify_s]} s, load "
+          f"{[round(x, 2) for x in load_s]} s, latest_intact after a flipped "
+          f"bit {scan_s:.2f} s -> step {fallback}; resumed W̿ and history "
+          f"bit-equal; window state {wgb:.3f} GB saved in {wsave_s:.2f} s, "
+          f"published from the file in {wpub_s:.2f} s, bit-equal to the live "
+          f"publish; launches {launches} | {CARD['line']}")
+    if fails:
+        raise AssertionError(f"phase 9b: {fails}")
+    return res
+
+
+def phase_publish_serve(device, train, cfg=None, **serve_kw):
+    """9c: phase 7's W̿ published (publish_window_state) into an engine on
+    the same 8-layer model, then phase 4's 12 requests: the engine's
+    params equal window_average cast to bf16 to the bit, the tokens equal
+    those of an engine given those params directly, and the launches are
+    8 x admissions and 8 x decode steps (checked in phase_serve)."""
+    from repro_torch.core.offline import window_average
+    from repro_torch.serve.publish import WeightPublisher
+
+    dev = torch.device(device)
+    cfg = cfg or train_config()
+    window = tree_map(lambda x: x.to(dev), train["final_window"])
+    box = {}
+
+    def publish(eng):
+        like = eng.params
+        pub = WeightPublisher(engine=eng)
+        clock = _Clock(dev)
+        new = clock.wrap(pub.publish_window_state)(window)
+        box["publish_ms"] = clock.ms()[0]
+        box["direct"] = window_average(window, like)
+        box["equal"] = _trees_bits_equal(new, box["direct"])
+
+    served, eng = phase_serve(dev, cfg=cfg, setup=publish, **serve_kw)
+    launches = served["launches"]
+    del eng
+    gc.collect()
+    direct = box.pop("direct")
+    plain, eng = phase_serve(dev, cfg=cfg,
+                             setup=lambda e: e.set_params(direct),
+                             **serve_kw)
+    del eng, direct, window
+    gc.collect()
+    fails = []
+    if not box["equal"]:
+        fails.append("published params != window_average cast to bf16")
+    if not np.array_equal(served["outputs"], plain["outputs"]):
+        fails.append("tokens after the publish differ from the direct "
+                     "engine's")
+    res = {"publish_ms": box["publish_ms"], "launches": launches,
+           "admissions": served["admissions"],
+           "decode_steps": served["decode_steps"],
+           "median_step_ms": served["median_step_ms"]}
+    print(f"[publish] phase 7's W̿ into an 8-layer engine in "
+          f"{box['publish_ms']:.3f} ms (CUDA events: repack, unpack, cast); "
+          f"params bit-equal to window_average: {box['equal']}; "
+          f"{served['requests']} requests, tokens equal to the direct "
+          f"engine's: {np.array_equal(served['outputs'], plain['outputs'])};"
+          f" launches {launches} | {CARD['line']}")
+    if fails:
+        raise AssertionError(f"phase 9c: {fails}")
+    return res
 
 
 def _leaf_names(tree, prefix=""):
@@ -2042,6 +2449,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_reference(device)
     torch.cuda.empty_cache()
+    baselines = phase_baselines(device)
+    ckpt = phase_checkpoint(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    published = phase_publish_serve(device, train)
+    train.pop("final_window")
+    gc.collect()
+    torch.cuda.empty_cache()
     entries = phase_yardstick(device, serve, kernels)
     fwd_slm, paged_slm = phase_yardstick_stablelm(device, serve_slm)
     train_entries, fwd_b4 = phase_yardstick_train(device, train, kernels)
@@ -2053,13 +2468,24 @@ def main() -> int:
         "serve": serve["launches"]["flash_fwd"],
         "serve_stablelm": serve_slm["launches"]["flash_fwd"],
         "train": train["launches"]["flash_fwd"]}
-    entries[0]["launches"] = sum(entries[0]["launches_by_path"].values())
     entries[0]["at_train_shape"] = fwd_b4
     entries[0]["at_stablelm_shape"] = fwd_slm
     entries[1]["launches_by_path"] = {
         "serve": serve["launches"]["paged_attention"],
         "serve_stablelm": serve_slm["launches"]["paged_attention"]}
-    entries[1]["launches"] = sum(entries[1]["launches_by_path"].values())
+    # phase 9's paths (9a's five runs summed) add to the training kernels'
+    # and both serving kernels' counts
+    paths9 = {"baselines": {k: sum(r["launches"][k] for r in
+                                   baselines.values())
+                            for k in _counts()},
+              "checkpoint": ckpt["launches"],
+              "publish_serve": published["launches"]}
+    for e in entries[:5]:
+        by_path = e.setdefault("launches_by_path", {"train": e["launches"]})
+        for path, counts in paths9.items():
+            if counts[e["name"]]:
+                by_path[path] = counts[e["name"]]
+        e["launches"] = sum(by_path.values())
     entries[1]["at_stablelm_shape"] = paged_slm
     # the sweeps' head_dim-192 instances (entries 3 and 4: dq, dk/dv)
     entries[3]["at_stablelm_shape"], entries[4]["at_stablelm_shape"] = \

@@ -12,12 +12,17 @@ bit-identical to the same update applied leaf by leaf.
 
 A spec also names the storage dtype of the WA ring laid out by it
 (``ring_dtype``: precision metadata, not layout) and, for an fp8 ring,
-its number of per-block scales. The sharded and grouped layouts,
-``repack`` and the JSON spec wait for ROADMAP.md Queue A 8 and 13.
+its number of per-block scales. :func:`spec_to_json` writes a layout in
+the reference's JSON form (checkpoints store it beside the buffers) and
+:func:`spec_from_json` reads it back; :func:`repack` moves a buffer
+between two single-device layouts of one leaf set. The sharded and
+grouped layouts (``shards > 1``, ``groups``) wait for ROADMAP.md Queue
+A 13: a stored record of one raises.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Sequence
 
 import torch
@@ -25,6 +30,9 @@ import torch
 from repro_torch.common.pytree import tree_flatten, tree_unflatten
 
 PyTree = Any
+
+#: what a sharded or grouped layout waits for
+MESH_ITEM = "ROADMAP.md Queue A 13 (multi-replica sync across processes)"
 
 # The reference's packed alignment (one (8, 1024) f32 tile): kept so the
 # two packages lay a tree out identically. The CUDA sync kernel needs only
@@ -43,7 +51,10 @@ class LeafSpec:
 
 @dataclasses.dataclass(frozen=True)
 class PackSpec:
-    """Where every leaf of a tree lives in its packed buffer."""
+    """Where every leaf of a tree lives in its packed buffer. ``treedef``
+    is None for a spec read back from a checkpoint's JSON: it supports
+    the leaf-level operations (:func:`pack_leaves`, :func:`repack`) but
+    not the tree-level ones."""
     treedef: Any
     leaves: tuple[LeafSpec, ...]
     size: int          # real elements
@@ -63,6 +74,14 @@ class PackSpec:
     def scale_blocks(self) -> int:
         """fp8 scales per ring row: one per ``align`` block."""
         return self.padded // self.align
+
+    def same_layout(self, other: "PackSpec") -> bool:
+        """Layout equality ignoring the treedef (a spec read from JSON
+        has none) and ``ring_dtype`` (precision, not layout). Every spec
+        of the port has one shard and no groups, the reference's other
+        two terms."""
+        return (self.leaves == other.leaves and self.padded == other.padded
+                and self.align == other.align)
 
     def with_ring_dtype(self, dtype) -> "PackSpec":
         """This layout with its WA ring precision set (a dtype or a
@@ -153,3 +172,73 @@ def unpack(buf: torch.Tensor, spec: PackSpec, like: PyTree | None = None
         x = buf[..., ls.offset:ls.offset + ls.size].reshape(lead + ls.shape)
         leaves.append(x.to(dt))
     return tree_unflatten(spec.treedef, leaves)
+
+
+def repack(buf: torch.Tensor, src: PackSpec, dst: PackSpec) -> torch.Tensor:
+    """A packed buffer moved from layout ``src`` to layout ``dst`` of the
+    same leaf set, leading dims kept (bit-exact: packing never touches
+    values)."""
+    if tuple(l.shape for l in src.leaves) != \
+            tuple(l.shape for l in dst.leaves):
+        raise ValueError("repack: leaf shapes differ between layouts")
+    lead = tuple(buf.shape[:-1])
+    leaves = [buf[..., ls.offset:ls.offset + ls.size].reshape(
+        lead + ls.shape) for ls in src.leaves]
+    return pack_leaves(leaves, dst, buf.dtype, n_lead=len(lead))
+
+
+def split_groups(buf, spec: PackSpec):
+    raise NotImplementedError(f"grouped layouts are not ported yet: "
+                              f"{MESH_ITEM}")
+
+
+def merge_groups(parts, spec: PackSpec):
+    raise NotImplementedError(f"grouped layouts are not ported yet: "
+                              f"{MESH_ITEM}")
+
+
+# ------------------------------------------- layout (de)serialization
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def spec_to_json(spec: PackSpec) -> str:
+    """The layout as the reference's JSON string, character for
+    character: its keys in its order, each leaf a row ``[offset, size,
+    shape, dtype name, shard_dim, group, tiles]`` (here always ``null,
+    0, null``), and ``ring_dtype`` only when it is not f32."""
+    d = {"align": spec.align, "shards": 1, "axes": [], "size": spec.size,
+         "padded": spec.padded,
+         "leaves": [[ls.offset, ls.size, list(ls.shape),
+                     _dtype_name(ls.dtype), None, 0, None]
+                    for ls in spec.leaves]}
+    if spec.ring_dtype != "float32":
+        d["ring_dtype"] = spec.ring_dtype
+    return json.dumps(d)
+
+
+def spec_from_json(s: str) -> PackSpec:
+    """A layout written by :func:`spec_to_json` in either package (rows
+    written before the grouped layout existed have five columns). The
+    result has no treedef. A sharded or grouped layout raises."""
+    d = json.loads(s)
+    if d.get("shards", 1) != 1 or d.get("groups"):
+        raise NotImplementedError(
+            f"a sharded or grouped packed layout (shards "
+            f"{d.get('shards')}, {len(d.get('groups', []))} groups) is not "
+            f"ported yet: {MESH_ITEM}")
+    leaves = []
+    for row in d["leaves"]:
+        o, n, shape, dt, shard_dim = row[:5]
+        group = row[5] if len(row) > 5 else 0
+        tiles = row[6] if len(row) > 6 else None
+        if shard_dim is not None or group or tiles:
+            raise NotImplementedError(f"a sharded leaf placement is not "
+                                      f"ported yet: {MESH_ITEM}")
+        leaves.append(LeafSpec(offset=o, size=n, shape=tuple(shape),
+                               dtype=getattr(torch, dt)))
+    return PackSpec(treedef=None, leaves=tuple(leaves), size=d["size"],
+                    padded=d["padded"], align=d["align"],
+                    ring_dtype=d.get("ring_dtype", "float32"))

@@ -19,7 +19,8 @@ reference's eager form is deliberate: :func:`block_scales` multiplies by
 f32(1/448) where the reference divides by 448. Under ``jax.jit`` (how
 the reference's sync always runs) XLA rewrites that division into this
 product, and the two differ by 1 ULP for some blocks; the port matches
-what the jitted reference computes.
+what the jitted reference computes. The reference's checkpoint migration
+runs eagerly and divides, so there the port divides too (``divide``).
 """
 from __future__ import annotations
 
@@ -81,12 +82,19 @@ def _blocks(x: torch.Tensor, block: int) -> torch.Tensor:
     return x.reshape(tuple(x.shape[:-1]) + (-1, block))
 
 
-def block_scales(x: torch.Tensor, block: int = SCALE_BLOCK) -> torch.Tensor:
-    """Per-block f32 scales of ``x`` (..., P): amax·f32(1/448), and 1.0
-    for an all-zero block (so that zero decodes to zero)."""
+def block_scales(x: torch.Tensor, block: int = SCALE_BLOCK, *,
+                 divide: bool = False) -> torch.Tensor:
+    """Per-block f32 scales of ``x`` (..., P): amax·f32(1/448), as the
+    jitted reference computes them, or amax/448 with ``divide`` (the
+    reference run eagerly, as its checkpoint migration is); 1.0 for an
+    all-zero block (so that zero decodes to zero)."""
     amax = _blocks(x, block).abs().amax(-1)
-    inv = torch.tensor(1.0 / FP8_MAX, dtype=torch.float32, device=x.device)
-    return torch.where(amax > 0, amax * inv,
+    if divide:
+        scaled = amax / FP8_MAX
+    else:
+        scaled = amax * torch.tensor(1.0 / FP8_MAX, dtype=torch.float32,
+                                     device=x.device)
+    return torch.where(amax > 0, scaled,
                        torch.ones_like(amax)).to(torch.float32)
 
 
@@ -107,16 +115,17 @@ def dequantize_fp8(q: torch.Tensor, scales: torch.Tensor,
     return (bq * scales[..., None]).reshape(q.shape)
 
 
-def encode_slot(x: torch.Tensor, token, block: int = SCALE_BLOCK):
+def encode_slot(x: torch.Tensor, token, block: int = SCALE_BLOCK, *,
+                divide: bool = False):
     """(slot, scales) of an f32 packed buffer in a ring of ``token``'s
     dtype: itself for f32, a cast for bf16, block-scaled fp8 (scales not
-    None) for fp8."""
+    None, ``divide`` as in :func:`block_scales`) for fp8."""
     tok = wa_token(token)
     if tok == "f32":
         return x.to(torch.float32), None
     if tok == "bf16":
         return x.to(torch.bfloat16), None
-    s = block_scales(x, block)
+    s = block_scales(x, block, divide=divide)
     return quantize_fp8(x, s, block), s
 
 

@@ -31,8 +31,8 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.common.packing import pack, pack_stacked, unpack
-from repro_torch.common.pytree import tree_flatten, tree_leaves, \
-    tree_mean_axis0, tree_unflatten
+from repro_torch.common.pytree import register_dataclass, tree_flatten, \
+    tree_leaves, tree_mean_axis0, tree_unflatten
 from repro_torch.core.offline import (WindowState, window_average_packed,
                                       window_init, window_scalars,
                                       window_update_packed)
@@ -65,6 +65,11 @@ class HWAState:
     wa: PyTree                   # current W̿ (unstacked)
     cycle: torch.Tensor          # e — completed synchronization cycles
     step: torch.Tensor           # i — global optimizer steps taken
+
+
+register_dataclass(HWAState, data_fields=["inner", "inner_opt",
+                                          "window_state", "wa", "cycle",
+                                          "step"])
 
 
 def check_config(cfg: HWAConfig) -> None:

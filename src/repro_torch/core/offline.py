@@ -30,7 +30,7 @@ import dataclasses
 import torch
 
 from repro_torch.common.packing import PackSpec, pack, pack_spec, unpack
-from repro_torch.common.pytree import tree_leaves
+from repro_torch.common.pytree import register_dataclass, tree_leaves
 from repro_torch.common.quant import is_compressed, needs_scales, wa_dtype
 from repro_torch.kernels import wa_update
 from repro_torch.kernels.ref import wa_window_update_c_ref, \
@@ -51,6 +51,12 @@ class WindowState:
                                         # the total (compressed rings)
     scales: torch.Tensor | None = None  # (I, P // ALIGN) f32 per-block
                                         # fp8 scales (fp8 rings)
+
+
+register_dataclass(WindowState,
+                   data_fields=["ring", "total", "count", "next_idx", "comp",
+                                "scales"],
+                   meta_fields=["window", "kind", "spec"])
 
 
 def window_init(params_like, window: int, kind: str = "ring",

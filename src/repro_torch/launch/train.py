@@ -1,17 +1,20 @@
-"""Training launcher of the port: HWA (and the ported baselines) on the
-smoke config of an architecture.
+"""Training launcher of the port: HWA and every paper baseline on the
+smoke config of an architecture, with preemption-safe checkpoints.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
-      --steps 8 --k 2 --window 3 --sync-period 2
+      --steps 8 --k 2 --window 3 --sync-period 2 \
+      --checkpoint-dir ckpt --checkpoint-every 4 --keep 2 [--resume]
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --method sam --steps 8
 
 Runs on the card unless ``--device cpu``. Mirrors the JAX package's
-single-device launcher (``repro.launch.train``); its mesh-native flags
-(``--wa-dtype`` and ``--comms-dtype`` among them: there they compress
-the mesh-native window state), sync-tree, fault-injection and
-checkpoint flags are not offered until those parts are ported
-(ROADMAP.md Queue A 8, 12 and 13). A caller that builds its own
-``TrainConfig`` passes any ``HWAConfig`` window (stride, streaming,
-kernels) through the Trainer unchanged.
+single-device launcher (``repro.launch.train``), whose checkpoint
+directories it reads and writes. Its mesh-native flags (``--wa-dtype``
+and ``--comms-dtype`` among them: there they compress the mesh-native
+window state), sync-tree and fault-injection flags are not offered until
+those parts are ported (ROADMAP.md Queue A 12 and 13). A caller that
+builds its own ``TrainConfig`` passes any ``HWAConfig`` window (stride,
+streaming, kernels) through the Trainer unchanged.
 """
 from __future__ import annotations
 
@@ -24,15 +27,14 @@ from repro_torch.core.hwa import HWAConfig
 from repro_torch.data import DataPipeline, make_markov_lm_dataset
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import build_model
-from repro_torch.train.trainer import PARALLEL, TrainConfig, Trainer, \
-    lm_task
+from repro_torch.train.trainer import METHODS, PARALLEL, TrainConfig, \
+    Trainer, lm_task
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-2b", choices=ARCH_IDS)
-    ap.add_argument("--method", default="hwa",
-                    choices=["base", "ca", "online", "pmsgd", "hwa"])
+    ap.add_argument("--method", default="hwa", choices=list(METHODS))
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--batch-size", type=int, default=16)
     ap.add_argument("--seq-len", type=int, default=64)
@@ -46,6 +48,17 @@ def main(argv=None):
                     help="override the arch's attention implementation; "
                          "flash_pallas selects the flash kernels (their "
                          "plain versions on the CPU)")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="preemption-safe checkpoint session directory "
+                         "(manifest-last + CRC-verified)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="steps between checkpoints (0 = off)")
+    ap.add_argument("--keep", type=int, default=3,
+                    help="checkpoints retained (older ones are removed)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest INTACT checkpoint in "
+                         "--checkpoint-dir (bit-exact: torn or corrupted "
+                         "saves are skipped)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
@@ -65,7 +78,10 @@ def main(argv=None):
         method=args.method, total_steps=args.steps,
         batch_size=args.batch_size, base_lr=args.lr, seed=args.seed,
         hwa=HWAConfig(n_replicas=K, sync_period=args.sync_period,
-                      window=args.window))
+                      window=args.window),
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        checkpoint_keep=args.keep, resume=args.resume)
     out = Trainer(lm_task(lm, pipe, seed=args.seed), tc).run(log=True)
     print(f"[train] {args.arch}/{args.method} on {dev}: final "
           f"{out['final']}, best {out['best']}")

@@ -20,7 +20,7 @@ from repro_torch.models.common import softcap
 NEG_INF = -1e30
 
 #: the ROADMAP item that ports the blockwise-jnp flash path
-FLASH_JNP_ITEM = "ROADMAP.md Queue A, slice 2 (HWA training of the dense LM)"
+FLASH_JNP_ITEM = "ROADMAP.md Queue A 5 (the blockwise flash_jnp path)"
 
 
 def _mask(q_pos, k_pos, window):

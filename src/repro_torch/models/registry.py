@@ -44,7 +44,13 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None):
 
 
 def _embed_tokens(cfg, params, tokens):
-    return params["embed"][tokens.long()]
+    """The embedding rows of ``tokens``. Through ``F.embedding``, not an
+    index: its backward adds each row's gradients in a fixed order on
+    both devices, where the index's ``index_put_`` accumulates in
+    parallel on the CPU in whatever order its threads meet, so that two
+    runs of the same step differ and a resumed run could not be bit-exact
+    (``resilience.session``)."""
+    return nn.functional.embedding(tokens.long(), params["embed"])
 
 
 def _prefix_len(cfg) -> int:

@@ -278,3 +278,73 @@ def test_wrappers_count_launches_and_reject_bad_input(smoke):
     with pytest.raises(TypeError, match="int32"):
         pa.paged_attention_cuda(q[:, 0], pages, pages, tables, lens)
     assert fa.LAUNCHES == before + 1
+
+
+def _card_trainer(method, remat="full"):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataPipeline, make_markov_lm_dataset
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.trainer import TrainConfig, Trainer, lm_task
+    cfg = get_smoke_config("granite-3-2b").with_(
+        attn_impl="flash_pallas", dtype="bfloat16", remat=remat)
+    ds = make_markov_lm_dataset(vocab=cfg.vocab_size, seq_len=64,
+                                n_train=16, n_test=8, device="cuda")
+    pipe = DataPipeline(ds, batch_size=4, n_replicas=1)
+    tc = TrainConfig(method=method, total_steps=2, batch_size=4)
+    return Trainer(lm_task(build_model(cfg), pipe, device="cuda"), tc), cfg
+
+
+def test_sam_step_launches_twice_a_plain_step(smoke):
+    """A SAM step runs two forward and backward passes: twice the flash
+    forward, dq and dk/dv launches of a ca step."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    counts = {}
+    for method in ("ca", "sam"):
+        trainer, cfg = _card_trainer(method)
+        params = trainer.task.init()
+        before = (fa.LAUNCHES, fab.DQ_LAUNCHES, fab.DKV_LAUNCHES)
+        params, _, loss, _ = trainer._single_step(
+            params, trainer.optimizer.init(params), 0)
+        assert bool(torch.isfinite(loss))
+        counts[method] = tuple(a - b for a, b in zip(
+            (fa.LAUNCHES, fab.DQ_LAUNCHES, fab.DKV_LAUNCHES), before))
+    L = cfg.n_layers
+    assert counts["ca"] == (2 * L, L, L)          # remat: two forwards
+    assert counts["sam"] == tuple(2 * c for c in counts["ca"])
+
+
+def test_publish_then_decode_equals_direct_params(smoke):
+    """W̿ published into a card engine from a window state: the params are
+    window_average's, bit for bit, and greedy decoding emits the tokens
+    of an engine built on those params directly."""
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.offline import window_average, window_init, \
+        window_update
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import PagedDecodeEngine
+    from repro_torch.serve.publish import WeightPublisher
+    cfg = get_smoke_config("granite-3-2b").with_(attn_impl="flash_pallas",
+                                                 dtype="bfloat16")
+    lm = build_model(cfg)
+    params = lm.init(torch.Generator(device="cuda").manual_seed(0),
+                     device="cuda")
+    ws = window_init(params, 3)
+    for s in range(4):
+        ws, _ = window_update(ws, lm.init(
+            torch.Generator(device="cuda").manual_seed(10 + s),
+            device="cuda"), use_kernel=True)
+    kw = dict(max_batch=2, max_seq_len=64, max_new=8, page_size=4,
+              prefill_chunk=16, device="cuda")
+    eng = PagedDecodeEngine(lm=lm, params=params, **kw)
+    new = WeightPublisher(engine=eng).publish_window_state(ws)
+    direct = window_average(ws, params)
+    for a, b in zip(tree_leaves(new), tree_leaves(direct)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 9),
+                                     generator=torch.Generator()
+                                     .manual_seed(1)).numpy()}
+    got = eng.generate(batch, 6)
+    want = PagedDecodeEngine(lm=lm, params=direct, **kw).generate(batch, 6)
+    assert torch.equal(got, want)

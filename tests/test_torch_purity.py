@@ -1,6 +1,8 @@
 """The port stands alone: nothing under src/repro_torch/ (nor
-chip_smoke.py) imports JAX or the JAX package, importing the serving
-engine leaves JAX unloaded, and an entry point asked for the card where
+chip_smoke.py) imports JAX, the JAX package or ``ml_dtypes`` (the card's
+machine has none: bf16 and fp8 checkpoints travel as integer views),
+importing the serving engine, the trainer, the checkpoint IO and the
+publisher leaves them unloaded, and an entry point asked for the card where
 there is none raises instead of running on the CPU."""
 import ast
 import os
@@ -15,7 +17,7 @@ from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import PagedDecodeEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _port_files():
@@ -43,9 +45,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_engine_import_leaves_jax_unloaded():
-    code = ("import sys, repro_torch.serve.engine, repro_torch.launch.serve; "
+    code = ("import sys, repro_torch.serve.engine, repro_torch.launch.serve, "
+            "repro_torch.train.trainer, repro_torch.checkpoint.io, "
+            "repro_torch.serve.publish, repro_torch.resilience, "
+            "repro_torch.launch.train; "
             "print(sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+            f"if m.split('.')[0] in {FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120, check=True)

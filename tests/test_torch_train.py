@@ -143,18 +143,26 @@ def test_lm_loss_and_grads_match_jax(impl, S):
 
 
 def test_unported_training_options_raise():
-    cfg = get_smoke_config("granite-3-2b").with_(remat="dots")
-    lm = build_model(cfg)
-    params = lm.init(torch.Generator().manual_seed(0), device="cpu")
+    """What is still unported raises with a pointer to its ROADMAP item:
+    ``remat="dots"`` and ``attn_impl="flash_jnp"`` (Queue A 5), a
+    resilient HWA (A12) and the two-level sync tree (A13)."""
+    cfg = get_smoke_config("granite-3-2b")
     tok = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.loss(params, {"tokens": tok, "targets": tok})
-    pipe = DataPipeline(make_markov_lm_dataset(vocab=16, seq_len=8,
-                                               n_train=8, n_test=4,
-                                               device="cpu"), batch_size=4)
-    for tc in (TrainConfig(method="swa"), TrainConfig(checkpoint_dir="x")):
+    for bad in (cfg.with_(remat="dots"), cfg.with_(attn_impl="flash_jnp")):
+        lm = build_model(bad)
+        params = lm.init(torch.Generator().manual_seed(0), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(lm_task(lm, pipe), tc)
+            lm.loss(params, {"tokens": tok, "targets": tok})
+    lm = build_model(cfg)
+    pipe = DataPipeline(make_markov_lm_dataset(vocab=cfg.vocab_size,
+                                               seq_len=8, n_train=8,
+                                               n_test=4, device="cpu"),
+                        batch_size=4, n_replicas=2)
+    for hwa, item in ((HWAConfig(resilient=True), "Queue A 12"),
+                      (HWAConfig(outer_every=2), "Queue A 13")):
+        with pytest.raises(NotImplementedError, match=item):
+            Trainer(lm_task(lm, pipe, device="cpu"),
+                    TrainConfig(hwa=hwa, total_steps=2)).run()
 
 
 # ------------------------------------------------------------- data
@@ -201,7 +209,8 @@ def test_pipeline_properties():
 # ---------------------------------------------------------- trainer
 
 
-@pytest.mark.parametrize("method", ["base", "ca", "online", "pmsgd", "hwa"])
+@pytest.mark.parametrize("method", ["base", "ca", "swa", "ema", "lookahead",
+                                    "sam", "online", "pmsgd", "hwa"])
 def test_port_trainer_methods_run_and_learn(method):
     """Every ported method trains the smoke model on the port's own data
     (as tests/test_trainer.py does for the reference)."""
