@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.common.packing import PackSpec, pack_spec, repack, unpack
 from repro_torch.common.pytree import tree_map
+from repro_torch.core.offline import window_average_packed
 
 
 @dataclasses.dataclass
@@ -65,11 +66,5 @@ class WeightPublisher:
 
 
 def wa_snapshot(state):
-    """(packed W̿ f32 buffer, PackSpec) of a WindowState: a ring state
-    holds the running SUM (divided by count), a streaming state the
-    mean."""
-    total = state.total.to(torch.float32)
-    if state.kind == "streaming":
-        return total, state.spec
-    count = torch.clamp(state.count, min=1).to(torch.float32)
-    return total / count, state.spec
+    """(packed W̿ f32 buffer, PackSpec) of a WindowState."""
+    return window_average_packed(state), state.spec

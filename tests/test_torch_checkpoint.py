@@ -334,40 +334,43 @@ def _like_outer():
 
 
 def _mean(trees):
+    """The reference's window mean of port trees: f32 sums in order,
+    times 1/n, cast to each leaf's dtype."""
     acc = tree_map(lambda x: torch.zeros_like(x, dtype=torch.float32),
                    trees[0])
     for t in trees:
         acc = tree_map(lambda a, x: a + x.float(), acc, t)
-    return tree_map(lambda a: a / len(trees), acc)
+    return tree_map(lambda a, x: (a * (1.0 / len(trees))).to(x.dtype), acc,
+                    trees[0])
 
 
-def _close_trees(a, b):
-    for x, y in zip(tree_leaves(a), tree_leaves(b)):
-        np.testing.assert_allclose(x.float().numpy(), y.float().numpy(),
-                                   rtol=2e-2, atol=1e-2)
+def _same_port_bits(a, b):
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        np.testing.assert_array_equal(_bits(x), _bits(y))
 
 
 def test_store_window_average_cycles_and_jax_files(tmp_path):
-    """The store's window average equals the in-memory mean; its files
-    are the reference's (a JAX store reads them)."""
+    """The store's window average equals the reference's arithmetic on
+    the in-memory trees and a JAX store's average of the same files, bit
+    for bit; its files are the reference's (a JAX store reads them)."""
     store = OuterWeightStore(str(tmp_path / "outer"))
     outers = [_outer(i) for i in range(6)]
     for e in (3, 1, 0, 2, 5, 4):
         store.save(e, outers[e])
     assert store.cycles() == list(range(6))
-    _close_trees(store.window_average(end_cycle=5, window=3,
-                                      like=_like_outer()),
-                 _mean(outers[3:]))
-    _close_trees(store.window_average(end_cycle=5, window=3,
-                                      like=_like_outer(), stride=2),
-                 _mean([outers[1], outers[3], outers[5]]))
+    wa = store.window_average(end_cycle=5, window=3, like=_like_outer())
+    _same_port_bits(wa, _mean(outers[3:]))
+    _same_port_bits(store.window_average(end_cycle=5, window=3,
+                                         like=_like_outer(), stride=2),
+                    _mean([outers[1], outers[3], outers[5]]))
     jwa = JaxStore(str(tmp_path / "outer")).window_average(
         end_cycle=5, window=3,
         like=jax.tree.map(jnp.zeros_like, {"stack": [{"w": jnp.zeros(
             (3, 4))}], "b": jnp.zeros((5,), jnp.bfloat16)}))
-    _close_trees(store.window_average(end_cycle=5, window=3,
-                                      like=_like_outer()),
-                 _port(jwa))
+    _same_bits(wa, jwa)
 
 
 def test_store_skips_partial_npz_and_verifies(tmp_path):
@@ -381,7 +384,7 @@ def test_store_skips_partial_npz_and_verifies(tmp_path):
         warnings.simplefilter("always")
         wa = store.window_average(end_cycle=2, window=3, like=_like_outer())
     assert any("skipping unreadable" in str(w.message) for w in caught)
-    _close_trees(wa, _mean([outers[0], outers[2]]))
+    _same_port_bits(wa, _mean([outers[0], outers[2]]))
 
 
 def test_store_all_corrupt_raises(tmp_path):

@@ -293,7 +293,7 @@ def test_hwa_trainer_matches_jax(use_kernels):
     jlog = {"loss": [], "wa": []}
     _record(jt, jlog, lambda t: [np.asarray(x, np.float32)
                                  for x in jax.tree.leaves(t)])
-    jout = jt.run()
+    jout = jt.run(eval_views=True)
 
     jparams = jax.device_get(jlm.init(jax.random.key(jtc.seed)))
     lm = build_model(get_smoke_config("granite-3-2b"))
@@ -307,7 +307,7 @@ def test_hwa_trainer_matches_jax(use_kernels):
     log = {"loss": [], "wa": []}
     _record(t, log, lambda tree: [x.float().numpy().copy()
                                   for x in tree_leaves(tree)])
-    out = t.run()
+    out = t.run(eval_views=True)
 
     assert len(log["loss"]) == steps and len(log["wa"]) == steps // H
     np.testing.assert_allclose(log["loss"], jlog["loss"], rtol=1e-5,
@@ -318,4 +318,11 @@ def test_hwa_trainer_matches_jax(use_kernels):
     np.testing.assert_allclose([h["test_loss"] for h in out["history"]],
                                [h["test_loss"] for h in jout["history"]],
                                rtol=1e-5, atol=1e-5)
+    # the inner (replica 0) and outer (replica mean) views are taken
+    # before the sync restarts the replicas
+    for view in ("inner", "outer"):
+        got = [h[f"{view}_loss"] for h in out["history"]]
+        want = [h[f"{view}_loss"] for h in jout["history"]]
+        assert len(got) == len(want) == len(out["history"]) > 0
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     assert log["loss"][-1] < log["loss"][0]
