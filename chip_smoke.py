@@ -86,6 +86,27 @@ raising on any failure:
                params bit-equal to window_average cast to bf16, tokens
                equal to an engine given those params directly, launches
                8 x admissions and 8 x decode steps; the publish's time.
+10. phase 10 — 10a: resilient HWA (K=2, H=2, I=3, f32 ring, kernels) on
+               phase 9b's 2-layer model: a healthy sync through the
+               resilient route (window-update kernel) bit-equal to the
+               plain route with one window-update launch; Trainer.run
+               with replica 1 poisoned with NaN before step 3: k_alive 1
+               at the next sync, W̄ equal to replica 0, replica 1's
+               momenta zeroed, W̿ finite, k_alive 2 at the sync after; a
+               replica scaled x1e3 quarantined by max_param_rms.
+               10b: the same model, one step: flash_jnp against
+               flash_pallas (each layer's output and dq, dk, dv within the
+               bf16 flash tolerance, the loss within it relatively), remat
+               dots against full bit-equal, peak memory and flash launches
+               of a step under none, full and dots.
+               10c: the paper's ResNet-110 (32x32, widths 16/32/64, 10
+               classes) through repro_torch.launch.resnet_cifar: K=2,
+               batch 128, SGD momentum 0.9, wd 5e-4, cosine LR from 0.1,
+               H one epoch (40 steps), I=3, the fused sync, BN statistics
+               recomputed under W̿ each epoch, 3 epochs; the first sync
+               held against its plain version at 0 ULP; finite losses,
+               the last epoch's loss below 0.7 of the first's, W̿ above
+               chance; median replica step, sync and recompute times.
 6. yardstick — each kernel timed at its main path's shapes (CUDA-graph
                replay between CUDA events: device time, cold L2), beside
                its plain version, a library call where one exists, and
@@ -1986,6 +2007,399 @@ def _leaf_names(tree, prefix=""):
     return [prefix[:-1]]
 
 
+# ------------------------------------------------------------ 10. phase 10
+
+#: 10a: phase 9b's 2-layer model, HWA K 2 H 2 I 3 on an f32 ring with the
+#: kernels, resilient; replica 1 poisoned before step index 2 (the sync
+#: after step 4 must drop it, the one after step 6 count it again)
+RESILIENT = dict(layers=2, steps=6, poison_before=2, scale=1e3)
+#: 10c: the paper's ResNet-110 on CIFAR-sized prototype images
+RESNET = dict(depth=110, epochs=3, k=2, window=3, batch_size=128,
+              image_size=32, n_train=5120, n_test=1024, use_kernels=True)
+
+
+def _free(dev):
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _clone(tree):
+    return tree_map(lambda x: x.detach().clone(), tree)
+
+
+def _replica_tree(tree, k):
+    return tree_map(lambda x: x[k].clone(), tree)
+
+
+def _floating_rms(tree, k) -> float:
+    """RMS of replica ``k`` over every floating leaf, in f32."""
+    sq, n = 0.0, 0
+    for x in tree_leaves(tree):
+        if x.is_floating_point():
+            sq += float(x[k].float().square().sum())
+            n += x[k].numel()
+    return (sq / n) ** 0.5
+
+
+def phase_resilient(device):
+    """10a: resilient HWA at full width, 2 layers. (1) a healthy state
+    synced resiliently (the window-update kernel) and plainly (no kernel):
+    W̄, ring, total and W̿ bit-equal, one window-update launch. (2)
+    Trainer.run with replica 1 poisoned with NaN before step index 2: at
+    the next sync k_alive is 1, W̄ equals replica 0's weights, replica
+    1's momenta are zero and W̿ is finite; at the sync after, k_alive is
+    2. (3) a replica scaled x1e3 is quarantined by max_param_rms."""
+    from repro_torch.core.hwa import hwa_sync
+    from repro_torch.resilience.faults import poison_replica
+    from repro_torch.resilience.health import replica_alive_mask
+
+    dev = torch.device(device)
+    r = RESILIENT
+    K, H, I = TRAIN["K"], TRAIN["H"], TRAIN["I"]
+    cfg = train_config(r["layers"])
+    L = cfg.n_layers
+    hcfg = HWAConfig(n_replicas=K, sync_period=H, window=I,
+                     use_kernels=True, resilient=True)
+    trainer = _train_setup(dev, cfg, steps=r["steps"], hwa=hcfg)
+    fails = []
+
+    # (1) healthy: resilient (window-update kernel) vs plain, bit for bit
+    state = hwa_init(hcfg, trainer.task.init(), trainer.optimizer)
+    for step in range(H):
+        state, _ = trainer._hwa_step(state, step)
+    twin = _clone(state)
+    _sync(dev)
+    _reset_counts()
+    a, ma = hwa_sync(hcfg, state)
+    _sync(dev)
+    healthy_launches = _counts()
+    b, _ = hwa_sync(dataclasses.replace(hcfg, resilient=False,
+                                        use_kernels=False), twin)
+    cuda = dev.type == "cuda"
+    if cuda and healthy_launches != _want(wa_window_update=1):
+        fails.append(f"healthy resilient sync launched {healthy_launches}")
+    healthy_equal = {
+        "outer": _trees_bits_equal(_replica_tree(a.inner, 0),
+                                   _replica_tree(b.inner, 0)),
+        "ring": _bits_equal(a.window_state.ring, b.window_state.ring),
+        "total": _bits_equal(a.window_state.total, b.window_state.total),
+        "wa": _trees_bits_equal(a.wa, b.wa)}
+    if not all(healthy_equal.values()) or int(ma["k_alive"]) != K:
+        fails.append(f"healthy resilient sync vs plain: {healthy_equal}, "
+                     f"k_alive {int(ma['k_alive'])}")
+    del state, twin, a, b
+    _free(dev)
+
+    # (2) a NaN replica through Trainer.run
+    hwa_step, sync_step = trainer._hwa_step, trainer._sync_step
+    syncs, kept = [], {}
+
+    def poisoning_step(state, step):
+        if step == r["poison_before"]:
+            state.inner = poison_replica(state.inner, 1)
+        return hwa_step(state, step)
+
+    def checked_sync(state):
+        dead_in = not all(bool(torch.isfinite(x[1]).all())
+                          for x in tree_leaves(state.inner))
+        r0 = _replica_tree(state.inner, 0) if dead_in else None
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = sync_step(state)
+        _sync(dev)
+        rec = {"ms": (time.perf_counter() - t0) * 1e3,
+               "step": int(state.step), "k_alive": int(m["k_alive"]),
+               "nan_in": dead_in,
+               "wa_finite": all(bool(torch.isfinite(x).all())
+                                for x in tree_leaves(state.wa))}
+        if dead_in:
+            # torch.equal: the masked sum adds the dead row's 0 onto a
+            # -0.0 and gives +0.0
+            rec["outer_is_replica0"] = all(
+                torch.equal(x[0], y)
+                for x, y in zip(tree_leaves(state.inner), tree_leaves(r0)))
+            rec["opt1_zero"] = all(not bool(x[1].any())
+                                   for x in tree_leaves(state.inner_opt))
+        syncs.append(rec)
+        kept["state"] = state
+        return state, m
+
+    trainer._hwa_step, trainer._sync_step = poisoning_step, checked_sync
+    n_eval = len(list(trainer.task.pipeline.eval_batches()))
+    _sync(dev)
+    _reset_counts()
+    out = trainer.run()
+    _sync(dev)
+    launches = _counts()
+    n = r["steps"]
+    want = _want(flash_fwd=n * K * L * 2 + (len(out["history"]) + 1)
+                 * n_eval * L, flash_bwd_dq=n * K * L,
+                 flash_bwd_dkv=n * K * L, wa_window_update=n // H)
+    if cuda and launches != want:
+        fails.append(f"launch counts {launches} != {want}")
+    want_alive = [K, 1, K]
+    if [s["k_alive"] for s in syncs] != want_alive:
+        fails.append(f"k_alive per sync {[s['k_alive'] for s in syncs]} "
+                     f"!= {want_alive}")
+    poisoned = [s for s in syncs if s["nan_in"]]
+    if len(poisoned) != 1 or not (poisoned[0]["outer_is_replica0"]
+                                  and poisoned[0]["opt1_zero"]):
+        fails.append(f"the poisoned sync: {poisoned}")
+    if not all(s["wa_finite"] for s in syncs) or not np.isfinite(
+            out["final"]["test_loss"]):
+        fails.append(f"W̿ not finite: {syncs}, final {out['final']}")
+
+    # (3) a diverged (finite) replica: quarantined by max_param_rms only
+    state = kept.pop("state")
+    trainer._hwa_step, trainer._sync_step = hwa_step, sync_step
+    for x in tree_leaves(state.inner):
+        if x.is_floating_point():
+            x[1].mul_(r["scale"])
+    rms = (_floating_rms(state.inner, 0), _floating_rms(state.inner, 1))
+    limit = 10 * rms[0]
+    finite_only = replica_alive_mask(state.inner).tolist()
+    r0 = _replica_tree(state.inner, 0)
+    state, m = hwa_sync(dataclasses.replace(hcfg, max_param_rms=limit),
+                        state)
+    diverged = {"k_alive": int(m["k_alive"]), "finite_only": finite_only,
+                "outer_is_replica0": all(torch.equal(x[0], y) for x, y in
+                                         zip(tree_leaves(state.inner),
+                                             tree_leaves(r0))),
+                "opt1_zero": all(not bool(x[1].any())
+                                 for x in tree_leaves(state.inner_opt))}
+    if not (diverged["k_alive"] == 1 and finite_only == [True, True]
+            and diverged["outer_is_replica0"] and diverged["opt1_zero"]):
+        fails.append(f"the diverged replica: {diverged}")
+    del state, r0, trainer
+    _free(dev)
+    res = {"launches": launches, "healthy_launches": healthy_launches,
+           "healthy_bit_equal": healthy_equal, "syncs": syncs,
+           "diverged": diverged, "rms": rms, "max_param_rms": limit,
+           "history": [h["test_loss"] for h in out["history"]]}
+    print(f"[resilient] granite-3-2b L{L} ({train_param_count(cfg) / 1e6:.1f}"
+          f"M params), HWA K{K} H{H} I{I} f32 ring, use_kernels, "
+          f"resilient: healthy sync vs plain route bit-equal "
+          f"{healthy_equal}, launches {healthy_launches}; replica 1 NaN "
+          f"before step {r['poison_before'] + 1}: per sync "
+          f"{[(s['step'], s['k_alive']) for s in syncs]} (step, k_alive), "
+          f"W̄ == replica 0 {poisoned[0]['outer_is_replica0'] if poisoned else None}, "
+          f"replica 1 momenta zeroed "
+          f"{poisoned[0]['opt1_zero'] if poisoned else None}, W̿ test loss "
+          f"{[round(x, 4) for x in res['history']]}, resilient sync "
+          f"{[round(s['ms'], 3) for s in syncs]} ms; replica 1 x{r['scale']:g} "
+          f"(RMS {rms[1]:.4g} vs {rms[0]:.4g}, max_param_rms {limit:.4g}): "
+          f"{diverged}; launches {launches} | {CARD['line']}")
+    if fails:
+        raise AssertionError(f"phase 10a: {fails}")
+    return res
+
+
+def phase_flash_jnp_remat(device):
+    """10b: phase 10a's model, one step's loss and gradients on a
+    training batch. flash_jnp against flash_pallas: each layer's
+    attention output and (dq, dk, dv) within the bf16 flash tolerance,
+    and the loss within it relatively; remat "dots" against "full": loss
+    and every gradient bit-equal. Peak memory and flash launches of a
+    step under remat none, full and dots (flash_pallas)."""
+    import repro_torch.models.transformer as tfm
+    from repro_torch.models.attention import flash_attention_jnp
+
+    dev = torch.device(device)
+    base = train_config(RESILIENT["layers"])
+    L = base.n_layers
+    trainer = _train_setup(dev, base, steps=1)
+    params = trainer.task.init()
+    tok, tgt = trainer.task.pipeline.replica_batch(0, 0)
+    batch = {"tokens": tok, "targets": tgt}
+    tol = FLASH_TOL[torch.bfloat16]
+    fails = []
+
+    def step(cfg):
+        leaves, treedef = tree_flatten(params)
+        live = [x.detach().requires_grad_(True) for x in leaves]
+        loss, _ = build_model(cfg).loss(tree_unflatten(treedef, live), batch)
+        return loss.detach(), torch.autograd.grad(loss, live)
+
+    cuda = dev.type == "cuda"
+    runs = {}
+    for remat in ("none", "full", "dots"):
+        _free(dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+            base_mem = torch.cuda.memory_allocated(dev)
+        _sync(dev)
+        _reset_counts()
+        loss, grads = step(base.with_(remat=remat))
+        _sync(dev)
+        runs[remat] = {"launches": _counts(), "loss": float(loss),
+                       "peak_gib": ((torch.cuda.max_memory_allocated(dev)
+                                     - base_mem) / 2**30 if cuda
+                                    else float("nan"))}
+        want = _want(flash_fwd=L * (1 if remat == "none" else 2),
+                     flash_bwd_dq=L, flash_bwd_dkv=L)
+        if cuda and runs[remat]["launches"] != want:
+            fails.append(f"remat {remat}: launches "
+                         f"{runs[remat]['launches']} != {want}")
+        if remat in ("full", "dots"):
+            runs[remat]["out"] = (loss, grads)
+        del loss, grads
+    (lf, gf), (ld, gd) = runs["full"].pop("out"), runs["dots"].pop("out")
+    dots_equal = _bits_equal(lf, ld) and all(
+        _bits_equal(x, y) for x, y in zip(gf, gd))
+    if not dots_equal:
+        fails.append("remat dots differs from full")
+    del gf, gd
+
+    # flash_jnp: the step's loss, then each layer's attention
+    loss_jnp, _ = step(base.with_(attn_impl="flash_jnp"))
+    dloss = abs(float(loss_jnp) - runs["full"]["loss"])
+    if not dloss <= tol * abs(runs["full"]["loss"]):
+        fails.append(f"flash_jnp loss {float(loss_jnp)} vs flash_pallas "
+                     f"{runs['full']['loss']}")
+    seen = []
+    real = tfm.run_attention
+
+    def recording(impl, q, k, v, *a, **kw):
+        seen.append((q.detach().clone(), k.detach().clone(),
+                     v.detach().clone(), kw))
+        return real(impl, q, k, v, *a, **kw)
+
+    tfm.run_attention = recording
+    try:
+        with torch.no_grad():
+            build_model(base).loss(params, batch)
+    finally:
+        tfm.run_attention = real
+    gen = torch.Generator(device=dev).manual_seed(10)
+    layer_err = []
+    for q, k, v, kw in seen:
+        w = torch.randn(q.shape, generator=gen, device=dev)
+        got = {}
+        for name, fn in (("pallas", kops.flash_attention),
+                         ("jnp", flash_attention_jnp)):
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            out = fn(*leaves, window=kw["window"],
+                     logit_softcap=kw["logit_softcap"])
+            got[name] = (out.detach(),) + torch.autograd.grad(
+                (out.float() * w).sum(), leaves)
+        errs = {}
+        for i, nm in enumerate(("out", "dq", "dk", "dv")):
+            err, ok = _close(got["jnp"][i], got["pallas"][i], tol)
+            errs[nm] = err
+            if not ok:
+                fails.append(f"layer {len(layer_err)} {nm}: flash_jnp vs "
+                             f"flash_pallas max|d| {err}")
+        layer_err.append(errs)
+    if len(seen) != L:
+        fails.append(f"{len(seen)} attention calls for {L} layers")
+    del seen, params
+    _free(dev)
+    res = {"runs": runs, "dots_bit_equal": dots_equal,
+           "loss_flash_jnp": float(loss_jnp), "dloss": dloss,
+           "layer_max_abs_err": layer_err,
+           # the main path: the three steps (remat none, full, dots)
+           "launches": {k: sum(r["launches"][k] for r in runs.values())
+                        for k in _counts()}}
+    print(f"[flash_jnp/remat] granite-3-2b L{L}, {TRAIN['batch']}x"
+          f"{TRAIN['seq']} tokens, one step: flash_jnp vs flash_pallas loss "
+          f"{float(loss_jnp):.5f} vs {runs['full']['loss']:.5f}, per layer "
+          f"max|d| {[{k: round(v, 5) for k, v in e.items()} for e in layer_err]}"
+          f" (tol {tol}); remat dots vs full loss and grads bit-equal "
+          f"{dots_equal}; peak memory above the weights "
+          f"{ {m: round(r['peak_gib'], 3) for m, r in runs.items()} } GiB, "
+          f"flash forward launches a step "
+          f"{ {m: r['launches']['flash_fwd'] for m, r in runs.items()} } "
+          f"| {CARD['line']}")
+    if fails:
+        raise AssertionError(f"phase 10b: {fails}")
+    return res
+
+
+def phase_resnet(device):
+    """10c: the paper's ResNet-110 (CIFAR 32x32, widths 16/32/64, 10
+    classes) under HWA through ``repro_torch.launch.resnet_cifar``: K 2
+    replicas of batch 128, SGD momentum 0.9, weight decay 5e-4, cosine LR
+    from 0.1, H one epoch (40 steps), I 3, the fused sync kernel, BN
+    statistics recomputed under W̿ after each sync, 3 epochs. The first
+    sync's kernel is held against its plain version on its own inputs at
+    0 ULP. Gates: finite losses, the last epoch's mean loss below 0.7 of
+    the first's, W̿'s accuracy above chance, 3 fused-sync launches."""
+    import repro_torch.launch.resnet_cifar as rn
+    from repro_torch.common.packing import pack, pack_stacked
+    from repro_torch.core.offline import window_scalars
+
+    dev = torch.device(device)
+    held = {}
+    hwa_sync = rn.hwa_sync
+
+    def checked_sync(hcfg, state):
+        if held:
+            return hwa_sync(hcfg, state)
+        ws = state.window_state
+        full_flag, _, inv_count = window_scalars(ws)
+        want = wa_sync_fused_ref(pack_stacked(state.inner, ws.spec),
+                                 ws.ring.clone(), ws.total.clone(),
+                                 ws.next_idx, full_flag, inv_count)
+        state, m = hwa_sync(hcfg, state)
+        got = (state.window_state.ring, state.window_state.total,
+               pack(state.wa, ws.spec))
+        held["ulp"] = max(max_ulp(g, w) for g, w in zip(got, want))
+        held["P"] = int(ws.spec.padded)
+        return state, m
+
+    rn.hwa_sync = checked_sync
+    try:
+        _sync(dev)
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = rn.train_resnet_cifar(rn.ResNetCifarConfig(**RESNET), dev,
+                                    log=lambda s: print(f"[resnet] {s}"))
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        rn.hwa_sync = hwa_sync
+    launches = _counts()
+    hist = out["history"]
+    fails = []
+    if dev.type == "cuda" and launches != _want(
+            wa_sync_fused=RESNET["epochs"]):
+        fails.append(f"launch counts {launches}")
+    if held.get("ulp") != 0:
+        fails.append(f"fused sync vs plain: {held.get('ulp')} ULP")
+    if not np.isfinite(out["losses"]).all():
+        fails.append("non-finite loss")
+    if not hist[-1]["train_loss"] < 0.7 * hist[0]["train_loss"]:
+        fails.append(f"epoch losses {[h['train_loss'] for h in hist]}")
+    if not hist[-1]["wa_acc"] > 1.0 / rn.N_CLASSES:
+        fails.append(f"W̿ accuracy {hist[-1]['wa_acc']}")
+    t = out["times"]
+    res = {"launches": launches, "sync_ulp": held.get("ulp"),
+           "packed_size": held.get("P"), "history": hist,
+           "median_step_ms": out["median_step_ms"],
+           "sync_ms": t["sync_ms"], "bn_ms": t["bn_ms"], "wall_s": wall,
+           "params": sum(x.numel() for x in
+                         tree_leaves(out["state"].wa["p"]))}
+    print(f"[resnet] resnet{RESNET['depth']}-cifar ({res['params'] / 1e6:.3f}"
+          f"M params, packed P {res['packed_size']}) HWA K{RESNET['k']} "
+          f"I{RESNET['window']} H {RESNET['n_train'] // RESNET['batch_size']}"
+          f" steps, batch {RESNET['batch_size']} "
+          f"per replica, {RESNET['epochs']} epochs: epoch loss "
+          f"{[round(h['train_loss'], 4) for h in hist]}, W̿ test acc with "
+          f"the BN recompute {[h['wa_acc'] for h in hist]}, without "
+          f"{[h['wa_acc_stale_bn'] for h in hist]}; fused sync vs plain "
+          f"{res['sync_ulp']} ULP; median replica step "
+          f"{res['median_step_ms']:.3f} ms, sync "
+          f"{[round(x, 3) for x in t['sync_ms']]} ms, BN recompute "
+          f"{[round(x, 3) for x in t['bn_ms']]} ms, wall {wall:.1f} s; "
+          f"launches {launches} | {CARD['line']}")
+    del out
+    _free(dev)
+    if fails:
+        raise AssertionError(f"phase 10c: {fails}")
+    return res
+
+
 # --------------------------------------------------------- 6. yardstick
 
 
@@ -2462,6 +2876,9 @@ def main() -> int:
     train.pop("final_window")
     gc.collect()
     torch.cuda.empty_cache()
+    resilient = phase_resilient(device)
+    remat = phase_flash_jnp_remat(device)
+    resnet = phase_resnet(device)
     entries = phase_yardstick(device, serve, kernels)
     fwd_slm, paged_slm = phase_yardstick_stablelm(device, serve_slm)
     train_entries, fwd_b4 = phase_yardstick_train(device, train, kernels)
@@ -2478,16 +2895,19 @@ def main() -> int:
     entries[1]["launches_by_path"] = {
         "serve": serve["launches"]["paged_attention"],
         "serve_stablelm": serve_slm["launches"]["paged_attention"]}
-    # phase 9's paths (9a's five runs summed) add to the training kernels'
-    # and both serving kernels' counts
-    paths9 = {"baselines": {k: sum(r["launches"][k] for r in
-                                   baselines.values())
-                            for k in _counts()},
-              "checkpoint": ckpt["launches"],
-              "publish_serve": published["launches"]}
-    for e in entries[:5]:
+    # phase 9's paths (9a's five runs summed) and phase 10's add to the
+    # counts of the kernels they launch
+    paths = {"baselines": {k: sum(r["launches"][k] for r in
+                                  baselines.values())
+                           for k in _counts()},
+             "checkpoint": ckpt["launches"],
+             "publish_serve": published["launches"],
+             "resilient": resilient["launches"],
+             "remat_steps": remat["launches"],
+             "resnet": resnet["launches"]}
+    for e in entries:
         by_path = e.setdefault("launches_by_path", {"train": e["launches"]})
-        for path, counts in paths9.items():
+        for path, counts in paths.items():
             if counts[e["name"]]:
                 by_path[path] = counts[e["name"]]
         e["launches"] = sum(by_path.values())

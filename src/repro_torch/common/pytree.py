@@ -143,13 +143,20 @@ def sum_axis0_f32(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def mean_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype of ``jnp.mean(x)``: ``x``'s own for a floating leaf, f32
+    for an integer or bool one."""
+    return x.dtype if x.is_floating_point() else torch.float32
+
+
 def tree_mean_axis0(tree: PyTree) -> PyTree:
     """Mean over the leading (replica) axis of every leaf, as ``jnp.mean``
     computes it on XLA's CPU backend: the f32 sum times the f32 reciprocal
     of K (XLA rewrites the division by the constant K into that product;
     measured against jax 0.9 — the two differ by up to 1 ULP when K is not
-    a power of two), cast back to the leaf dtype."""
+    a power of two), cast back to the leaf dtype (:func:`mean_dtype`: an
+    integer leaf's mean stays f32)."""
     def mean(x):
         inv_k = torch.tensor(1.0 / x.shape[0], dtype=torch.float32)
-        return (sum_axis0_f32(x) * inv_k).to(x.dtype)
+        return (sum_axis0_f32(x) * inv_k).to(mean_dtype(x))
     return tree_map(mean, tree)

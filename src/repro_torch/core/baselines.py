@@ -123,7 +123,10 @@ def value_and_grad(loss_fn: Callable, params: PyTree, batch):
     leaves, treedef = tree_flatten(params)
     live = [x.detach().requires_grad_(True) for x in leaves]
     loss, metrics = loss_fn(tree_unflatten(treedef, live), batch)
-    grads = torch.autograd.grad(loss, live)
+    # a leaf the loss does not use (BN running state carried in
+    # the averaged tree) gets a zero gradient, as in JAX
+    grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                materialize_grads=True)
     return (loss.detach(), metrics), tree_unflatten(treedef, list(grads))
 
 

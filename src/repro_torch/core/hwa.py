@@ -19,9 +19,10 @@ the functions return the state for the reference's calling pattern.
 
 Every window of the reference is ported: the f32 ring, the bf16 and fp8
 rings (``hwa_init(ring_dtype=...)``), the sparse stride and the
-streaming window. Not ported yet (they raise ``NotImplementedError``):
-``resilient`` (ROADMAP.md Queue A 12) and the two-level sync tree and
-mesh-native functions (Queue A 13).
+streaming window, and the resilient sync (``HWAConfig.resilient``: the
+alive-masked mean of ``resilience.health``). Not ported yet (they raise
+``NotImplementedError``): the two-level sync tree and the mesh-native
+functions (ROADMAP.md Queue A 13).
 """
 from __future__ import annotations
 
@@ -40,6 +41,9 @@ from repro_torch.core.online import (broadcast_to_replicas, online_average,
                                      replica_divergence, restart_replicas)
 from repro_torch.kernels import wa_update
 from repro_torch.optim.base import Optimizer, apply_updates
+from repro_torch.resilience.health import (masked_mean_axis0,
+                                           quarantine_opt_state,
+                                           replica_alive_mask)
 
 PyTree = Any
 
@@ -54,7 +58,14 @@ class HWAConfig:
     avg_opt_state: bool = False  # also average optimizer moments at sync
     use_kernels: bool = False    # the WA kernels (fused or two-launch)
     outer_every: int = 1         # H₂ of the two-level sync tree (mesh only)
-    resilient: bool = False      # alive-masked elastic mean
+    resilient: bool = False      # alive-masked elastic mean: a NaN'd or
+                                 # diverged replica is left out of W̄ and
+                                 # restarts from it with zeroed optimizer
+                                 # slots (resilience.health)
+    max_param_rms: float | None = None
+                                 # resilient only: a replica whose RMS
+                                 # over all its parameters exceeds this is
+                                 # quarantined too (None: finiteness only)
 
 
 @dataclasses.dataclass
@@ -74,9 +85,6 @@ register_dataclass(HWAState, data_fields=["inner", "inner_opt",
 
 def check_config(cfg: HWAConfig) -> None:
     """Raise for the options this port does not cover yet."""
-    if cfg.resilient:
-        raise NotImplementedError("resilient HWA is not ported yet: "
-                                  "ROADMAP.md Queue A 12")
     if cfg.outer_every != 1:
         raise NotImplementedError("the two-level sync tree is not ported "
                                   "yet: ROADMAP.md Queue A 13")
@@ -117,7 +125,10 @@ def hwa_inner_step(cfg: HWAConfig, state: HWAState, batches: PyTree,
         live = [x[k].detach().requires_grad_(True) for x in leaves]
         params = tree_unflatten(treedef, live)
         loss, metrics = loss_fn(params, _replica(batches, k))
-        grads = torch.autograd.grad(loss, live)
+        # a leaf the loss does not use (BN running state carried in
+        # the averaged tree) gets a zero gradient, as in JAX
+        grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                    materialize_grads=True)
         with torch.no_grad():
             opt_k = _replica(state.inner_opt, k)
             plain = tree_unflatten(treedef, [x.detach() for x in live])
@@ -219,11 +230,26 @@ def hwa_sync(cfg: HWAConfig, state: HWAState) -> tuple[HWAState, dict]:
     ``online_mean`` kernel, then the window push, whose update is a
     kernel for an f32 or bf16 ring and plain otherwise. Without
     ``use_kernels``: the plain mean (sum/K) and the plain window push.
-    The replicas restart from W̄ in place. Returns (state, metrics)."""
+    The replicas restart from W̄ in place. Returns (state, metrics).
+
+    With ``cfg.resilient`` the mean is the alive-masked one
+    (``resilience.health``), taken before anything is written in place:
+    a NaN'd or diverged replica is left out of W̄, restarts from W̄ like
+    the others, and has its optimizer slots zeroed in place (or, with
+    ``avg_opt_state``, gets the alive-masked mean of the slots). The
+    sync kernels cannot mask, so the mean is plain; the window push
+    still takes the window-update kernel with ``use_kernels`` (an f32 or
+    bf16 ring). With every replica alive it is bit-equal to the plain
+    route. The alive count is the ``k_alive`` metric (int32)."""
     check_config(cfg)
     div = replica_divergence(state.inner)
     ws = state.window_state
-    if (cfg.use_kernels and ws.kind == "ring" and cfg.window_stride == 1
+    alive = None
+    if cfg.resilient:
+        alive = replica_alive_mask(state.inner, max_rms=cfg.max_param_rms)
+        outer = masked_mean_axis0(state.inner, alive)
+        window_state, wa, cycle = _window_push(cfg, outer, ws, state.cycle)
+    elif (cfg.use_kernels and ws.kind == "ring" and cfg.window_stride == 1
             and ws.ring.dtype in wa_update.KERNEL_RING_DTYPES):
         outer, window_state, wa, cycle = _sync_fused(cfg, state)
     elif cfg.use_kernels and tree_leaves(state.inner):
@@ -238,8 +264,15 @@ def hwa_sync(cfg: HWAConfig, state: HWAState) -> tuple[HWAState, dict]:
         window_state, wa, cycle = _window_push(cfg, outer, ws, state.cycle)
     restart_replicas(state.inner, outer)
     if cfg.avg_opt_state:
-        restart_replicas(state.inner_opt, tree_mean_axis0(state.inner_opt))
+        opt_mean = (tree_mean_axis0(state.inner_opt) if alive is None
+                    else masked_mean_axis0(state.inner_opt, alive))
+        restart_replicas(state.inner_opt, opt_mean)
+    elif alive is not None:
+        quarantine_opt_state(state.inner_opt, alive)
     new_state = HWAState(inner=state.inner, inner_opt=state.inner_opt,
                          window_state=window_state, wa=wa, cycle=cycle,
                          step=state.step)
-    return new_state, {"replica_divergence": div, "cycle": cycle}
+    metrics = {"replica_divergence": div, "cycle": cycle}
+    if alive is not None:
+        metrics["k_alive"] = alive.sum(dtype=torch.int32)
+    return new_state, metrics

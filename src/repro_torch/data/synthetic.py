@@ -1,14 +1,14 @@
-"""Deterministic synthetic-but-learnable LM data (counterpart of
-``repro.data.synthetic.make_markov_lm_dataset``).
+"""Deterministic synthetic-but-learnable data (counterpart of
+``repro.data.synthetic``): the Markov LM set and the prototype image set.
 
-Sequences come from a fixed random first-order Markov chain over the
+LM sequences come from a fixed random first-order Markov chain over the
 vocabulary, whose transition rows are Dirichlet(concentration) draws: a
 model must learn the transition structure, a finite train set can be
 memorized, fresh test sequences cannot. Everything is drawn from one
 explicit ``torch.Generator`` seeded with ``seed`` on the target device;
 torch's Philox and JAX's threefry differ, so the data matches the
 reference in distribution, not in bits (parity tests inject the
-reference's batches).
+reference's batches, and hold the port's own sets to their properties).
 
 The V x V transition matrix (9.7 GB in f32 at a 49k vocabulary) lives
 only while the sequences are sampled; only the tokens are kept.
@@ -108,3 +108,35 @@ def make_markov_lm_dataset(vocab: int = 256, seq_len: int = 128,
         train_targets=train[:, 1:].contiguous(),
         test_inputs=test[:, :-1].contiguous(),
         test_targets=test[:, 1:].contiguous(), kind="lm")
+
+
+def make_prototype_image_dataset(n_classes: int = 10, image_size: int = 16,
+                                 channels: int = 3, n_train: int = 4096,
+                                 n_test: int = 1024, noise: float = 0.7,
+                                 label_noise: float = 0.05, seed: int = 0,
+                                 device=None) -> SyntheticDataset:
+    """Image classification on ``device`` (the card unless "cpu"): one
+    N(0, 1) prototype image per class, each sample its class's prototype
+    plus ``noise`` x N(0, 1), NHWC f32, int32 labels; a ``label_noise``
+    share of the TRAIN labels is replaced by a uniform draw (hard samples
+    a model can only memorize)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (image_size, image_size, channels)
+    protos = torch.randn((n_classes,) + shape, generator=gen, device=dev)
+
+    def split(n):
+        y = torch.randint(0, n_classes, (n,), generator=gen, device=dev)
+        x = protos[y] + noise * torch.randn((n,) + shape, generator=gen,
+                                            device=dev)
+        return x, y.to(torch.int32)
+
+    xtr, ytr = split(n_train)
+    xte, yte = split(n_test)
+    if label_noise > 0:
+        flip = torch.rand((n_train,), generator=gen, device=dev) < label_noise
+        rand_y = torch.randint(0, n_classes, (n_train,), generator=gen,
+                               device=dev).to(torch.int32)
+        ytr = torch.where(flip, rand_y, ytr)
+    return SyntheticDataset(train_inputs=xtr, train_targets=ytr,
+                            test_inputs=xte, test_targets=yte, kind="image")

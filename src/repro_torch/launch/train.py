@@ -6,15 +6,20 @@ smoke config of an architecture, with preemption-safe checkpoints.
       --checkpoint-dir ckpt --checkpoint-every 4 --keep 2 [--resume]
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --method sam --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --steps 8 --k 2 --window 3 --sync-period 2 --resilient \
+      [--max-param-rms 10]
 
 Runs on the card unless ``--device cpu``. Mirrors the JAX package's
 single-device launcher (``repro.launch.train``), whose checkpoint
-directories it reads and writes. Its mesh-native flags (``--wa-dtype``
-and ``--comms-dtype`` among them: there they compress the mesh-native
-window state), sync-tree and fault-injection flags are not offered until
-those parts are ported (ROADMAP.md Queue A 12 and 13). A caller that
-builds its own ``TrainConfig`` passes any ``HWAConfig`` window (stride,
-streaming, kernels) through the Trainer unchanged.
+directories it reads and writes. ``--resilient`` and ``--max-param-rms``
+select the alive-masked sync (``HWAConfig.resilient``). Its mesh-native
+flags (``--wa-dtype`` and ``--comms-dtype`` among them: there they
+compress the mesh-native window state), the sync-tree flags and
+``--inject-nan`` (offered there only with ``--mesh-native``) wait for
+the multi-replica sync across processes (ROADMAP.md Queue A 13). A
+caller that builds its own ``TrainConfig`` passes any ``HWAConfig``
+window (stride, streaming, kernels) through the Trainer unchanged.
 """
 from __future__ import annotations
 
@@ -48,6 +53,14 @@ def main(argv=None):
                     help="override the arch's attention implementation; "
                          "flash_pallas selects the flash kernels (their "
                          "plain versions on the CPU)")
+    ap.add_argument("--resilient", action="store_true",
+                    help="alive-masked sync: a replica whose weights go "
+                         "non-finite (or whose RMS exceeds "
+                         "--max-param-rms) is excluded from the K-mean "
+                         "and re-seeded from W̄ at the next sync")
+    ap.add_argument("--max-param-rms", type=float, default=0.0,
+                    help="resilient only: divergence threshold on a "
+                         "replica's parameter RMS (0 = finiteness only)")
     ap.add_argument("--checkpoint-dir", default="",
                     help="preemption-safe checkpoint session directory "
                          "(manifest-last + CRC-verified)")
@@ -78,7 +91,8 @@ def main(argv=None):
         method=args.method, total_steps=args.steps,
         batch_size=args.batch_size, base_lr=args.lr, seed=args.seed,
         hwa=HWAConfig(n_replicas=K, sync_period=args.sync_period,
-                      window=args.window),
+                      window=args.window, resilient=args.resilient,
+                      max_param_rms=args.max_param_rms or None),
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
         checkpoint_keep=args.keep, resume=args.resume)

@@ -228,4 +228,7 @@ class LM(nn.Module):
 
 
 def build_model(cfg: ModelConfig) -> LM:
+    if cfg.family == "convnet":
+        raise ValueError("use repro_torch.models.convnet directly for "
+                         "convnets")
     return LM(cfg)

@@ -12,8 +12,7 @@ the stacked layers, the port runs a Python loop:
   gemma2  : [local attn, global attn] x 23
 
 Only attention sub-layers of the dense family are ported; the MoE,
-recurrent (mLSTM/sLSTM) and hybrid kinds raise ``NotImplementedError``,
-as does ``remat="dots"`` (ROADMAP.md Queue A 5).
+recurrent (mLSTM/sLSTM) and hybrid kinds raise ``NotImplementedError``.
 
 The paged path updates the page pools IN PLACE (``index_put_``) where
 the JAX package returns new pools through donated buffers.
@@ -23,7 +22,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.head_dim import pad_head_dim, padded_head_dim
 from repro_torch.models.attention import run_attention
@@ -171,10 +171,6 @@ def iter_layers(cfg: ModelConfig, stack_params, caches):
 # training path (teacher forcing over the full sequence)
 # ------------------------------------------------------------------
 
-#: the ROADMAP item that ports the selective ("dots") rematerialization
-REMAT_DOTS_ITEM = "ROADMAP.md Queue A 5 (remat='dots')"
-
-
 def apply_layer_train(cfg, spec: LayerSpec, p, x, positions):
     """Full-sequence layer application. Returns (x, aux) — aux is the MoE
     router loss, zero for the dense family."""
@@ -196,23 +192,55 @@ def apply_layer_train(cfg, spec: LayerSpec, p, x, positions):
     return x + mlp_out, aux
 
 
+#: the products ``remat="dots"`` keeps: what ``jax.lax.dot_general``
+#: becomes in aten (``matmul`` and ``einsum`` decompose into these)
+_DOT_OPS = frozenset({
+    torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+    torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default,
+    torch.ops.aten.mv.default, torch.ops.aten.dot.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save every product's output, recompute everything else, as
+    ``checkpoint_policies.checkpoint_dots`` does. Ops met with grad mode
+    off run inside a custom ``autograd.Function``'s forward (the flash
+    kernels' and ``FlashJnp``'s): the reference's ``custom_vjp`` is
+    recomputed as a whole under ``jax.checkpoint``, so their products
+    are recomputed too rather than held."""
+    if op in _DOT_OPS and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _maybe_remat(cfg: ModelConfig, fn):
     """``remat="full"``: the block's activations are recomputed in the
     backward (``torch.utils.checkpoint``, non-reentrant, so parameters
     captured by the block still get their gradients), as
-    ``jax.checkpoint`` does; ``"none"``: kept."""
+    ``jax.checkpoint`` does; ``"dots"``: the same with the products'
+    outputs kept (:func:`_dots_policy`); ``"none"``: kept.
+
+    Under either remat the backward runs the block's forward again: the
+    flash kernels sit behind an ``autograd.Function`` that reaches them
+    through ``ctypes``, which selective checkpointing cannot see or
+    save, so ``"dots"`` re-launches the flash forward once per layer in
+    the backward, as ``"full"`` does (the backward sweeps launch once
+    each either way). Saved or recomputed, a product gives the same
+    bits, so ``"dots"`` and ``"full"`` give the same loss and gradients
+    to the bit."""
     if cfg.remat == "none":
         return fn
-    if cfg.remat == "dots":
-        raise NotImplementedError(f"remat='dots' is not ported yet: "
-                                  f"{REMAT_DOTS_ITEM}")
-    if cfg.remat != "full":
+    if cfg.remat not in ("full", "dots"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
+    kw = {"context_fn": _dots_context} if cfg.remat == "dots" else {}
 
     def remat(x, layer_params):
         if not torch.is_grad_enabled():
             return fn(x, layer_params)
-        return checkpoint(fn, x, layer_params, use_reentrant=False)
+        return checkpoint(fn, x, layer_params, use_reentrant=False, **kw)
     return remat
 
 

@@ -9,14 +9,21 @@ ported so far):
 - :mod:`repro_torch.resilience.faults` — deterministic fault injectors
   (NaN-poisoned replicas, kill mid-save, bit flips, transient IO
   errors).
-
-The replica health probes and the alive-masked mean (``health.py``,
-``check.py``, ``HWAConfig.resilient``) wait for ROADMAP.md Queue A 12.
+- :mod:`repro_torch.resilience.health` — replica health probes and the
+  alive-masked K-mean that ``HWAConfig(resilient=True)`` syncs with.
+- :mod:`repro_torch.resilience.check` — the fault-check harness's legs
+  that need no mesh (``python -m repro_torch.resilience.check``).
 """
 from repro_torch.resilience.faults import (InjectedIOError, KillAt,
                                            SimulatedCrash, TransientIO,
                                            flip_bit, poison_replica,
                                            truncate_file)
+from repro_torch.resilience.health import (alive_from_stats,
+                                           masked_mean_axis0,
+                                           packed_health_stats,
+                                           quarantine_opt_state,
+                                           renormalized_inv,
+                                           replica_alive_mask)
 from repro_torch.resilience.session import CheckpointSession
 
 __all__ = [
@@ -25,7 +32,13 @@ __all__ = [
     "KillAt",
     "SimulatedCrash",
     "TransientIO",
+    "alive_from_stats",
     "flip_bit",
+    "masked_mean_axis0",
+    "packed_health_stats",
     "poison_replica",
+    "quarantine_opt_state",
+    "renormalized_inv",
+    "replica_alive_mask",
     "truncate_file",
 ]

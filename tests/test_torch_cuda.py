@@ -348,3 +348,78 @@ def test_publish_then_decode_equals_direct_params(smoke):
     got = eng.generate(batch, 6)
     want = PagedDecodeEngine(lm=lm, params=direct, **kw).generate(batch, 6)
     assert torch.equal(got, want)
+
+
+def test_resilient_sync_routes_on_card(smoke):
+    """The resilient sync on the card: healthy, the window-update route
+    equals the plain non-resilient route to the bit with one launch; with
+    replica 1 poisoned, the card's resilient sync equals the CPU's (the
+    plain versions) to the bit and k_alive is 1."""
+    import dataclasses
+
+    from repro_torch.common.pytree import tree_leaves, tree_map
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.hwa import HWAConfig, hwa_init, hwa_sync
+    from repro_torch.kernels import wa_update as wa
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import sgd
+
+    cfg = get_smoke_config("granite-3-2b").with_(dtype="bfloat16")
+    gen = torch.Generator().manual_seed(0)
+    params = build_model(cfg).init(gen, device="cpu")
+    hcfg = HWAConfig(n_replicas=2, window=3, use_kernels=True,
+                     resilient=True)
+
+    def state_on(dev, poison):
+        state = hwa_init(hcfg, tree_map(lambda x: x.to(dev), params),
+                         sgd(momentum=0.9))
+        g = torch.Generator().manual_seed(1)
+        for tree in (state.inner, state.inner_opt):
+            for x in tree_leaves(tree):
+                step = torch.randn(x.shape, generator=g) * 0.1
+                x.copy_((x.float().cpu() + step).to(x.dtype))
+                if poison:
+                    x[1] = float("nan")
+        return state
+
+    def flat(state):
+        return [x.cpu() for x in tree_leaves(
+            (state.inner, state.inner_opt, state.wa,
+             state.window_state.ring, state.window_state.total))]
+
+    before = wa.WINDOW_UPDATE_LAUNCHES
+    a, _ = hwa_sync(hcfg, state_on("cuda", False))
+    assert wa.WINDOW_UPDATE_LAUNCHES == before + 1
+    b, _ = hwa_sync(dataclasses.replace(hcfg, resilient=False,
+                                        use_kernels=False),
+                    state_on("cuda", False))
+    for x, y in zip(flat(a), flat(b)):
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+    card, m = hwa_sync(hcfg, state_on("cuda", True))
+    host, mh = hwa_sync(hcfg, state_on("cpu", True))
+    assert int(m["k_alive"]) == int(mh["k_alive"]) == 1
+    for x, y in zip(flat(card), flat(host)):
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+
+
+@pytest.mark.parametrize("size", [32, 31])
+def test_resnet8_forward_on_card_matches_cpu(smoke, size):
+    """ResNet-8's logits and new BN state on the card (cuDNN, TF32 off)
+    against the CPU run, both parities of the stride-2 SAME padding:
+    within 1e-5 of the tensor's largest value, the CPU tests' rule
+    against JAX."""
+    from repro_torch.common.pytree import tree_leaves, tree_map
+    from repro_torch.models import convnet as tc
+
+    cfg = tc.resnet_cifar_config(depth=8, n_classes=10, image_size=size)
+    params, state = tc.init_resnet(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((16, size, size, 3),
+                    generator=torch.Generator().manual_seed(1))
+    for train in (True, False):
+        want = tc.apply_resnet(cfg, params, state, x, train)
+        got = tc.apply_resnet(cfg, tree_map(lambda t: t.cuda(), params),
+                              tree_map(lambda t: t.cuda(), state), x.cuda(),
+                              train)
+        for g, w in zip(tree_leaves(got), tree_leaves(want)):
+            tol = 1e-5 * float(w.abs().max())
+            assert float((g.cpu() - w).abs().max()) <= tol

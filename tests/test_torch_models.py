@@ -91,11 +91,15 @@ def test_init_matches_jax_layout():
 
 
 def test_unported_paths_raise():
+    """The families still unported raise; ``flash_jnp`` (ported) runs and
+    an unknown implementation is refused."""
     cfg = get_smoke_config("granite-3-2b")
     q = torch.zeros(1, 8, 4, 16)
     pos = torch.arange(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_attention("flash_jnp", q, q[:, :, :2], q[:, :, :2], pos, pos)
+    out = run_attention("flash_jnp", q, q[:, :, :2], q[:, :, :2], pos, pos)
+    assert tuple(out.shape) == (1, 8, 4, 16)
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        run_attention("flash", q, q[:, :, :2], q[:, :, :2], pos, pos)
     for family in ("moe", "ssm", "hybrid", "vlm", "audio"):
         with pytest.raises(NotImplementedError):
             build_model(cfg.with_(family=family))

@@ -1,8 +1,8 @@
 """The port stands alone: nothing under src/repro_torch/ (nor
 chip_smoke.py) imports JAX, the JAX package or ``ml_dtypes`` (the card's
 machine has none: bf16 and fp8 checkpoints travel as integer views),
-importing the serving engine, the trainer, the checkpoint IO and the
-publisher leaves them unloaded, and an entry point asked for the card where
+importing the serving engine, the trainer, the checkpoint IO, the
+publisher, the fault check and the ResNet launcher leaves them unloaded, and an entry point asked for the card where
 there is none raises instead of running on the CPU."""
 import ast
 import os
@@ -48,7 +48,8 @@ def test_engine_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.serve.engine, repro_torch.launch.serve, "
             "repro_torch.train.trainer, repro_torch.checkpoint.io, "
             "repro_torch.serve.publish, repro_torch.resilience, "
-            "repro_torch.launch.train; "
+            "repro_torch.resilience.check, repro_torch.launch.train, "
+            "repro_torch.launch.resnet_cifar; "
             "print(sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {FORBIDDEN!r}))")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))

@@ -222,7 +222,9 @@ def test_hwa_sync_matches_jax_bitwise(use_kernels, K, dtype, avg_opt):
 
 
 def test_unported_hwa_options_raise():
-    state = None
-    for bad in (HWAConfig(resilient=True), HWAConfig(outer_every=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            hwa_sync(bad, state)
+    """The two-level sync tree (Queue A 13) raises before touching the
+    state; ``resilient`` is ported (tests/test_torch_resilience.py)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        hwa_sync(HWAConfig(outer_every=2), None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        hwa_sync(HWAConfig(resilient=True, outer_every=2), None)
