@@ -17,6 +17,8 @@ ARCH_IDS = [
     "gemma2-27b",
     "stablelm-12b",
     "command-r-35b",
+    "granite-moe-1b-a400m",
+    "qwen2-moe-a2.7b",
 ]
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")

@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --engine paged \
       --arch granite-3-2b --full --batch 4 --prompt-len 128 --new-tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch qwen2-moe-a2.7b --batch 2 --prompt-len 8 --new-tokens 4
 
 Runs on the card unless ``--device cpu``. ``--full`` serves the
 published width (the CUDA kernels take head_dim 64 or 128); without it

@@ -1,4 +1,5 @@
-"""LM assembly: embeddings -> layer stack -> head, for the dense family.
+"""LM assembly: embeddings -> layer stack -> head, for the dense and MoE
+families.
 
 Counterpart of ``repro.models.registry``. Parameters are a nested dict
 with the JAX package's layout and leaf names (``embed`` (V, D), ``head``
@@ -54,8 +55,8 @@ def _embed_tokens(cfg, params, tokens):
 
 
 def _prefix_len(cfg) -> int:
-    """Learned prefix tokens ahead of the prompt: none in the dense
-    family (meta tokens and vision prefixes come with their families;
+    """Learned prefix tokens ahead of the prompt: none in the dense and
+    MoE families (meta tokens and vision prefixes come with their families;
     ``init_lm`` refuses a config that has them)."""
     return cfg.n_meta_tokens
 
@@ -188,7 +189,7 @@ def lm_paged_prefill_chunk(cfg: ModelConfig, params, caches, batch,
 
 
 class LM(nn.Module):
-    """The dense LM. Holds the config; parameters are a tree the caller
+    """The dense or MoE LM. Holds the config; parameters are a tree the caller
     owns (``init`` makes one), so the serving engine can swap weights
     between steps without touching the module."""
 

@@ -9,9 +9,10 @@ out, so a bridged parameter tree is a plain copy. Where JAX scans over
 the stacked layers, the port runs a Python loop:
 
   dense   : [attn+mlp]                      (window per spec)
+  moe     : [attn+moe]                      (models.moe)
   gemma2  : [local attn, global attn] x 23
 
-Only attention sub-layers of the dense family are ported; the MoE,
+The attention sub-layers of the dense and MoE families are ported; the
 recurrent (mLSTM/sLSTM) and hybrid kinds raise ``NotImplementedError``.
 
 The paged path updates the page pools IN PLACE (``index_put_``) where
@@ -31,6 +32,7 @@ from repro_torch.models.cache import (TRASH_PAGE, init_paged_pool,
                                       paged_phys_pages)
 from repro_torch.models.common import (activation, apply_norm, apply_rope,
                                        init_norm, normal_init)
+from repro_torch.models.moe import init_moe, moe_forward
 from repro_torch.models.types import ModelConfig
 
 
@@ -42,10 +44,14 @@ class LayerSpec:
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (the port covers the "
-            f"dense family; see ROADMAP.md Queue A)")
+            f"dense and MoE families; see ROADMAP.md Queue A)")
+    if cfg.expert_parallel:
+        raise NotImplementedError(
+            "expert_parallel=True (the all-to-all MoE path) needs a device "
+            "mesh; it waits for ROADMAP.md Queue A 13")
 
 
 def block_pattern(cfg: ModelConfig) -> list[LayerSpec]:
@@ -53,7 +59,8 @@ def block_pattern(cfg: ModelConfig) -> list[LayerSpec]:
     if cfg.global_every:             # gemma2: local / global alternation
         return [LayerSpec("attn", window=cfg.sliding_window),
                 LayerSpec("attn", window=None)]
-    return [LayerSpec("attn", window=cfg.sliding_window)]
+    return [LayerSpec("attn", window=cfg.sliding_window,
+                      use_moe=cfg.family == "moe")]
 
 
 # ------------------------------------------------------------------
@@ -90,17 +97,19 @@ def _stacked_norm(cfg, n, device):
 def _init_layer(cfg: ModelConfig, spec: LayerSpec, n: int, gen, dtype,
                 device):
     """``n`` stacked copies of one sub-layer's parameters."""
-    if spec.kind != "attn" or spec.use_moe:
+    if spec.kind != "attn":
         raise NotImplementedError(
-            f"layer kind {spec.kind!r} (use_moe={spec.use_moe}) is not "
-            f"ported yet")
+            f"layer kind {spec.kind!r} is not ported yet")
     params = {"ln1": _stacked_norm(cfg, n, device),
               "ln2": _stacked_norm(cfg, n, device)}
     if cfg.name.startswith("gemma2"):
         params["ln1_post"] = _stacked_norm(cfg, n, device)
         params["ln2_post"] = _stacked_norm(cfg, n, device)
     params["attn"] = _init_attn(cfg, n, gen, dtype, device)
-    params["mlp"] = _init_mlp(cfg, n, gen, dtype, device)
+    if spec.use_moe:
+        params["moe"] = init_moe(cfg, n, gen, dtype, device)
+    else:
+        params["mlp"] = _init_mlp(cfg, n, gen, dtype, device)
     return params
 
 
@@ -108,6 +117,14 @@ def _apply_mlp(cfg, p, x):
     act = activation(cfg.act)
     h = (act((x @ p["w_gate"]).float()) * (x @ p["w_up"]).float()).to(x.dtype)
     return h @ p["w_down"]
+
+
+def _apply_ffn(cfg, spec: LayerSpec, p, x):
+    """The layer's feed-forward half: the MLP, or the MoE layer with its
+    router loss (zero for the MLP)."""
+    if spec.use_moe:
+        return moe_forward(cfg, p["moe"], x)
+    return _apply_mlp(cfg, p["mlp"], x), None
 
 
 def _proj_heads(x, w):
@@ -174,11 +191,9 @@ def iter_layers(cfg: ModelConfig, stack_params, caches):
 def apply_layer_train(cfg, spec: LayerSpec, p, x, positions):
     """Full-sequence layer application. Returns (x, aux) — aux is the MoE
     router loss, zero for the dense family."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if spec.kind != "attn" or spec.use_moe:
+    if spec.kind != "attn":
         raise NotImplementedError(
-            f"layer kind {spec.kind!r} (use_moe={spec.use_moe}) is not "
-            f"ported yet")
+            f"layer kind {spec.kind!r} is not ported yet")
     h = apply_norm(cfg, p["ln1"], x)
     k, v = _project_kv(cfg, p["attn"], h, positions)
     attn_out = _attn_call(cfg, p["attn"], h, positions, k, v, positions,
@@ -186,7 +201,9 @@ def apply_layer_train(cfg, spec: LayerSpec, p, x, positions):
     if "ln1_post" in p:
         attn_out = apply_norm(cfg, p["ln1_post"], attn_out)
     x = x + attn_out
-    mlp_out = _apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+    mlp_out, aux = _apply_ffn(cfg, spec, p, apply_norm(cfg, p["ln2"], x))
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ln2_post" in p:
         mlp_out = apply_norm(cfg, p["ln2_post"], mlp_out)
     return x + mlp_out, aux
@@ -352,7 +369,7 @@ def apply_layer_decode_paged(cfg, spec: LayerSpec, p, pages, x, pos_b,
     if "ln1_post" in p:
         attn_out = apply_norm(cfg, p["ln1_post"], attn_out)
     x = x + attn_out
-    mlp_out = _apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+    mlp_out, _ = _apply_ffn(cfg, spec, p, apply_norm(cfg, p["ln2"], x))
     if "ln2_post" in p:
         mlp_out = apply_norm(cfg, p["ln2_post"], mlp_out)
     return x + mlp_out
@@ -396,7 +413,7 @@ def apply_layer_prefill_paged(cfg, spec: LayerSpec, p, pages, x, n_valid: int,
     if "ln1_post" in p:
         attn_out = apply_norm(cfg, p["ln1_post"], attn_out)
     x = x + attn_out
-    mlp_out = _apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+    mlp_out, _ = _apply_ffn(cfg, spec, p, apply_norm(cfg, p["ln2"], x))
     if "ln2_post" in p:
         mlp_out = apply_norm(cfg, p["ln2_post"], mlp_out)
     return x + mlp_out

@@ -61,6 +61,8 @@ FLASH_CASES = [
          window=48, cap=20.0),
     dict(B=1, S=192, T=64, Hq=4, Hkv=2, D=192, dtype=torch.bfloat16,
          window=16),
+    # qwen2-moe-a2.7b's prefill chunk: G = 1 at head_dim 128
+    dict(B=1, S=512, T=512, Hq=16, Hkv=16, D=128, dtype=torch.bfloat16),
 ]
 
 PAGED_CASES = [
@@ -87,6 +89,9 @@ PAGED_CASES = [
     dict(lens=[300, 75, 41, 9], Hq=8, Hkv=2, D=128, ps=8, TW=9,
          dtype=torch.float32, window=40, cap=30.0),
     dict(lens=[0, 0], Hq=4, Hkv=1, D=64, ps=16, TW=35, dtype=torch.float32),
+    # qwen2-moe-a2.7b decode: G = 1 at head_dim 128
+    dict(lens=[0, 1, 17, 16, 100, 300, 543, 560], Hq=16, Hkv=16, D=128,
+         ps=16, TW=35, dtype=torch.bfloat16),
 ]
 
 #: two paged launches on the same inputs (chip_smoke._paged_repeat_case)
@@ -95,6 +100,8 @@ PAGED_REPEAT_CASES = [
          TW=35),
     dict(lens=[300, 75, 41, 9], Hq=8, Hkv=2, D=192, ps=8, TW=9, window=40,
          cap=30.0),
+    dict(lens=[0, 1, 17, 16, 100, 300, 543, 560], Hq=16, Hkv=16, D=128, ps=16,
+         TW=35),
 ]
 
 
@@ -147,6 +154,9 @@ BWD_CASES = [
     dict(B=1, S=192, T=64, Hq=4, Hkv=2, D=192, dtype=torch.bfloat16,
          window=16),
     dict(B=2, S=300, Hq=8, Hkv=2, D=192, dtype=torch.bfloat16, cap=30.0),
+    # granite-moe-1b-a400m's training shape
+    dict(B=4, S=512, Hq=16, Hkv=8, D=64, dtype=torch.bfloat16,
+         through_ops=True),
 ]
 
 #: two dk/dv launches on the same inputs (chip_smoke._dkv_repeat_case)
@@ -155,6 +165,7 @@ DKV_REPEAT_CASES = [
     dict(B=2, S=300, Hq=32, Hkv=4, D=64, window=100, cap=30.0),
     dict(B=2, S=256, Hq=8, Hkv=4, D=128),
     dict(B=2, S=256, Hq=8, Hkv=2, D=192),
+    dict(B=4, S=512, Hq=16, Hkv=8, D=64),
 ]
 
 
@@ -423,3 +434,30 @@ def test_resnet8_forward_on_card_matches_cpu(smoke, size):
         for g, w in zip(tree_leaves(got), tree_leaves(want)):
             tol = 1e-5 * float(w.abs().max())
             assert float((g.cpu() - w).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "granite-moe-1b-a400m"])
+def test_moe_grouped_products_on_card_match_loop(smoke, arch):
+    """The MoE layer on the card at its full widths (one layer, bf16):
+    ``torch._grouped_mm`` (what the port runs on CUDA tensors) against the
+    per-expert loop, forward and gradients, with empty groups (a decode
+    step's 8 tokens); the same bits twice."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(arch).with_(n_layers=1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = {k: v[0].requires_grad_(True) for k, v in
+         moe.init_moe(cfg, 1, gen, torch.bfloat16, "cuda").items()}
+    x = torch.randn((1, 8, cfg.d_model), generator=gen, device="cuda") \
+        .to(torch.bfloat16).requires_grad_(True)
+    runs = []
+    for impl in ("device", "loop", "device"):
+        out, aux = moe.moe_forward(cfg, p, x, impl=impl)
+        grads = torch.autograd.grad(out.float().square().sum() + aux,
+                                    [x] + list(p.values()))
+        runs.append([out.detach(), aux.detach(), *grads])
+    assert moe.ffn_impl(x.device) == "device"
+    for a, b in zip(runs[0], runs[2]):
+        assert torch.equal(a, b)
+    for a, b in zip(runs[0], runs[1]):
+        assert smoke._close(a, b, smoke.FLASH_TOL[torch.bfloat16])[1]

@@ -1,6 +1,7 @@
 """The port's dense LM against the JAX reference on bridged parameters:
 one paged prefill chunk and one paged decode step, granite and gemma2
-smoke configs in f32, attn_impl='flash_pallas' on both sides (JAX:
+smoke configs and both MoE archs' (the padded prefill chunk routes its
+pad tokens too) in f32, attn_impl='flash_pallas' on both sides (JAX:
 interpret-mode Pallas; port: the kernels' plain versions on the CPU).
 Logits and the updated page pools agree to rtol = atol = 1e-4: XLA's and
 torch's CPU matmuls sum in different orders. Also: the parts this slice
@@ -29,7 +30,8 @@ def _pools(caches):
     return [np.asarray(c["pages"][k]) for c in caches for k in ("k", "v")]
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "gemma2-27b",
+                                  "granite-moe-1b-a400m", "qwen2-moe-a2.7b"])
 def test_paged_prefill_and_decode_match_jax(arch):
     jcfg = jax_smoke_config(arch).with_(attn_impl="flash_pallas")
     jlm = jax_build_model(jcfg)
@@ -77,7 +79,8 @@ def test_paged_prefill_and_decode_match_jax(arch):
 def test_init_matches_jax_layout():
     """The port's own init gives the JAX parameter tree's structure,
     shapes and dtypes leaf for leaf."""
-    for arch in ("granite-3-2b", "gemma2-27b"):
+    for arch in ("granite-3-2b", "gemma2-27b", "granite-moe-1b-a400m",
+                 "qwen2-moe-a2.7b"):
         jparams = jax_build_model(jax_smoke_config(arch)).init(
             jax.random.key(0))
         params = init_lm(get_smoke_config(arch),
@@ -91,8 +94,9 @@ def test_init_matches_jax_layout():
 
 
 def test_unported_paths_raise():
-    """The families still unported raise; ``flash_jnp`` (ported) runs and
-    an unknown implementation is refused."""
+    """The families still unported raise (the MoE family is ported:
+    tests/test_torch_moe.py holds its sharded paths raising); ``flash_jnp``
+    (ported) runs and an unknown implementation is refused."""
     cfg = get_smoke_config("granite-3-2b")
     q = torch.zeros(1, 8, 4, 16)
     pos = torch.arange(8)
@@ -100,6 +104,6 @@ def test_unported_paths_raise():
     assert tuple(out.shape) == (1, 8, 4, 16)
     with pytest.raises(ValueError, match="unknown attn_impl"):
         run_attention("flash", q, q[:, :, :2], q[:, :, :2], pos, pos)
-    for family in ("moe", "ssm", "hybrid", "vlm", "audio"):
+    for family in ("ssm", "hybrid", "vlm", "audio"):
         with pytest.raises(NotImplementedError):
             build_model(cfg.with_(family=family))

@@ -99,7 +99,9 @@ def _trace(vocab, seed):
 
 
 @pytest.mark.parametrize("arch,seed", [("granite-3-2b", 0),
-                                       ("gemma2-27b", 1)])
+                                       ("gemma2-27b", 1),
+                                       ("granite-moe-1b-a400m", 2),
+                                       ("qwen2-moe-a2.7b", 3)])
 def test_scheduler_random_trace_equals_jax_engine(arch, seed):
     """The port's scheduler + engine emit tokens EQUAL to the JAX
     PagedDecodeEngine's on the same bridged parameters, both under

@@ -57,10 +57,11 @@ def _f32(x):
 
 
 @functools.cache
-def _jax_params(dtype="float32"):
+def _jax_params(dtype="float32", arch="granite-3-2b"):
     """The reference's smoke-model init (numpy leaves, never mutated),
-    compiled once per dtype: the attention path does not change it."""
-    cfg = jax_smoke_config("granite-3-2b").with_(dtype=dtype)
+    compiled once per dtype and arch: the attention path does not change
+    it."""
+    cfg = jax_smoke_config(arch).with_(dtype=dtype)
     return jax.device_get(jax.jit(jax_build_model(cfg).init)(
         jax.random.key(0)))
 
@@ -114,21 +115,27 @@ def test_one_update_matches_jax(name, dtype):
 # ------------------------------------------------------------ model
 
 
-@pytest.mark.parametrize("impl,S", [("naive", 32), ("flash_pallas", 32),
-                                    ("naive", 1024)])
-def test_lm_loss_and_grads_match_jax(impl, S):
-    jcfg = jax_smoke_config("granite-3-2b").with_(attn_impl=impl,
-                                                  remat="full")
+@pytest.mark.parametrize("impl,S,arch", [
+    pytest.param("naive", 32, "granite-3-2b", id="naive-32"),
+    pytest.param("flash_pallas", 32, "granite-3-2b", id="flash_pallas-32"),
+    pytest.param("naive", 1024, "granite-3-2b", id="naive-1024"),
+    # the MoE family: the router loss rides in the total (and in ``aux``)
+    pytest.param("flash_pallas", 32, "granite-moe-1b-a400m",
+                 id="flash_pallas-32-granite-moe-1b-a400m"),
+    pytest.param("naive", 32, "qwen2-moe-a2.7b", id="naive-32-qwen2-moe-a2.7b"),
+])
+def test_lm_loss_and_grads_match_jax(impl, S, arch):
+    jcfg = jax_smoke_config(arch).with_(attn_impl=impl, remat="full")
     jlm = jax_build_model(jcfg)
-    jparams = _jax_params()
+    jparams = _jax_params(arch=arch)
     rng = np.random.RandomState(S)
     tok = rng.randint(0, jcfg.vocab_size, (2, S)).astype(np.int32)
     tgt = rng.randint(0, jcfg.vocab_size, (2, S)).astype(np.int32)
     (jloss, jm), jgrads = jax.jit(jax.value_and_grad(jlm.loss, has_aux=True))(
         jparams, {"tokens": jnp.asarray(tok), "targets": jnp.asarray(tgt)})
 
-    lm = build_model(get_smoke_config("granite-3-2b").with_(attn_impl=impl,
-                                                            remat="full"))
+    lm = build_model(get_smoke_config(arch).with_(attn_impl=impl,
+                                                  remat="full"))
     leaves, treedef = tree_flatten(params_from_numpy(jparams, device="cpu"))
     live = [x.requires_grad_(True) for x in leaves]
     loss, m = lm.loss(tree_unflatten(treedef, live),
@@ -136,6 +143,8 @@ def test_lm_loss_and_grads_match_jax(impl, S):
                        "targets": torch.from_numpy(tgt)})
     grads = torch.autograd.grad(loss, live)
     assert abs(float(loss.detach()) - float(jloss)) <= 1e-5
+    assert abs(float(m["aux"].detach()) - float(jm["aux"])) <= 1e-6 * max(
+        abs(float(jm["aux"])), 1.0)
     assert float(m["acc"]) == float(jm["acc"])
     for g, w in zip(grads, jax.tree.leaves(jgrads)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
