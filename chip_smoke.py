@@ -31,7 +31,13 @@ raising on any failure:
                compared bit for bit; phase 11's shapes (the forward and
                the paged kernel at qwen2-moe-a2.7b's Hq16 Hkv16 D128, the
                sweeps at granite-moe-1b-a400m's B4 S512 Hq16 Hkv8 D64,
-               the fused sync at its 742.8M parameters).
+               the fused sync at its 742.8M parameters); phase 12's
+               (hymba-1.5b's G = 5 and window 1024: the forward at its
+               prefix fill, its training batch and a binding window
+               S = T = 1,536, the sweeps at B4 S640 and dk/dv twice, the
+               paged kernel with lens across 1,024 so the ring wraps,
+               twice to the bit; the fused sync at xlstm-125m's 176.5M
+               and hymba's 748.1M parameters).
 4. serve     — granite-3-2b at full width and depth (bf16, random weights
                from a seed) serves 12 requests through PagedDecodeEngine
                with 8 slots; the kernels' launch counts must equal
@@ -132,6 +138,25 @@ raising on any failure:
                11d: torch.profiler over qwen2's prefill and decode and
                granite-moe's 2 steps and a sync, with the grouped
                products' share of the device time.
+12. recurrent — 12a: hymba-1.5b (32 layers, 1.394B parameters, 25/5
+               heads, window 1024, 128 meta tokens) and then xlstm-125m (12
+               layers) at full width, bf16, random weights from a seed,
+               serve 8 requests of 64-256 tokens and 32 new through the
+               prefix fill and the step prefill, 8 slots: launches 32 x
+               prefix fills (flash) and 32 x decode steps (paged) for
+               hymba, none for xlstm; median and tail step, decode tok/s,
+               the share of steps that feed a prompt, peak memory. 12b:
+               each cut to 2 layers, kernel path against plain path over a
+               whole serving run (3 requests over 2 slots: a slot reused)
+               in f32 (every logit of every step within the f32 flash
+               tolerance, tokens equal) and bf16 (tokens equal or tied,
+               the logits' distance reported), and hymba with one request
+               of 960 + 96 tokens (the window ring wraps at TW 65) in f32.
+               12c: HWA training by phase 7's recipe of xlstm-125m whole and
+               hymba-1.5b cut to 16 layers (748.1M), phase 7's gates and
+               exact launches. 12d: torch.profiler over a hymba decode step
+               and an xlstm training step: the recurrences' share of the
+               device time, kernels a layer, idle share.
 6. yardstick — each kernel timed at its main path's shapes (CUDA-graph
                replay between CUDA events: device time, cold L2), beside
                its plain version, a library call where one exists, and
@@ -139,7 +164,10 @@ raising on any failure:
                both of its shapes (serving prefill B1, training B4); the
                forward and the paged kernel at stablelm-12b's serving
                shapes, their bounds at the true head_dim; and at
-               qwen2-moe-a2.7b's (B1 S512 and B8, Hq16 Hkv16 D128).
+               qwen2-moe-a2.7b's (B1 S512 and B8, Hq16 Hkv16 D128); and
+               at hymba-1.5b's serving shapes (the prefix fill B1 S128
+               and 12a's fullest decode step B8, Hq25 Hkv5 D64, window
+               1024), SDPA with ``enable_gqa``.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2.
@@ -638,6 +666,15 @@ QWEN2_MOE_FLASH = dict(B=1, S=512, T=512, Hq=16, Hkv=16, D=128,
 QWEN2_MOE_PAGED = dict(lens=[0, 1, 17, 16, 100, 300, 543, 560], Hq=16,
                        Hkv=16, D=128, ps=16, TW=35)
 MOE_TRAIN_ATTN = dict(B=4, S=512, Hq=16, Hkv=8, D=64)
+#: phase 12's attention shapes: hymba-1.5b's 25 query heads over 5 KV
+#: heads (G = 5: the first group that is not a power of two; dk/dv runs a
+#: cluster of 5 with 12/13-row shares, the paged kernel 5 warps a CTA)
+#: and window 1024: the prefix fill (the 128 meta tokens), the training
+#: batch (128 + 512 positions), a window that binds (S = T = 1,536), and
+#: the decode step with lens that cross 1,024 (TW 65: the ring wraps)
+HYMBA_ATTN = dict(Hq=25, Hkv=5, D=64, window=1024)
+HYMBA_PAGED = dict(lens=[0, 1, 129, 300, 1023, 1024, 1025, 1184], ps=16,
+                   TW=65, Hq=25, Hkv=5, D=64, window=1024)
 
 #: the flash gradient matrix of tests/test_attention_ops.py (B = 2):
 #: S, Hq, Hkv, D, window, cap, dtype
@@ -687,11 +724,39 @@ def _ffn_param_count(cfg, active: bool) -> int:
     return D * cfg.n_experts + experts * 3 * D * Fe + shared
 
 
+def _recurrent_layer_counts(cfg, matmul: bool) -> int:
+    """The parameters of a recurrent config's layers (xlstm's mLSTM and
+    sLSTM blocks, hymba's attention || Mamba + MLP layers), as
+    ``models/ssm.py`` and ``models/transformer.py`` lay them out.
+    ``matmul``: only the matrices that enter a product (not the conv
+    taps, biases, gate constants, fusion weights or norm scales)."""
+    D, H, K = cfg.d_model, cfg.n_heads, cfg.conv_kernel
+    norms = 0 if matmul else D
+    if cfg.family == "ssm":
+        di = 2 * D
+        mlstm = D * 2 * di + 3 * di * di + di * 2 * H + di * D + norms + (
+            0 if matmul else K * di + 2 * H)
+        P, ff = D // H, max(2 * D, 64)
+        slstm = D * 4 * D + H * P * 4 * P + D * D + 2 * D * ff + norms + (
+            0 if matmul else 4 * D)
+        return cfg.n_layers // 2 * (mlstm + slstm)
+    Kv, P, Hs, N = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.ssm_heads, \
+        cfg.ssm_state
+    attn = 2 * D * H * P + 2 * D * Kv * P
+    mamba = 2 * D * D + D * 2 * N + D * Hs + D * D + (
+        0 if matmul else K * D + 3 * Hs)
+    return cfg.n_layers * (attn + mamba + 3 * D * cfg.d_ff + 2 * norms
+                           + (0 if matmul else 2))
+
+
 def train_param_count(cfg) -> int:
-    """Parameters of a dense or MoE config (embed, head, per-layer
-    attention, feed-forward and two norm scales, final norm), without
-    building them."""
+    """Parameters of a config (embed, head, meta tokens, per-layer
+    attention or recurrent blocks, feed-forward and norm scales, final
+    norm), without building them."""
     D, V = cfg.d_model, cfg.vocab_size
+    if cfg.family in ("ssm", "hybrid"):
+        return 2 * V * D + cfg.n_meta_tokens * D + D + \
+            _recurrent_layer_counts(cfg, matmul=False)
     H, Kv, P = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     per_layer = 2 * D * H * P + 2 * D * Kv * P + \
         _ffn_param_count(cfg, active=False) + 2 * D
@@ -704,6 +769,8 @@ def train_matmul_param_count(cfg) -> int:
     scales, and of a MoE layer only the router, the top-k experts and
     the shared experts."""
     D, V = cfg.d_model, cfg.vocab_size
+    if cfg.family in ("ssm", "hybrid"):
+        return V * D + _recurrent_layer_counts(cfg, matmul=True)
     H, Kv, P = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     per_layer = 2 * D * H * P + 2 * D * Kv * P + \
         _ffn_param_count(cfg, active=True)
@@ -742,6 +809,13 @@ def phase_kernels(device):
                     dtype=torch.bfloat16, window=16, seed=37),
         # qwen2-moe-a2.7b's prefill chunk: G = 1 at head_dim 128
         _flash_case(device, **QWEN2_MOE_FLASH, seed=38),
+        # hymba-1.5b: the prefix fill, the training batch, a binding window
+        _flash_case(device, B=1, S=128, T=128, **HYMBA_ATTN,
+                    dtype=torch.bfloat16, seed=39),
+        _flash_case(device, B=4, S=640, T=640, **HYMBA_ATTN,
+                    dtype=torch.bfloat16, seed=40),
+        _flash_case(device, B=1, S=1536, T=1536, **HYMBA_ATTN,
+                    dtype=torch.bfloat16, seed=41),
     ]
     paged = [
         # granite-3-2b decode: ragged lens incl. 0, 1 and a page crossing
@@ -769,6 +843,11 @@ def phase_kernels(device):
         # above, against the plain version and twice to the bit
         _paged_case(device, **QWEN2_MOE_PAGED, dtype=torch.bfloat16, seed=6),
         _paged_repeat_case(device, **QWEN2_MOE_PAGED, seed=7),
+        # hymba-1.5b decode: G = 5, window 1024, lens across it (the ring
+        # wraps at TW 65), in bf16 and f32, and twice to the bit
+        _paged_case(device, **HYMBA_PAGED, dtype=torch.bfloat16, seed=8),
+        _paged_case(device, **HYMBA_PAGED, dtype=torch.float32, seed=9),
+        _paged_repeat_case(device, **HYMBA_PAGED, seed=10),
     ]
     P_train = -(-train_param_count(train_config()) // ALIGN) * ALIGN
     sync = [_sync_case(device, K=K, I=I, full=full, P=3 * ALIGN,
@@ -781,6 +860,13 @@ def phase_kernels(device):
     sync.append(_sync_case(device, K=2, I=3, full=1.0, P=-(-train_param_count(
         moe_train_config()) // ALIGN) * ALIGN, seed=3))
     torch.cuda.empty_cache()
+    # phase 12c's packed sizes: xlstm-125m and hymba-1.5b at 16 layers
+    for seed, cfg in ((4, get_config("xlstm-125m")),
+                      (5, get_config("hymba-1.5b").with_(
+                          n_layers=HYMBA_TRAIN_LAYERS))):
+        sync.append(_sync_case(device, K=2, I=3, full=1.0, P=-(
+            -train_param_count(cfg) // ALIGN) * ALIGN, seed=seed))
+        torch.cuda.empty_cache()
     slice3 = {}
     for kernel in ("wa_window_update", "online_mean", "wa_window_update_c",
                    "wa_sync_fused_c"):
@@ -844,6 +930,14 @@ def phase_kernels(device):
         _bwd_case(device, **MOE_TRAIN_ATTN, dtype=torch.bfloat16,
                   through_ops=True, seed=7),
         _dkv_repeat_case(device, **MOE_TRAIN_ATTN, seed=8),
+        # hymba-1.5b's training batch (phase 12c): G = 5 (a dk/dv cluster
+        # of 5), window 1024, through the model's wrappers and directly,
+        # and dk/dv twice to the bit
+        _bwd_case(device, B=4, S=640, **HYMBA_ATTN, dtype=torch.bfloat16,
+                  through_ops=True, seed=9),
+        _bwd_case(device, B=4, S=640, **HYMBA_ATTN, dtype=torch.bfloat16,
+                  seed=10),
+        _dkv_repeat_case(device, B=4, S=640, **HYMBA_ATTN, seed=11),
     ]
     result = {"flash_fwd": flash, "paged_attention": paged,
               "wa_sync_fused": sync, "flash_bwd": bwd, **slice3}
@@ -1251,6 +1345,11 @@ def _rel_change(leaves, prev_host) -> float:
     return (num / den) ** 0.5
 
 
+def _attention_layers(cfg) -> int:
+    """Layers that run attention (every layer but xlstm's)."""
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
 def phase_train(device, cfg=None, full_layers=40):
     """HWA training of full-width granite-3-2b (depth cut to TRAIN_LAYERS
     of ``full_layers``; phase 11c passes granite-moe-1b-a400m's ``cfg``)
@@ -1330,11 +1429,12 @@ def phase_train(device, cfg=None, full_layers=40):
         raise AssertionError(f"loss did not fall: first two {first:.4f}, "
                              f"last two {last:.4f}")
     L = cfg.n_layers
+    La = _attention_layers(cfg)
     evals = (len(out["history"]) + 1) * n_eval_batches   # + final evaluate
     evals += syncs * len(probe)                           # W̿ train probe
-    want = _want(flash_fwd=steps * K * L * 2 + evals * L,
-                 wa_sync_fused=syncs, flash_bwd_dq=steps * K * L,
-                 flash_bwd_dkv=steps * K * L)
+    want = _want(flash_fwd=steps * K * La * 2 + evals * La,
+                 wa_sync_fused=syncs, flash_bwd_dq=steps * K * La,
+                 flash_bwd_dkv=steps * K * La)
     if dev.type == "cuda" and launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     if len(out["history"]) != syncs or not all(
@@ -1353,6 +1453,8 @@ def phase_train(device, cfg=None, full_layers=40):
     n_params = train_param_count(cfg)
     n_matmul = train_matmul_param_count(cfg)
     tokens = K * TRAIN["batch"] * TRAIN["seq"]
+    # positions a step computes: the tokens and any meta-token prefix
+    positions = K * TRAIN["batch"] * (TRAIN["seq"] + cfg.n_meta_tokens)
     med_step = float(np.median(step_ms))
     res = {
         "layers": L, "params": n_params, "steps": steps, "syncs": syncs,
@@ -1364,7 +1466,7 @@ def phase_train(device, cfg=None, full_layers=40):
         "wa_train_probe_loss": wa_train, "wa_rel_change": wa_change,
         "median_step_ms": med_step, "step_ms": step_ms,
         "tokens_per_step": tokens, "tok_s": tokens / (med_step / 1e3),
-        "mfu": 6 * n_matmul * tokens / (med_step / 1e3) / PEAK_FLOPS[
+        "mfu": 6 * n_matmul * positions / (med_step / 1e3) / PEAK_FLOPS[
             torch.bfloat16], "matmul_params": n_matmul,
         "median_sync_ms": float(np.median(sync_ms)), "sync_ms": sync_ms,
         "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
@@ -1395,8 +1497,9 @@ def phase_train(device, cfg=None, full_layers=40):
           f"{wa_probe['init_train']:.4f}), ||dW̿||/||W̿|| from the previous "
           f"sync {[float(f'{x:.4g}') for x in wa_change]}")
     print(f"[train] median inner step {med_step:.3f} ms (K={K} replicas, "
-          f"{tokens} tokens), {res['tok_s']:.1f} tok/s, mfu "
-          f"{res['mfu']:.4f} (6*N*tokens over 989 TFLOP/s, N = the "
+          f"{tokens} tokens, {positions} positions), {res['tok_s']:.1f} "
+          f"tok/s, mfu {res['mfu']:.4f} (6*N*positions over 989 TFLOP/s, "
+          f"N = the "
           f"{n_matmul / 1e6:.1f}M parameters a token's products touch), "
           f"median sync "
           f"{res['median_sync_ms']:.3f} ms, peak memory "
@@ -2693,6 +2796,439 @@ def phase_moe(device):
     return out
 
 
+# ---------------------------------------------------------- 12. recurrent
+
+#: phase 12a's served models, in order (hymba's weights are freed before
+#: xlstm's are drawn)
+RECURRENT_SERVE_ARCHS = ("hymba-1.5b", "xlstm-125m")
+#: phase 12a's traffic. Recurrent stacks take the prompt one token a
+#: decode step (step prefill), so phase 4's 12 requests of up to 512
+#: tokens would cost ~1,100 steps of a 32-layer stack; 8 requests of
+#: 64-256 tokens fill the 8 slots at once.
+RECURRENT_SERVE = dict(n_requests=8, prompt_range=(64, 256), max_new=32)
+#: phase 12c: hymba-1.5b cut from 32 to 16 layers (748.1M parameters; at
+#: 32, 1.394B need ~70 GB of HWA state at phase 7's ~50 bytes a
+#: parameter before activations); xlstm-125m whole
+HYMBA_TRAIN_LAYERS = 16
+#: phase 12b's window-binding run: 128 + 960 + 96 = 1,184 tokens, so the
+#: paged ring (TW 65 at window 1024, page 16) wraps
+WINDOW_RUN = dict(prompt=960, new=96)
+
+
+def _recurrent_requests(cfg, n, prompt_range, new, seed):
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(prompt_range[0], prompt_range[1] + 1, size=n)
+    return [Request(rid=i, tokens=rs.randint(0, cfg.vocab_size, size=int(m))
+                    .astype(np.int32), n_new=new)
+            for i, m in enumerate(lens)]
+
+
+def phase_serve_recurrent(device, cfg, *, reqs=None, params=None,
+                          max_batch=8, page_size=16, seed=0, record=False):
+    """Serve a recurrent stack (xlstm, hymba) through PagedDecodeEngine
+    and ContinuousScheduler: at admission the meta-token prefix fill
+    (hymba), then the prompt one token a decode step (the use_prompt
+    lane), then the new tokens. ``reqs`` default to RECURRENT_SERVE's
+    traffic. On the card the launch counts must be exact: the flash
+    forward n_layers x prefix fills, the paged kernel n_layers x decode
+    steps (hymba); none for xlstm. ``record`` keeps each step's logits
+    of the active slots (phase 12b compares two runs)."""
+    dev = torch.device(device)
+    lm = build_model(cfg)
+    if params is None:
+        params = lm.init(torch.Generator(device=dev).manual_seed(seed),
+                         device=dev)
+    if reqs is None:
+        t = RECURRENT_SERVE
+        reqs = _recurrent_requests(cfg, t["n_requests"], t["prompt_range"],
+                                   t["max_new"], seed)
+    max_new = max(r.n_new for r in reqs)
+    max_seq = cfg.n_meta_tokens + max(len(r.tokens) for r in reqs) + max_new
+    eng = PagedDecodeEngine(lm=lm, params=params, max_batch=max_batch,
+                            max_seq_len=max_seq, max_new=max_new,
+                            page_size=page_size, device=dev)
+    fill_clock, step_clock = _Clock(dev), _Clock(dev)
+    log = {"fills": 0, "emitted": 0, "prompt_steps": 0, "lens": [],
+           "logits": []}
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    timed_fill = fill_clock.wrap(eng.prefix_fill_into)
+    timed_step = step_clock.wrap(eng.step)
+
+    def counted_fill(slot):
+        log["fills"] += 1
+        timed_fill(slot)
+
+    def counted_step(ctrl):
+        nonlocal finite
+        active = ctrl["use_prompt"] | (ctrl["out_idx"] != eng.scratch_idx)
+        log["emitted"] += int((ctrl["out_idx"] != eng.scratch_idx).sum())
+        log["prompt_steps"] += bool(ctrl["use_prompt"].any())
+        log["lens"].append([int(p) + 1 if a else 0
+                            for p, a in zip(ctrl["pos"], active)])
+        timed_step(ctrl)
+        logits = eng.state["logits"]
+        finite = finite & torch.isfinite(logits[torch.as_tensor(
+            active, device=dev)]).all()
+        if record:
+            log["logits"].append((active.copy(),
+                                  logits[torch.as_tensor(active, device=dev)]
+                                  .float().clone()))
+
+    eng.prefix_fill_into, eng.step = counted_fill, counted_step
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    outs = ContinuousScheduler(eng).run(reqs)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    steps = len(step_clock.spans)
+    toks = np.stack([outs[r.rid] for r in reqs])
+    if toks.shape != (len(reqs), max_new):
+        raise AssertionError(f"output shape {toks.shape}")
+    if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError("token outside the vocab range")
+    if not bool(finite):
+        raise AssertionError("non-finite logits")
+    if log["fills"] != (len(reqs) if cfg.n_meta_tokens else 0):
+        raise AssertionError(f"{log['fills']} prefix fills for {len(reqs)}")
+    La = _attention_layers(cfg)
+    if dev.type == "cuda" and cfg.attn_impl == "flash_pallas":
+        want = _want(flash_fwd=La * log["fills"], paged_attention=La * steps)
+        if launches != want:
+            raise AssertionError(f"launch counts {launches} != {want}")
+    step_ms, fill_ms = step_clock.ms(), fill_clock.ms()
+    tail = int(100 * (1 - 10 / len(step_ms))) if len(step_ms) >= 20 else None
+    full = [ln for ln in log["lens"] if all(ln)]
+    res = {
+        "arch": cfg.name, "layers": cfg.n_layers, "requests": len(reqs),
+        "slots": max_batch, "prefix_fills": log["fills"],
+        "decode_steps": steps, "prompt_steps": log["prompt_steps"],
+        "prompt_step_share": log["prompt_steps"] / steps,
+        "tokens": int(toks.size), "launches": launches,
+        "decode_tok_s": log["emitted"] / (sum(step_ms) / 1e3),
+        "median_step_ms": float(np.median(step_ms)),
+        "tail_pct": tail,
+        "tail_step_ms": (float(np.percentile(step_ms, tail))
+                         if tail else None),
+        "median_fill_ms": (float(np.median(fill_ms)) if fill_ms else None),
+        "wall_s": wall, "wall_tok_s": toks.size / wall,
+        "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                         if dev.type == "cuda" else None),
+        # the step with the most keys among those with every slot busy:
+        # phase 6 times the paged kernel at its lens
+        "full_step_lens": max(full, key=sum) if full else None,
+        "prompt_lens": [len(r.tokens) for r in reqs],
+        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.resolved_head_dim,
+        "table_width": eng.table_width,
+        "outputs": toks, "step_logits": log["logits"],
+    }
+    print(f"[serve12] {cfg.name} L{cfg.n_layers} d{cfg.d_model} "
+          f"{cfg.family} {cfg.dtype} {cfg.attn_impl} on {dev}: "
+          f"{len(reqs)} requests (prompts {min(res['prompt_lens'])}-"
+          f"{max(res['prompt_lens'])}, {max_new} new), {max_batch} slots, "
+          f"{log['fills']} prefix fills, {steps} decode steps "
+          f"({log['prompt_steps']} feed a prompt: "
+          f"{100 * res['prompt_step_share']:.1f}%), table width "
+          f"{eng.table_width}, launches {launches}")
+    print(f"[serve12] {cfg.name}: decode {res['decode_tok_s']:.1f} tok/s, "
+          f"median step {res['median_step_ms']:.3f} ms (p{tail} "
+          f"{res['tail_step_ms']} ms, n={steps}), median prefix fill "
+          f"{res['median_fill_ms']} ms, wall {wall:.2f} s, peak memory "
+          f"{res['peak_mem_gib']} GiB | {CARD['line']}")
+    return res, eng
+
+
+def _labelled_recurrences():
+    """Wrap the recurrent cells (and the sLSTM's hand-written backward) in
+    ``torch.profiler.record_function`` ranges named ``ssm.<cell>``, so a
+    trace can sum the device time of the kernels they launch. The
+    backward that autograd derives for mLSTM and Mamba runs outside any
+    range and is not counted. Returns a function that restores them."""
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tfm
+
+    def labelled(name, fn):
+        def run(*a, **kw):
+            with torch.profiler.record_function(f"ssm.{name}"):
+                return fn(*a, **kw)
+        return run
+    saved = (ssm.mamba_scan, dict(tfm._CELLS), ssm._SLSTMScan.backward)
+    ssm.mamba_scan = labelled("mamba", saved[0])
+    for kind, (scan, init) in saved[1].items():
+        tfm._CELLS[kind] = (labelled(kind, scan), init)
+    ssm._SLSTMScan.backward = staticmethod(labelled("slstm_backward",
+                                                    saved[2]))
+
+    def restore():
+        ssm.mamba_scan = saved[0]
+        tfm._CELLS.update(saved[1])
+        ssm._SLSTMScan.backward = staticmethod(saved[2])
+    return restore
+
+
+#: the host-side calls that put work on the device; a kernel's launch is
+#: found by its correlation id (a CUDA graph's kernels carry the id of
+#: the graph's launch)
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
+
+
+def _trace_stats(prof):
+    """Device busy ms, device event count, [(name, ms, count)] by time, and
+    the device ms of the work each ``ssm.*`` range launched, read from the
+    profiler's raw events: a kernel belongs to a range when the host call
+    that launched it lies inside the range. The raw events are read once
+    (~0.1 s for 10^5); ``key_averages`` builds an event tree first, which
+    took minutes for an xlstm training step's ~3 x 10^5 kernels."""
+    import bisect
+    events = prof.profiler.kineto_results.events()
+    cpu = torch.autograd.DeviceType.CPU
+    ranges, launched, work = [], {}, []
+    for e in events:
+        name = e.name()
+        if e.device_type() == cpu:
+            if name.startswith("ssm."):
+                ranges.append((e.start_ns(), e.end_ns(), name))
+            elif name.startswith(_LAUNCH_CALLS):
+                launched[e.correlation_id()] = e.start_ns()
+        elif not e.is_user_annotation() and not name.startswith("ssm."):
+            work.append(e)
+    ranges.sort()
+    starts = [r[0] for r in ranges]
+    by_name, cells = {}, {}
+    for e in work:
+        ms = e.duration_ns() / 1e6
+        t, c = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (t + ms, c + 1)
+        at = launched.get(e.correlation_id(),
+                          launched.get(e.linked_correlation_id()))
+        i = bisect.bisect_right(starts, at) - 1 if at is not None else -1
+        if i >= 0 and at <= ranges[i][1]:
+            cells[ranges[i][2]] = cells.get(ranges[i][2], 0.0) + ms
+    rows = sorted(((k, t, c) for k, (t, c) in by_name.items()),
+                  key=lambda r: -r[1])
+    return sum(r[1] for r in rows), len(work), rows, cells
+
+
+def _profile_recurrences(label, fn, device, n, untraced_ms, n_layers):
+    """torch.profiler over ``fn`` (``n`` calls) with the recurrent cells
+    labelled: device busy, idle share against the untraced time, kernels
+    per layer, and the recurrences' share of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+    restore = _labelled_recurrences()
+    try:
+        _sync(device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            _sync(device)
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        restore()
+    busy, launches, rows, cells = _trace_stats(prof)
+    rec_ms = sum(cells.values())
+    _report_trace(label, n, untraced_ms, wall, busy, launches, rows)
+    share = rec_ms / busy if busy else float("nan")
+    print(f"[trace] {label}: recurrences {', '.join(f'{k} {v / n:.3f} ms' for k, v in sorted(cells.items()))} "
+          f"per call = {100 * share:.1f}% of device busy; "
+          f"{launches / n / n_layers:.0f} kernels a layer | {CARD['line']}")
+    return {"busy_ms": busy / n, "kernels": launches / n,
+            "kernels_per_layer": launches / n / n_layers,
+            "recurrence_ms": {k: v / n for k, v in cells.items()},
+            "recurrence_share": share,
+            "idle_share": (1 - busy / n / untraced_ms) if busy else None,
+            "traced_wall_ms": wall / n}
+
+
+def phase_trace_recurrent(device, eng, serve, n_steps=4):
+    """12d: a hymba decode step traced: a fresh engine on the served
+    weights admits 8 requests (prefix fills), then ``n_steps`` full steps
+    run through the scheduler's control-array code."""
+    dev = torch.device(device)
+    eng = PagedDecodeEngine(lm=eng.lm, params=eng.params,
+                            max_batch=eng.max_batch,
+                            max_seq_len=eng.max_seq_len, max_new=eng.max_new,
+                            page_size=eng.page_size, device=dev)
+    sched = ContinuousScheduler(eng)
+    plen = eng.max_seq_len - eng.prefix_len - eng.max_new
+    reqs = _recurrent_requests(eng.lm.cfg, eng.max_batch, (plen, plen),
+                               eng.max_new, 1)
+    active = {a.slot: a for a in (sched._admit(r) for r in reqs)}
+
+    def steps(n):
+        for _ in range(n):
+            ctrl = sched._build_ctrl(active, eng.max_batch, eng.scratch_idx,
+                                     False, None)
+            eng.step(ctrl)
+            for a in active.values():
+                a.fresh = False
+                a.pos += 1
+                a.fed += 1
+
+    steps(1)                                  # warm
+    return _profile_recurrences(
+        f"{eng.lm.cfg.name} decode step ({eng.max_batch} active)",
+        lambda: steps(n_steps), dev, n_steps, serve["median_step_ms"],
+        eng.lm.cfg.n_layers)
+
+
+def phase_train_trace_recurrent(device, trainer, train):
+    """12d: one replica's training step (the loss on its 4 x 512 batch,
+    the forward recomputed under remat, the gradients) of a recurrent
+    run, traced with the recurrences labelled; the idle share against the
+    same step untraced (host clock, synchronized). One replica, not the
+    inner step's two: the profiler's host-side processing grows with the
+    events, ~200,000 kernels a replica here."""
+    dev = torch.device(device)
+    leaves, treedef = tree_flatten(trainer.task.init())
+    live = [x.requires_grad_(True) for x in leaves]
+    inputs, targets = trainer.task.pipeline.replica_batch(0, 0)
+
+    def step():
+        loss, _ = trainer.task.loss_fn(tree_unflatten(treedef, live),
+                                       (inputs, targets))
+        return torch.autograd.grad(loss, live)
+
+    step()                                             # warm
+    _sync(dev)
+    t0 = time.perf_counter()
+    step()
+    _sync(dev)
+    untraced = (time.perf_counter() - t0) * 1e3
+    stats = _profile_recurrences(
+        f"{trainer.task.name} train (one replica's step)", step, dev, 1,
+        untraced, train["layers"])
+    stats["untraced_ms"] = untraced
+    del live, leaves
+    return stats
+
+
+def _compare_runs(label, runs, f32, tol):
+    """Phase 12b's gate on two serving runs of one model (the plain path,
+    the kernel path): the greedy tokens equal (in bf16: or, at the first
+    difference, the plain path's logit of the kernel path's token within
+    REF_LOGIT_TOL of its largest: a tie at rounding), and in f32 every
+    logit of every active slot at every step within ``tol``; the logits'
+    largest distance is reported either way."""
+    plain, kern = runs["naive"], runs["flash_pallas"]
+    same = np.array_equal(plain["outputs"], kern["outputs"])
+    steps = min(len(plain["step_logits"]), len(kern["step_logits"]))
+    err, close, tie = 0.0, True, None
+    for i in range(steps):
+        (ma, a), (mb, b) = plain["step_logits"][i], kern["step_logits"][i]
+        if not np.array_equal(ma, mb):
+            break
+        e, ok = _close(b, a, tol)
+        err, close = max(err, e), close and ok
+        ga, gb = a.argmax(-1), b.argmax(-1)
+        if not torch.equal(ga, gb):
+            j = int((ga != gb).nonzero()[0, 0])
+            tie = float(a[j, ga[j]] - a[j, gb[j]])
+            break
+    tokens_ok = same or (not f32 and tie is not None
+                         and tie <= REF_LOGIT_TOL)
+    ok = tokens_ok and (close or not f32)
+    print(f"[reference12] {label}: kernel path vs plain path over "
+          f"{steps} steps: greedy tokens equal {same}"
+          f"{'' if tie is None else f' (first difference a tie of {tie:.4g})'}"
+          f", max |dlogit| {err:.5g} ({f'each within {tol} + {tol}|logit|' if f32 else 'reported'}"
+          f"{': ' + str(close) if f32 else ''}): {'pass' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: kernel path disagrees with plain")
+    return {"tokens_equal": same, "tie": tie, "max_abs_dlogit": err,
+            "steps": steps}
+
+
+def phase_recurrent_reference(device, arch, dtype, *, reqs=None,
+                              max_batch=2, seed=3, label=""):
+    """12b: ``arch`` at full width cut to 2 layers, served twice on the
+    same weights and requests, through the plain path (naive attention in
+    the prefix fill, the plain paged version) and the kernel path
+    (flash_pallas); ``_compare_runs`` is the gate. By default 3 requests
+    over 2 slots, so a slot is reused (``reset_paged_states`` for
+    xlstm, the prefix fill's overwrite for hymba)."""
+    dev = torch.device(device)
+    base = get_config(arch).with_(n_layers=2, dtype=dtype)
+    params = build_model(base).init(
+        torch.Generator(device=dev).manual_seed(seed), device=dev)
+    if reqs is None:
+        reqs = _recurrent_requests(base, 3, (40, 100), 16, seed)
+    runs = {}
+    for impl in ("naive", "flash_pallas"):
+        runs[impl], eng = phase_serve_recurrent(
+            dev, base.with_(attn_impl=impl), reqs=reqs, params=params,
+            max_batch=max_batch, record=True)
+        del eng
+        gc.collect()
+    f32 = dtype == "float32"
+    tol = FLASH_TOL[torch.float32 if f32 else torch.bfloat16]
+    out = _compare_runs(f"{arch} L2 {dtype}{label}", runs, f32, tol)
+    out["launches"] = runs["flash_pallas"]["launches"]
+    del params, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_recurrent(device):
+    """Phase 12, the recurrent families. 12a: hymba-1.5b (32 layers) and
+    xlstm-125m (12) at full width serve 8 requests; 12d traces a hymba
+    decode step. 12b: each cut to 2 layers, kernel path against plain
+    path in f32 and bf16 (3 requests over 2 slots), and hymba's
+    window-binding run (the ring wraps). 12c: HWA training of xlstm-125m
+    and of hymba-1.5b cut to 16 layers by phase 7's recipe; 12d traces an
+    xlstm training step."""
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    out = {"serve": {}, "reference": {}, "train": {}}
+    for arch in RECURRENT_SERVE_ARCHS:
+        cfg = get_config(arch).with_(attn_impl="flash_pallas")
+        res, eng = phase_serve_recurrent(dev, cfg)
+        if arch == "hymba-1.5b":
+            out["decode_trace"] = phase_trace_recurrent(dev, eng, res)
+        res.pop("outputs")
+        res.pop("step_logits")
+        out["serve"][arch] = res
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in RECURRENT_SERVE_ARCHS:
+        out["reference"][arch] = {
+            dt: phase_recurrent_reference(dev, arch, dt)
+            for dt in ("float32", "bfloat16")}
+    hymba = get_config("hymba-1.5b")
+    window = _recurrent_requests(hymba, 1, (WINDOW_RUN["prompt"],) * 2,
+                                 WINDOW_RUN["new"], 5)
+    out["reference"]["window"] = phase_recurrent_reference(
+        dev, "hymba-1.5b", "float32", reqs=window, max_batch=1,
+        label=f" window-binding ({hymba.n_meta_tokens} + "
+              f"{WINDOW_RUN['prompt']} + {WINDOW_RUN['new']} tokens)")
+    for arch, layers in (("xlstm-125m", None),
+                         ("hymba-1.5b", HYMBA_TRAIN_LAYERS)):
+        full = get_config(arch)
+        cfg = full.with_(n_layers=layers or full.n_layers,
+                         attn_impl="flash_pallas", remat="full")
+        train, trainer = phase_train(dev, cfg=cfg,
+                                     full_layers=full.n_layers)
+        if arch == "xlstm-125m":
+            out["train_trace"] = phase_train_trace_recurrent(dev, trainer,
+                                                             train)
+        del trainer
+        train.pop("final_wa")
+        train.pop("final_window")
+        out["train"][arch] = train
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[recurrent] phase 12 in {time.perf_counter() - t0:.1f} s | "
+          f"{CARD['line']}")
+    return out
+
+
 # --------------------------------------------------------- 6. yardstick
 
 
@@ -2874,6 +3410,59 @@ def phase_yardstick_serving(device, serve_slm, seed=17):
     print(f"[yardstick] {arch} paged_attention {paged['shape']}: "
           f"{p_ms:.4f} ms (plain {p_plain:.3f}, library none, bound "
           f"{p_bound:.5f} by {p_by} at the true head_dim) | {CARD['line']}")
+    return fwd, paged
+
+
+def phase_yardstick_hymba(device, serve, seed=37):
+    """The flash forward and the paged kernel at hymba-1.5b's serving
+    shapes (phase 12a): the forward at the prefix fill (B1 S128 Hq25 Hkv5
+    D64, window 1024), the paged kernel at 12a's fullest decode step (B8,
+    its lens, TW and window 1024), each beside its plain version, SDPA
+    for the forward (``enable_gqa``, G = 5; causal, which the window does
+    not bind at S 128) and its bound. Returns (forward, paged)
+    records."""
+    dev = torch.device(device)
+    dt = torch.bfloat16
+    B, S, Hq, Hkv, D, w = 1, 128, 25, 5, 64, 1024
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sets = [(_randn(gen, (B, S, Hq, D), dt, dev),
+             _randn(gen, (B, S, Hkv, D), dt, dev),
+             _randn(gen, (B, S, Hkv, D), dt, dev)) for _ in range(64)]
+    f_ms = _time_ms(lambda q, k, v: fa.flash_attention_fwd(q, k, v,
+                                                           window=w),
+                    sets, 200)
+    f_plain = _time_ms(lambda q, k, v: flash_attention_fwd_ref(q, k, v,
+                                                               window=w),
+                       sets, 10, warmup=1)
+    f_lib = _sdpa_ms(sets, 200)
+    f_bound, f_by = _bound(4 * B * Hq * D * (S * (S + 1) // 2),
+                           2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+                           + 4 * B * Hq * S, dt)
+    fwd = {"shape": f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} w{w} bf16", "ms": f_ms,
+           "plain_ms": f_plain, "library_ms": f_lib, "bound_ms": f_bound,
+           "bound_by": f_by, "launches": serve["launches"]["flash_fwd"]}
+
+    lens, TW, ps = serve["full_step_lens"], serve["table_width"], 16
+    psets = [_paged_inputs(dev, lens=lens, Hq=Hq, Hkv=Hkv, D=D, ps=ps, TW=TW,
+                           dtype=dt, seed=seed + i) for i in range(8)]
+    p_ms = _time_ms(lambda *a: pa.paged_attention_cuda(*a, window=w), psets,
+                    500)
+    p_plain = _time_ms(lambda *a: paged_attention_ref(*a, window=w), psets, 50)
+    tokens = int(sum(min(n, w) for n in lens))
+    p_bound, p_by = _bound(4 * Hq * D * tokens,
+                           2 * (2 * len(lens) * Hq * D + 2 * tokens * Hkv * D)
+                           + 4 * len(lens) * (TW + 1), dt)
+    paged = {"shape": f"B{len(lens)} Hq{Hq} Hkv{Hkv} D{D} ps{ps} TW{TW} "
+                      f"w{w} lens {lens} bf16",
+             "ms": p_ms, "plain_ms": p_plain, "library_ms": None,
+             "bound_ms": p_bound, "bound_by": p_by,
+             "launches": serve["launches"]["paged_attention"]}
+    print(f"[yardstick] hymba-1.5b flash_fwd {fwd['shape']}: {f_ms:.4f} ms "
+          f"(plain {f_plain:.3f}, sdpa {f_lib:.4f}, {f_ms / f_lib:.2f}x; "
+          f"bound {f_bound:.5f} by {f_by}) | {CARD['line']}")
+    print(f"[yardstick] hymba-1.5b paged_attention {paged['shape']}: "
+          f"{p_ms:.4f} ms (plain {p_plain:.3f}, library none, bound "
+          f"{p_bound:.5f} by {p_by}) | {CARD['line']}")
     return fwd, paged
 
 
@@ -3178,6 +3767,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe_res = phase_moe(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = phase_recurrent(device)
     entries = phase_yardstick(device, serve, kernels)
     fwd_slm, paged_slm = phase_yardstick_serving(device, serve_slm)
     fwd_qwen, paged_qwen = phase_yardstick_serving(
@@ -3209,7 +3801,10 @@ def main() -> int:
              "moe_serve": {k: sum(r["launches"][k] for r in
                                   moe_res["serve"].values())
                            for k in _counts()},
-             "moe_train": moe_res["train"]["launches"]}
+             "moe_train": moe_res["train"]["launches"],
+             "hymba_serve": rec["serve"]["hymba-1.5b"]["launches"],
+             "hymba_train": rec["train"]["hymba-1.5b"]["launches"],
+             "xlstm_train": rec["train"]["xlstm-125m"]["launches"]}
     for e in entries:
         by_path = e.setdefault("launches_by_path", {"train": e["launches"]})
         for path, counts in paths.items():
@@ -3219,6 +3814,8 @@ def main() -> int:
     entries[1]["at_stablelm_shape"] = paged_slm
     entries[0]["at_qwen2_moe_shape"] = fwd_qwen
     entries[1]["at_qwen2_moe_shape"] = paged_qwen
+    entries[0]["at_hymba_shape"], entries[1]["at_hymba_shape"] = \
+        phase_yardstick_hymba(device, rec["serve"]["hymba-1.5b"])
     # the sweeps' head_dim-192 instances (entries 3 and 4: dq, dk/dv)
     entries[3]["at_stablelm_shape"], entries[4]["at_stablelm_shape"] = \
         phase_yardstick_sweeps_192(device)

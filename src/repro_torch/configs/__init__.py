@@ -19,6 +19,8 @@ ARCH_IDS = [
     "command-r-35b",
     "granite-moe-1b-a400m",
     "qwen2-moe-a2.7b",
+    "xlstm-125m",
+    "hymba-1.5b",
 ]
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")

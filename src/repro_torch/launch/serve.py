@@ -4,6 +4,8 @@
       --arch granite-3-2b --full --batch 4 --prompt-len 128 --new-tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch qwen2-moe-a2.7b --batch 2 --prompt-len 8 --new-tokens 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch hymba-1.5b --batch 2 --prompt-len 8 --new-tokens 4
 
 Runs on the card unless ``--device cpu``. ``--full`` serves the
 published width (the CUDA kernels take head_dim 64 or 128); without it
@@ -22,7 +24,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.device import resolve_device
-from repro_torch.models.registry import build_model
+from repro_torch.models.registry import _prefix_len, build_model
 from repro_torch.serve.engine import PagedDecodeEngine
 
 
@@ -53,7 +55,8 @@ def main(argv=None):
 
     engine = PagedDecodeEngine(
         lm=lm, params=params, max_batch=B,
-        max_seq_len=S + args.new_tokens + 16, max_new=args.new_tokens,
+        max_seq_len=_prefix_len(cfg) + S + args.new_tokens + 16,
+        max_new=args.new_tokens,
         page_size=args.page_size, prefill_chunk=max(S, 8),
         temperature=args.temperature, device=dev)
     t0 = time.perf_counter()

@@ -1,10 +1,11 @@
-"""LM assembly: embeddings -> layer stack -> head, for the dense and MoE
-families.
+"""LM assembly: embeddings (+ learned meta-token prefix) -> layer stack
+-> head, for the dense, MoE, ssm (xLSTM) and hybrid (Hymba) families.
 
 Counterpart of ``repro.models.registry``. Parameters are a nested dict
 with the JAX package's layout and leaf names (``embed`` (V, D), ``head``
-(D, V), ``stack``: one stacked dict per pattern spec, ``ln_f``), so the
-bridge moves them leaf for leaf. :class:`LM` is the ``nn.Module`` face of
+(D, V), ``meta`` (n_meta, D) where the config has meta tokens,
+``stack``: one stacked dict per pattern spec, ``ln_f``), so the bridge
+moves them leaf for leaf. :class:`LM` is the ``nn.Module`` face of
 the model: it builds parameters on a device and runs the training loss
 and the paged serving entry points against a parameter tree it is
 handed, so a trainer can differentiate a replica's tree and a server can
@@ -31,17 +32,19 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None):
     """Random parameters on ``device`` (the card unless "cpu"), drawn from
     ``generator`` (which must live on that device)."""
     tfm.check_family(cfg)
-    if cfg.n_meta_tokens:
-        raise NotImplementedError("meta-token prefixes are not ported yet")
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     D, V = cfg.d_model, cfg.vocab_size
-    return {
+    params = {
         "embed": normal_init(generator, (V, D), dtype, fan_in=D, device=dev),
         "head": normal_init(generator, (D, V), dtype, fan_in=D, device=dev),
-        "stack": tfm.init_stack(cfg, generator, dtype, dev),
-        "ln_f": init_norm(cfg, device=dev),
     }
+    if cfg.n_meta_tokens:
+        params["meta"] = normal_init(generator, (cfg.n_meta_tokens, D),
+                                     dtype, fan_in=D, device=dev)
+    params["stack"] = tfm.init_stack(cfg, generator, dtype, dev)
+    params["ln_f"] = init_norm(cfg, device=dev)
+    return params
 
 
 def _embed_tokens(cfg, params, tokens):
@@ -55,16 +58,29 @@ def _embed_tokens(cfg, params, tokens):
 
 
 def _prefix_len(cfg) -> int:
-    """Learned prefix tokens ahead of the prompt: none in the dense and
-    MoE families (meta tokens and vision prefixes come with their families;
-    ``init_lm`` refuses a config that has them)."""
+    """Learned prefix tokens ahead of the prompt: Hymba's meta tokens
+    (the VLM's vision prefix comes with its family)."""
     return cfg.n_meta_tokens
 
 
+def _meta_prefix(params, batch_size: int):
+    """The meta tokens, (batch_size, n_meta, D)."""
+    return params["meta"].expand(batch_size, *params["meta"].shape)
+
+
 def _assemble_input(cfg, params, batch):
-    """Token embeddings. Returns (x, positions)."""
+    """Token embeddings behind any meta-token prefix. Returns (x,
+    positions); the positions cover the prefix."""
     x = _embed_tokens(cfg, params, batch["tokens"])
+    if cfg.n_meta_tokens:
+        x = torch.cat([_meta_prefix(params, x.shape[0]), x], dim=1)
     return x, torch.arange(x.shape[1], device=x.device)
+
+
+def _drop_prefix(cfg, x):
+    """The token positions of x: the head sees no prefix position."""
+    npre = _prefix_len(cfg)
+    return x[:, npre:] if npre else x
 
 
 def _head(cfg, params, x):
@@ -81,7 +97,7 @@ def lm_apply(cfg: ModelConfig, params, batch):
     """Teacher-forcing forward. Returns (logits (B, S, V) f32, aux)."""
     x, positions = _assemble_input(cfg, params, batch)
     x, aux = tfm.apply_stack_train(cfg, params["stack"], x, positions)
-    x = apply_norm(cfg, params["ln_f"], x)
+    x = _drop_prefix(cfg, apply_norm(cfg, params["ln_f"], x))
     return _head(cfg, params, x), aux
 
 
@@ -134,7 +150,7 @@ def lm_loss(cfg: ModelConfig, params, batch):
     cross-entropy + router_aux_coef * aux."""
     x, positions = _assemble_input(cfg, params, batch)
     x, aux = tfm.apply_stack_train(cfg, params["stack"], x, positions)
-    x = apply_norm(cfg, params["ln_f"], x)
+    x = _drop_prefix(cfg, apply_norm(cfg, params["ln_f"], x))
     loss, acc = _head_and_xent(cfg, params, x, batch["targets"])
     total = loss + cfg.router_aux_coef * aux
     return total, {"loss": loss, "aux": aux, "acc": acc}
@@ -147,7 +163,8 @@ def lm_loss(cfg: ModelConfig, params, batch):
 
 def lm_init_paged_cache(cfg: ModelConfig, max_batch: int, n_pages: int,
                         page_size: int, dtype=None, device=None):
-    """Serving caches: one page pool per pattern spec."""
+    """Serving caches: per-spec page pools and stacked recurrent
+    states."""
     return tfm.init_stack_paged_cache(cfg, max_batch, n_pages, page_size,
                                       dtype or _dtype(cfg),
                                       resolve_device(device))
@@ -176,20 +193,40 @@ def lm_paged_prefill_chunk(cfg: ModelConfig, params, caches, batch,
     """Prefill ONE batch slot's prompt chunk into its pages.
 
     batch: single-sequence batch dict (tokens (1, S_pad)) padded to the
-    engine's static chunk length; n_valid: real token count; slot: batch-
-    slot index. Exact at any n_valid (pad K/V goes to the trash page,
-    causal masking hides pad queries). Returns (next-token logits (1, V)
-    f32, caches), the pools written in place.
+    engine's static chunk length; n_valid: real token count INCLUDING
+    any meta prefix; slot: batch-slot index. Exact for attention-only
+    stacks at any n_valid (pad K/V goes to the trash page, causal masking
+    hides pad queries); recurrent stacks additionally need n_valid ==
+    S_total, so the engine routes them through
+    :func:`lm_paged_prefix_fill` and the step prefill instead. Returns
+    (next-token logits (1, V) f32, caches), written in place.
     """
     x, _ = _assemble_input(cfg, params, batch)               # (1, S, D)
     x = tfm.apply_stack_prefill_paged(cfg, params["stack"], caches, x,
-                                      n_valid, tables[slot], page_size)
+                                      n_valid, slot, tables[slot], page_size)
     x = apply_norm(cfg, params["ln_f"], x)
     return _head(cfg, params, x[:, n_valid - 1]), caches
 
 
+@torch.no_grad()
+def lm_paged_prefix_fill(cfg: ModelConfig, params, caches, slot: int, tables,
+                         page_size: int):
+    """Run the learned prefix (the meta tokens) for one slot at its exact
+    static length, so the slot's recurrent states are exact: its K/V go
+    to the slot's pages and each recurrent layer's state after the prefix
+    to row ``slot``. The engine then feeds the prompt through the decode
+    step (step prefill). Returns the caches, written in place."""
+    npre = _prefix_len(cfg)
+    if not npre:
+        raise ValueError("prefix fill on a model without a prefix")
+    x = _meta_prefix(params, 1)
+    tfm.apply_stack_prefill_paged(cfg, params["stack"], caches, x, npre,
+                                  slot, tables[slot], page_size)
+    return caches
+
+
 class LM(nn.Module):
-    """The dense or MoE LM. Holds the config; parameters are a tree the caller
+    """The LM of one of the ported families. Holds the config; parameters are a tree the caller
     owns (``init`` makes one), so the serving engine can swap weights
     between steps without touching the module."""
 
@@ -221,6 +258,10 @@ class LM(nn.Module):
                             tables, page_size):
         return lm_paged_prefill_chunk(self.cfg, params, caches, batch,
                                       n_valid, slot, tables, page_size)
+
+    def paged_prefix_fill(self, params, caches, slot, tables, page_size):
+        return lm_paged_prefix_fill(self.cfg, params, caches, slot, tables,
+                                    page_size)
 
     def forward(self, params, caches, tokens, pos_b, tables, page_size):
         """The serving step: :meth:`paged_decode_step`."""

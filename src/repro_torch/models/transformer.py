@@ -1,5 +1,5 @@
-"""Decoder stack of the dense LM: init, the training path and the paged
-serving path.
+"""Decoder stack of the LM families: init, the training path and the
+paged serving path.
 
 Counterpart of ``repro.models.transformer``. A model is a *pattern* of
 sub-layer specs (a "super-block") repeated ``n_layers / len(pattern)``
@@ -11,12 +11,16 @@ the stacked layers, the port runs a Python loop:
   dense   : [attn+mlp]                      (window per spec)
   moe     : [attn+moe]                      (models.moe)
   gemma2  : [local attn, global attn] x 23
+  xlstm   : [mLSTM block, sLSTM block] x 6  (models.ssm)
+  hymba   : [parallel attn || mamba + mlp]  (sliding window)
 
-The attention sub-layers of the dense and MoE families are ported; the
-recurrent (mLSTM/sLSTM) and hybrid kinds raise ``NotImplementedError``.
+Sub-layer kinds: "attn" (GQA attention + MLP or MoE), "mlstm" and
+"slstm" (xLSTM blocks; sLSTM carries its own FFN), "hybrid" (Hymba's
+attention and Mamba heads side by side, fused by softmax(fuse), + MLP).
 
-The paged path updates the page pools IN PLACE (``index_put_``) where
-the JAX package returns new pools through donated buffers.
+The paged path updates the page pools and the per-slot recurrent states
+IN PLACE (``index_put_``, ``copy_``) where the JAX package returns new
+caches through donated buffers.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.head_dim import pad_head_dim, padded_head_dim
+from repro_torch.models import ssm
 from repro_torch.models.attention import run_attention
 from repro_torch.models.cache import (TRASH_PAGE, init_paged_pool,
                                       paged_phys_pages)
@@ -38,16 +43,16 @@ from repro_torch.models.types import ModelConfig
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    kind: str                    # attn (mlstm | slstm | hybrid: not ported)
+    kind: str                    # attn | mlstm | slstm | hybrid
     window: int | None = None    # sliding window (None = full causal)
     use_moe: bool = False
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (the port covers the "
-            f"dense and MoE families; see ROADMAP.md Queue A)")
+            f"dense, MoE, ssm and hybrid families; see ROADMAP.md Queue A)")
     if cfg.expert_parallel:
         raise NotImplementedError(
             "expert_parallel=True (the all-to-all MoE path) needs a device "
@@ -56,6 +61,10 @@ def check_family(cfg: ModelConfig) -> None:
 
 def block_pattern(cfg: ModelConfig) -> list[LayerSpec]:
     check_family(cfg)
+    if cfg.family == "ssm":          # xlstm: alternate mLSTM / sLSTM
+        return [LayerSpec("mlstm"), LayerSpec("slstm")]
+    if cfg.family == "hybrid":       # hymba: parallel attn+SSM, SWA
+        return [LayerSpec("hybrid", window=cfg.sliding_window)]
     if cfg.global_every:             # gemma2: local / global alternation
         return [LayerSpec("attn", window=cfg.sliding_window),
                 LayerSpec("attn", window=None)]
@@ -97,15 +106,22 @@ def _stacked_norm(cfg, n, device):
 def _init_layer(cfg: ModelConfig, spec: LayerSpec, n: int, gen, dtype,
                 device):
     """``n`` stacked copies of one sub-layer's parameters."""
-    if spec.kind != "attn":
-        raise NotImplementedError(
-            f"layer kind {spec.kind!r} is not ported yet")
+    if spec.kind in ("mlstm", "slstm"):
+        init = ssm.init_mlstm if spec.kind == "mlstm" else ssm.init_slstm
+        return {"ln1": _stacked_norm(cfg, n, device),
+                "cell": init(cfg, n, gen, dtype, device)}
+    if spec.kind not in ("attn", "hybrid"):
+        raise ValueError(spec.kind)
     params = {"ln1": _stacked_norm(cfg, n, device),
               "ln2": _stacked_norm(cfg, n, device)}
     if cfg.name.startswith("gemma2"):
         params["ln1_post"] = _stacked_norm(cfg, n, device)
         params["ln2_post"] = _stacked_norm(cfg, n, device)
     params["attn"] = _init_attn(cfg, n, gen, dtype, device)
+    if spec.kind == "hybrid":
+        params["mamba"] = ssm.init_mamba(cfg, n, gen, dtype, device)
+        params["fuse"] = torch.ones((n, 2), dtype=torch.float32,
+                                    device=device)
     if spec.use_moe:
         params["moe"] = init_moe(cfg, n, gen, dtype, device)
     else:
@@ -125,6 +141,17 @@ def _apply_ffn(cfg, spec: LayerSpec, p, x):
     if spec.use_moe:
         return moe_forward(cfg, p["moe"], x)
     return _apply_mlp(cfg, p["mlp"], x), None
+
+
+def _fuse_hybrid(p, attn_out, m_out):
+    """Hymba's fusion of the attention and Mamba heads' outputs: weights
+    softmax(fuse), summed in f32, returned in the attention's dtype."""
+    w = torch.softmax(p["fuse"], dim=-1)
+    return (w[0] * attn_out.float() + w[1] * m_out.float()).to(attn_out.dtype)
+
+
+_CELLS = {"mlstm": (ssm.mlstm_scan, ssm.init_mlstm_state),
+          "slstm": (ssm.slstm_scan, ssm.init_slstm_state)}
 
 
 def _proj_heads(x, w):
@@ -175,13 +202,14 @@ def _layer(tree, n):
 
 
 def iter_layers(cfg: ModelConfig, stack_params, caches):
-    """(spec, layer params, layer pages) in execution order: for each
-    super-block, each spec of the pattern."""
+    """(spec, layer params, layer cache) in execution order: for each
+    super-block, each spec of the pattern. The layer cache holds views of
+    the stacked pools and states, so writing into it writes the stack."""
     pattern = block_pattern(cfg)
     n_blocks = cfg.n_layers // len(pattern)
     for n in range(n_blocks):
         for spec, p, c in zip(pattern, stack_params, caches):
-            yield spec, _layer(p, n), _layer(c["pages"], n)
+            yield spec, _layer(p, n), _layer(c, n)
 
 
 # ------------------------------------------------------------------
@@ -190,20 +218,28 @@ def iter_layers(cfg: ModelConfig, stack_params, caches):
 
 def apply_layer_train(cfg, spec: LayerSpec, p, x, positions):
     """Full-sequence layer application. Returns (x, aux) — aux is the MoE
-    router loss, zero for the dense family."""
-    if spec.kind != "attn":
-        raise NotImplementedError(
-            f"layer kind {spec.kind!r} is not ported yet")
+    router loss, zero for the other families."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.kind in ("mlstm", "slstm"):
+        scan, init_state = _CELLS[spec.kind]
+        y, _ = scan(cfg, p["cell"], apply_norm(cfg, p["ln1"], x),
+                    init_state(cfg, x.shape[0], x.dtype, x.device))
+        return x + y, zero
     h = apply_norm(cfg, p["ln1"], x)
     k, v = _project_kv(cfg, p["attn"], h, positions)
     attn_out = _attn_call(cfg, p["attn"], h, positions, k, v, positions,
                           spec.window)
+    if spec.kind == "hybrid":
+        m_out, _ = ssm.mamba_scan(
+            cfg, p["mamba"], h,
+            ssm.init_mamba_state(cfg, x.shape[0], x.dtype, x.device))
+        attn_out = _fuse_hybrid(p, attn_out, m_out)
     if "ln1_post" in p:
         attn_out = apply_norm(cfg, p["ln1_post"], attn_out)
     x = x + attn_out
     mlp_out, aux = _apply_ffn(cfg, spec, p, apply_norm(cfg, p["ln2"], x))
     if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = zero
     if "ln2_post" in p:
         mlp_out = apply_norm(cfg, p["ln2_post"], mlp_out)
     return x + mlp_out, aux
@@ -289,7 +325,8 @@ def apply_stack_train(cfg: ModelConfig, stack_params, x, positions):
 # K/V lives in a shared page pool addressed through per-sequence block
 # tables, positions are PER-SEQUENCE (pos_b: (B,)) so ragged continuous
 # batches decode in one fixed-shape step, and attention runs the paged
-# kernel (repro_torch.kernels.paged_attention).
+# kernel (repro_torch.kernels.paged_attention). Recurrent layers (mamba,
+# mLSTM, sLSTM) keep constant-size per-slot states beside the pools.
 
 
 def _paged_impl(cfg) -> str:
@@ -327,33 +364,74 @@ def init_stack_paged_cache(cfg: ModelConfig, max_batch, n_pages, page_size,
                            dtype, device):
     """Per-spec serving caches: attention layers get a page pool (the
     physical page index space is shared across specs — one block-table
-    entry is valid in every layer's pool), at
-    :func:`paged_pool_head_dim`."""
+    entry is valid in every layer's pool), at :func:`paged_pool_head_dim`;
+    recurrent layers keep stacked constant-size per-slot states
+    (``"mamba"`` beside a hybrid layer's pool, ``"cell"`` for mLSTM and
+    sLSTM), f32 but for the conv window in ``dtype``."""
     pattern = block_pattern(cfg)
     n_blocks = cfg.n_layers // len(pattern)
-    return [{"pages": init_paged_pool(n_blocks, n_pages, page_size,
-                                      cfg.n_kv_heads,
-                                      paged_pool_head_dim(cfg, device),
-                                      dtype, device=device)}
-            for _ in pattern]
 
+    def stacked(state):
+        return {k: v.expand(n_blocks, *v.shape).clone()
+                for k, v in state.items()}
 
-def reset_paged_states(caches, reset_mask):
-    """Zero the recurrent per-slot states where ``reset_mask`` is set. The
-    dense stacks the port covers have none, and page pools need no reset
-    (stale pages are hidden by the lens masking), so this returns the
-    caches unchanged; it stays so the step reads like the reference's."""
+    caches = []
+    for spec in pattern:
+        c = {}
+        if spec.kind in ("attn", "hybrid"):
+            c["pages"] = init_paged_pool(n_blocks, n_pages, page_size,
+                                         cfg.n_kv_heads,
+                                         paged_pool_head_dim(cfg, device),
+                                         dtype, device=device)
+        if spec.kind == "hybrid":
+            c["mamba"] = stacked(ssm.init_mamba_state(cfg, max_batch, dtype,
+                                                      device))
+        if spec.kind in _CELLS:
+            c["cell"] = stacked(_CELLS[spec.kind][1](cfg, max_batch, dtype,
+                                                     device))
+        caches.append(c)
     return caches
 
 
-def apply_layer_decode_paged(cfg, spec: LayerSpec, p, pages, x, pos_b,
+def reset_paged_states(caches, reset_mask):
+    """Zero the recurrent per-slot states where ``reset_mask`` (B,) is set
+    (in place; run at admission so a reused batch slot starts clean). As
+    the reference, this multiplies by ``1 - mask`` rather than filling, so
+    a non-finite state stays non-finite. Page pools need no reset: stale
+    pages are hidden by the lens masking."""
+    for c in caches:
+        for key in ("mamba", "cell"):
+            for s in c.get(key, {}).values():
+                keep = 1.0 - reset_mask.to(s.dtype)
+                s.mul_(keep.reshape((1, -1) + (1,) * (s.ndim - 2)))
+    return caches
+
+
+def _store_state(dst, new, slot=None):
+    """Write a scan's state into the layer cache's views, in place (at
+    batch row ``slot`` when given: the prefill scans one slot)."""
+    for k, v in new.items():
+        d = dst[k] if slot is None else dst[k][slot]
+        d.copy_(v if slot is None else v[0])
+
+
+def apply_layer_decode_paged(cfg, spec: LayerSpec, p, cache, x, pos_b,
                              tables, page_size: int):
     """One-token layer step with per-sequence positions.
 
     x: (B, 1, D); pos_b: (B,) tokens already cached per sequence;
-    tables: (B, TW) int32 physical page per ring slot; ``pages``: this
-    layer's {"k","v"} pools (NP, ps, Hkv, D), written in place.
+    tables: (B, TW) int32 physical page per ring slot; ``cache``: this
+    layer's views — {"k","v"} pools (NP, ps, Hkv, D) under "pages" and
+    the recurrent states (B, ...) under "mamba" or "cell", all written
+    in place.
     """
+    if spec.kind in _CELLS:
+        y, new = _CELLS[spec.kind][0](cfg, p["cell"],
+                                      apply_norm(cfg, p["ln1"], x),
+                                      cache["cell"])
+        _store_state(cache["cell"], new)
+        return x + y
+    pages = cache["pages"]
     h = apply_norm(cfg, p["ln1"], x)
     q_pos = pos_b[:, None]                        # (B, 1) per-sequence
     k_new, v_new = _project_kv(cfg, p["attn"], h, q_pos)
@@ -366,6 +444,10 @@ def apply_layer_decode_paged(cfg, spec: LayerSpec, p, pages, x, pos_b,
     H, P, D = p["attn"]["wo"].shape
     attn_out = (out.reshape(-1, H * P) @ p["attn"]["wo"].reshape(H * P, D)
                 )[:, None]
+    if spec.kind == "hybrid":
+        m_out, new = ssm.mamba_scan(cfg, p["mamba"], h, cache["mamba"])
+        _store_state(cache["mamba"], new)
+        attn_out = _fuse_hybrid(p, attn_out, m_out)
     if "ln1_post" in p:
         attn_out = apply_norm(cfg, p["ln1_post"], attn_out)
     x = x + attn_out
@@ -378,21 +460,34 @@ def apply_layer_decode_paged(cfg, spec: LayerSpec, p, pages, x, pos_b,
 def apply_stack_decode_paged(cfg: ModelConfig, stack_params, caches, x,
                              pos_b, tables, page_size: int):
     """One fixed-shape continuous-batching step through all layers; the
-    pools in ``caches`` are updated in place. Returns y (B, 1, D)."""
-    for spec, p, pages in iter_layers(cfg, stack_params, caches):
-        x = apply_layer_decode_paged(cfg, spec, p, pages, x, pos_b, tables,
+    pools and states in ``caches`` are updated in place. Returns y (B, 1,
+    D)."""
+    for spec, p, cache in iter_layers(cfg, stack_params, caches):
+        x = apply_layer_decode_paged(cfg, spec, p, cache, x, pos_b, tables,
                                      page_size)
     return x
 
 
-def apply_layer_prefill_paged(cfg, spec: LayerSpec, p, pages, x, n_valid: int,
-                              table_row, page_size: int):
+def apply_layer_prefill_paged(cfg, spec: LayerSpec, p, cache, x,
+                              n_valid: int, slot: int, table_row,
+                              page_size: int):
     """Chunked prefill of ONE batch slot, writing K/V into its pages.
 
     x: (1, S, D) — the slot's prompt padded to the static chunk length S;
     n_valid: real token count (the pad tail's K/V goes to the trash page;
-    causal masking makes pad queries invisible to real rows).
+    causal masking makes pad queries invisible to real rows). Recurrent
+    sub-layers scan from a FRESH zero state and store the result at row
+    ``slot`` — exact only when n_valid == S, which the engine guarantees
+    by routing recurrent families through the exact-length prefix fill
+    and the step prefill.
     """
+    if spec.kind in _CELLS:
+        scan, init_state = _CELLS[spec.kind]
+        y, new = scan(cfg, p["cell"], apply_norm(cfg, p["ln1"], x),
+                      init_state(cfg, 1, x.dtype, x.device))
+        _store_state(cache["cell"], new, slot)
+        return x + y
+    pages = cache["pages"]
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     h = apply_norm(cfg, p["ln1"], x)
@@ -410,6 +505,12 @@ def apply_layer_prefill_paged(cfg, spec: LayerSpec, p, pages, x, n_valid: int,
     _pool_write(pages["v"], (phys, pslot), v[0])
     attn_out = _attn_call(cfg, p["attn"], h, positions, k, v, positions,
                           spec.window)
+    if spec.kind == "hybrid":
+        m_out, new = ssm.mamba_scan(cfg, p["mamba"], h,
+                                    ssm.init_mamba_state(cfg, 1, x.dtype,
+                                                         x.device))
+        _store_state(cache["mamba"], new, slot)
+        attn_out = _fuse_hybrid(p, attn_out, m_out)
     if "ln1_post" in p:
         attn_out = apply_norm(cfg, p["ln1_post"], attn_out)
     x = x + attn_out
@@ -420,10 +521,11 @@ def apply_layer_prefill_paged(cfg, spec: LayerSpec, p, pages, x, n_valid: int,
 
 
 def apply_stack_prefill_paged(cfg: ModelConfig, stack_params, caches, x,
-                              n_valid: int, table_row, page_size: int):
-    """Chunk-prefill one slot through all layers (pools written in place).
-    Returns y (1, S, D)."""
-    for spec, p, pages in iter_layers(cfg, stack_params, caches):
-        x = apply_layer_prefill_paged(cfg, spec, p, pages, x, n_valid,
+                              n_valid: int, slot: int, table_row,
+                              page_size: int):
+    """Chunk-prefill one slot through all layers (pools and the slot's
+    states written in place). Returns y (1, S, D)."""
+    for spec, p, cache in iter_layers(cfg, stack_params, caches):
+        x = apply_layer_prefill_paged(cfg, spec, p, cache, x, n_valid, slot,
                                       table_row, page_size)
     return x

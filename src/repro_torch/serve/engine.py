@@ -10,9 +10,10 @@ per-token host syncs). Weight hot-swap is a reference swap
 PyTorch runs eagerly, so there is no jit and no trace count; the step's
 control arrays go to the device once per step (as ``jnp.asarray`` does
 in the reference), the page pools are written in place, and tokens and
-the output buffer stay on the device until a request finishes. The
-whole-batch ``DecodeEngine`` and the recurrent prefix fill are not
-ported yet.
+the output buffer stay on the device until a request finishes. Recurrent
+stacks (xLSTM, Hymba) run the exact-length prefix fill at admission and
+then take their prompt one token a step through the decode step (step
+prefill). The whole-batch ``DecodeEngine`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.cache import paged_table_width
 from repro_torch.models.registry import (LM, _prefix_len,
                                          lm_paged_decode_step,
-                                         lm_paged_prefill_chunk)
+                                         lm_paged_prefill_chunk,
+                                         lm_paged_prefix_fill)
 from repro_torch.serve.pages import PageManager
 
 
@@ -42,15 +44,16 @@ def _sample(logits, generator, temperature: float):
 def model_table_width(cfg, max_seq_len: int, page_size: int) -> int:
     """ONE table width per model: the max over the pattern's attention
     specs (a global layer forces full history; pure-windowed patterns get
-    the small ring)."""
+    the small ring). 1 for attention-free stacks (tables unused)."""
     widths = [paged_table_width(max_seq_len, s.window, page_size)
               for s in tfm.block_pattern(cfg) if s.kind in ("attn", "hybrid")]
     return max(widths) if widths else 1
 
 
 def needs_exact_prefill(cfg) -> bool:
-    """Recurrent stacks cannot absorb pad tokens in a chunked prefill;
-    none of the port's (dense) stacks is recurrent."""
+    """Recurrent stacks (mamba/mLSTM/sLSTM) cannot absorb pad tokens in a
+    chunked prefill: the engine routes them through the prefix fill and
+    the step prefill instead."""
     return any(s.kind in ("hybrid", "mlstm", "slstm")
                for s in tfm.block_pattern(cfg))
 
@@ -59,7 +62,8 @@ def needs_exact_prefill(cfg) -> bool:
 class PagedDecodeEngine:
     """Fixed-shape continuous-batching engine over a paged KV pool.
 
-    ``max_seq_len`` bounds TOTAL tokens per sequence (prompt + generated);
+    ``max_seq_len`` bounds TOTAL tokens per sequence (prefix + prompt +
+    generated);
     ``max_new`` bounds generated tokens (sizes the on-device output
     buffer); ``prefill_chunk`` is the static padded prompt length of the
     chunk prefill. ``device`` defaults to the card; without one, building
@@ -80,14 +84,11 @@ class PagedDecodeEngine:
     def __post_init__(self):
         cfg = self.lm.cfg
         self.device = resolve_device(self.device)
-        if needs_exact_prefill(cfg):
-            raise NotImplementedError("recurrent stacks (prefix fill + "
-                                      "step prefill) are not ported yet")
         self.table_width = model_table_width(cfg, self.max_seq_len,
                                              self.page_size)
         if self.n_pages is None:
             self.n_pages = 1 + self.max_batch * self.table_width
-        self.needs_exact_prefill = False
+        self.needs_exact_prefill = needs_exact_prefill(cfg)
         self.prefix_len = _prefix_len(cfg)
         self.reset_state(self.seed)
 
@@ -131,7 +132,9 @@ class PagedDecodeEngine:
     def step(self, ctrl: dict):
         """One fixed-shape decode step. ``ctrl`` holds host-built arrays:
         tables (B,TW) i32, pos (B,) i32, use_prompt (B,) bool,
-        prompt_tok (B,) i32, out_idx (B,) i32, reset (B,) bool."""
+        prompt_tok (B,) i32, out_idx (B,) i32, reset (B,) bool. The
+        recurrent states of the slots flagged in ``reset`` are zeroed
+        first."""
         s = self.state
         c = {k: self._to_device(v, torch.bool if k in ("use_prompt", "reset")
                                 else torch.int32) for k, v in ctrl.items()}
@@ -168,6 +171,15 @@ class PagedDecodeEngine:
         s["out"][slot, 0] = sampled
         s.update(caches=caches, logits=logits)
 
+    def prefix_fill_into(self, slot: int):
+        """Run the learned prefix (meta tokens) for one slot: the exact
+        static-length entry point for recurrent stacks. Overwrites the
+        slot's recurrent states."""
+        lm_paged_prefix_fill(self.lm.cfg, self.params, self.state["caches"],
+                             slot, self._to_device(self.pages.tables,
+                                                   torch.int32),
+                             self.page_size)
+
     def read_out(self, slot: int, n: int) -> np.ndarray:
         """Fetch one finished request's tokens — a single device->host
         copy per REQUEST, never per token."""
@@ -178,7 +190,8 @@ class PagedDecodeEngine:
         ``perm[old] = new`` => ``new_pool[new] = old_pool[old]``."""
         gather = torch.as_tensor(np.argsort(perm), device=self.device)
         for c in self.state["caches"]:
-            c["pages"] = {k: v[:, gather] for k, v in c["pages"].items()}
+            if "pages" in c:
+                c["pages"] = {k: v[:, gather] for k, v in c["pages"].items()}
 
     def generate(self, batch, n_new_tokens: int, *, seed: int = 0):
         """Whole-batch convenience wrapper: admits all B sequences through

@@ -11,9 +11,9 @@ module is the policy loop:
   sequence can never run out of pages mid-decode, so no preemption path
   is needed).
 - **prefill**: attention-only stacks prefill their whole (padded) prompt
-  in one chunk dispatch at admission; recurrent stacks (not ported yet)
-  would run the static-length prefix fill, then feed prompt tokens
-  through the shared decode step (``use_prompt`` lane).
+  in one chunk dispatch at admission; recurrent stacks run the
+  static-length prefix fill, then feed prompt tokens through the shared
+  decode step (``use_prompt`` lane).
 - **eviction**: a finished request's tokens are fetched with one
   device->host copy, its pages and slot freed, and the next queued
   request admitted into the hole, all without changing the step's shapes.

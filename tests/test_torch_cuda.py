@@ -63,6 +63,16 @@ FLASH_CASES = [
          window=16),
     # qwen2-moe-a2.7b's prefill chunk: G = 1 at head_dim 128
     dict(B=1, S=512, T=512, Hq=16, Hkv=16, D=128, dtype=torch.bfloat16),
+    # hymba-1.5b (G = 5, window 1024): the prefix fill, the training
+    # batch, a window that binds (S = T = 1,536), and f32
+    dict(B=1, S=128, T=128, Hq=25, Hkv=5, D=64, dtype=torch.bfloat16,
+         window=1024),
+    dict(B=4, S=640, T=640, Hq=25, Hkv=5, D=64, dtype=torch.bfloat16,
+         window=1024),
+    dict(B=1, S=1536, T=1536, Hq=25, Hkv=5, D=64, dtype=torch.bfloat16,
+         window=1024),
+    dict(B=1, S=1100, T=1100, Hq=25, Hkv=5, D=64, dtype=torch.float32,
+         window=1024),
 ]
 
 PAGED_CASES = [
@@ -92,6 +102,12 @@ PAGED_CASES = [
     # qwen2-moe-a2.7b decode: G = 1 at head_dim 128
     dict(lens=[0, 1, 17, 16, 100, 300, 543, 560], Hq=16, Hkv=16, D=128,
          ps=16, TW=35, dtype=torch.bfloat16),
+    # hymba-1.5b decode: 5 warps a CTA (G = 5), window 1024, lens across
+    # it so the ring (TW 65) wraps, in bf16 and f32
+    dict(lens=[0, 1, 129, 300, 1023, 1024, 1025, 1184], Hq=25, Hkv=5, D=64,
+         ps=16, TW=65, dtype=torch.bfloat16, window=1024),
+    dict(lens=[0, 1, 129, 300, 1023, 1024, 1025, 1184], Hq=25, Hkv=5, D=64,
+         ps=16, TW=65, dtype=torch.float32, window=1024),
 ]
 
 #: two paged launches on the same inputs (chip_smoke._paged_repeat_case)
@@ -102,6 +118,8 @@ PAGED_REPEAT_CASES = [
          cap=30.0),
     dict(lens=[0, 1, 17, 16, 100, 300, 543, 560], Hq=16, Hkv=16, D=128, ps=16,
          TW=35),
+    dict(lens=[0, 1, 129, 300, 1023, 1024, 1025, 1184], Hq=25, Hkv=5, D=64,
+         ps=16, TW=65, window=1024),
 ]
 
 
@@ -157,6 +175,15 @@ BWD_CASES = [
     # granite-moe-1b-a400m's training shape
     dict(B=4, S=512, Hq=16, Hkv=8, D=64, dtype=torch.bfloat16,
          through_ops=True),
+    # hymba-1.5b's training batch: G = 5 (a dk/dv cluster of 5 with 12/13
+    # key rows a rank), window 1024, directly and through the wrappers;
+    # and a binding window in f32
+    dict(B=4, S=640, Hq=25, Hkv=5, D=64, dtype=torch.bfloat16,
+         window=1024),
+    dict(B=4, S=640, Hq=25, Hkv=5, D=64, dtype=torch.bfloat16,
+         window=1024, through_ops=True),
+    dict(B=1, S=1100, Hq=25, Hkv=5, D=64, dtype=torch.float32,
+         window=1024),
 ]
 
 #: two dk/dv launches on the same inputs (chip_smoke._dkv_repeat_case)
@@ -166,6 +193,7 @@ DKV_REPEAT_CASES = [
     dict(B=2, S=256, Hq=8, Hkv=4, D=128),
     dict(B=2, S=256, Hq=8, Hkv=2, D=192),
     dict(B=4, S=512, Hq=16, Hkv=8, D=64),
+    dict(B=4, S=640, Hq=25, Hkv=5, D=64, window=1024),
 ]
 
 
@@ -461,3 +489,31 @@ def test_moe_grouped_products_on_card_match_loop(smoke, arch):
         assert torch.equal(a, b)
     for a, b in zip(runs[0], runs[1]):
         assert smoke._close(a, b, smoke.FLASH_TOL[torch.bfloat16])[1]
+
+
+def test_slstm_graphs_equal_eager_loops(smoke):
+    """The sLSTM loops replayed as CUDA graphs (``ssm._run``, what the
+    model runs on the card) give the eager loops' bits, forward and
+    backward, on the first capture and on a later replay, at xlstm-125m's
+    head shape (H 4, P 192) and a training batch of 4."""
+    from repro_torch.models import ssm
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    T, H, B, P = 96, 4, 4, 192
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    pre, r = rnd(T, H, B, 4 * P), rnd(H, P, 4 * P, scale=P ** -0.5)
+    c0, n0, h0 = (rnd(H, B, P, scale=0.5) for _ in range(3))
+    m0 = rnd(H, B, P, scale=0.5).abs()
+    eager = ssm._slstm_forward(pre, r, c0, n0, m0, h0)
+    for _ in range(2):                        # capture, then a replay
+        graphed = ssm._run(ssm._slstm_forward, pre, r, c0, n0, m0, h0)
+        assert all(torch.equal(a, b) for a, b in zip(eager, graphed))
+    hs, cs, ns, ms, *gates = eager
+    cot = (rnd(T, H, B, P), rnd(H, B, P), rnd(H, B, P), rnd(H, B, P))
+    want = ssm._slstm_backward(r, hs, cs, ns, ms, *gates, *cot)
+    for _ in range(2):
+        got = ssm._run(ssm._slstm_backward, r, hs, cs, ns, ms, *gates, *cot)
+        assert all(torch.equal(a, b) for a, b in zip(want, got))
+    assert all(bool(torch.isfinite(g).all()) for g in want)

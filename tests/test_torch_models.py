@@ -5,7 +5,8 @@ pad tokens too) in f32, attn_impl='flash_pallas' on both sides (JAX:
 interpret-mode Pallas; port: the kernels' plain versions on the CPU).
 Logits and the updated page pools agree to rtol = atol = 1e-4: XLA's and
 torch's CPU matmuls sum in different orders. Also: the parts this slice
-does not port raise NotImplementedError."""
+does not port raise NotImplementedError, and the recurrent archs'
+configs equal the reference's."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -104,6 +105,19 @@ def test_unported_paths_raise():
     assert tuple(out.shape) == (1, 8, 4, 16)
     with pytest.raises(ValueError, match="unknown attn_impl"):
         run_attention("flash", q, q[:, :, :2], q[:, :, :2], pos, pos)
-    for family in ("ssm", "hybrid", "vlm", "audio"):
+    for family in ("vlm", "audio"):
         with pytest.raises(NotImplementedError):
             build_model(cfg.with_(family=family))
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "hymba-1.5b"])
+def test_recurrent_configs_equal_reference(arch):
+    """The port's full and smoke configs of the recurrent archs equal the
+    reference's ``config()`` and ``smoke_config()`` field by field."""
+    import dataclasses
+    from repro.configs import get_config as jax_config
+    from repro_torch.configs import ARCH_IDS, get_config
+    assert arch in ARCH_IDS
+    for mine, ref in ((get_config(arch), jax_config(arch)),
+                      (get_smoke_config(arch), jax_smoke_config(arch))):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)

@@ -1,0 +1,278 @@
+"""The recurrent families in the port against the JAX package, on the CPU
+at the smoke configs of xlstm-125m (family ssm: mLSTM and sLSTM blocks)
+and hymba-1.5b (family hybrid: attention || Mamba, 4 meta tokens,
+window 16), in f32:
+
+- the port's init has the JAX init's key paths, shapes and dtypes, and
+  its constant leaves (``b_if``, sLSTM ``b``, ``dt_bias``, ``A_log``,
+  ``D_skip``, ``fuse``, the norm scales) have the JAX init's bits;
+- on bridged parameters, ``lm_apply`` logits within 2e-5 + 2e-5 |logit|
+  of JAX's, and ``lm_loss`` and its gradients within 1e-5 + 1e-5 |.|,
+  with the sequential forms (short T) and with the chunkwise forms (T
+  at which ``_pick_chunk`` takes them: xlstm 512, chunk 256; hymba
+  4 + 636 = 640, chunk 160, its training length);
+- an 8-step HWA Trainer run of each within 1e-5 of the JAX Trainer on
+  its batches, at lr 0.03: at the dense tests' lr 0.3 the recurrent
+  smoke models are chaotic in the reference itself (its own run from an
+  init scaled by 1 + 1e-6 ends 1e-3 (xlstm) and 2e-2 (hymba) away by
+  step 8, granite's 0); at 0.03 that perturbation moves no loss by more
+  than 3e-6;
+- ``remat`` "full" and "dots" give the same loss and gradients to the
+  bit as no remat;
+- both launchers with ``--arch xlstm-125m`` and ``--arch hymba-1.5b``
+  on the CPU, and ``chip_smoke.py``'s phase 12 serving and reference at
+  smoke size.
+
+Two measured exceptions, in ROADMAP.md Queue C. (1) At T = 640 one
+position of hymba's logits differs by up to 1.33e-4 (0.03% of the
+logits exceed 2e-5 + 2e-5 |logit|): there a Mamba head's output has an
+RMS of 0.016 against a median of 0.49, and the reference's per-head RMS
+norm (``src/repro/models/ssm.py:413``) multiplies its rounding by ~30.
+The sequential forms on both sides differ as much, so it is not the
+chunkwise form; the gradients carry it too (1-4 of the 217,976
+gradient elements up to 1.5e-5 away, 1.2x the bound, depending on the
+CPU's thread count). That case holds the loss at the tolerance, and the
+logits, and the gradients taken together, with at most 0.1% of the
+elements outside the tolerance and none farther than 10 times it. (2) The reference's Mamba
+chunkwise gradient is NaN at T = 640 (``jnp.where(mask, exp(.), 0)``
+overflows above the diagonal, ``src/repro/models/ssm.py:377-378``; the
+port masks the exponent first): there the gradients are held against
+the reference's sequential form (``MAMBA_CHUNK`` raised on the JAX
+module, as ``tests/test_ssm.py`` does), the same function.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.models.ssm as jssm
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.core import HWAConfig as JaxHWAConfig
+from repro.data import DataPipeline as JaxPipeline
+from repro.data import make_markov_lm_dataset as jax_markov
+from repro.models.registry import build_model as jax_build_model
+from repro.train import TrainConfig as JaxTrainConfig
+from repro.train import Trainer as JaxTrainer
+from repro.train import lm_task as jax_lm_task
+from repro_torch.bridge import params_from_numpy
+from repro_torch.common.pytree import tree_flatten, tree_leaves, \
+    tree_unflatten
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.hwa import HWAConfig
+from repro_torch.models import ssm
+from repro_torch.models.registry import build_model, init_lm
+from repro_torch.train.trainer import Task, TrainConfig, Trainer, lm_task
+from test_torch_train import _Injected, _record
+
+ARCHS = ["xlstm-125m", "hymba-1.5b"]
+LOGIT_TOL = dict(rtol=2e-5, atol=2e-5)
+TOL = dict(rtol=1e-5, atol=1e-5)
+#: the constant leaves of the recurrent layers (last key of the path)
+CONSTANT = ("b_if", "b", "dt_bias", "A_log", "D_skip", "fuse", "scale")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The cells' step loops are thousands of small ops: with the CPU's
+    threads contended by the suite's other workers, each op's parallel
+    region costs far more than the op (an xlstm test took 30x its time
+    alone). One thread a test, restored after."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _models(arch):
+    jcfg = jax_smoke_config(arch)
+    jlm = jax_build_model(jcfg)
+    jparams = jlm.init(jax.random.key(0))
+    lm = build_model(get_smoke_config(arch))
+    return jlm, jparams, lm, params_from_numpy(jax.device_get(jparams),
+                                              device="cpu")
+
+
+def _batch(S, seed=1):
+    rs = np.random.RandomState(seed)
+    return {k: rs.randint(0, 128, (2, S)).astype(np.int32)
+            for k in ("tokens", "targets")}
+
+
+def _mostly_close(got, want, tol):
+    """Exception (1): at most 0.1% of the elements outside ``tol``, none
+    farther than 10 tol. ``got``/``want``: arrays, or lists of arrays
+    taken together."""
+    got = np.concatenate([np.ravel(g) for g in got]) \
+        if isinstance(got, list) else got
+    want = np.concatenate([np.ravel(w) for w in want]) \
+        if isinstance(want, list) else want
+    d = np.abs(got - want)
+    bound = tol["atol"] + tol["rtol"] * np.abs(want)
+    assert (d > bound).mean() <= 1e-3 and (d <= 10 * bound).all(), \
+        ((d > bound).sum(), d.max())
+
+
+def _chunkwise(cfg, S) -> bool:
+    T = cfg.n_meta_tokens + S
+    chunk = ssm._pick_chunk(T, 256)
+    return bool(chunk and T >= 2 * chunk)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_matches_jax_layout_and_constants(arch):
+    jparams = jax.device_get(jax_build_model(jax_smoke_config(arch)).init(
+        jax.random.key(0)))
+    params = init_lm(get_smoke_config(arch), torch.Generator().manual_seed(0),
+                     device="cpu")
+    jflat, jdef = jax.tree_util.tree_flatten_with_path(jparams)
+    leaves, tdef = jax.tree.flatten(params)
+    assert jdef == tdef
+    n_const = 0
+    for (path, a), b in zip(jflat, leaves):
+        assert tuple(a.shape) == tuple(b.shape), path
+        assert str(a.dtype) == str(b.dtype).replace("torch.", ""), path
+        if path[-1].key in CONSTANT:
+            np.testing.assert_array_equal(
+                b.numpy().view(np.uint32), np.asarray(a).view(np.uint32),
+                err_msg=jax.tree_util.keystr(path))
+            n_const += 1
+    assert n_const >= (5 if arch == "hymba-1.5b" else 4)
+    assert ("meta" in params) == (arch == "hymba-1.5b")
+
+
+@pytest.mark.parametrize("arch,S", [("xlstm-125m", 48), ("xlstm-125m", 512),
+                                    ("hymba-1.5b", 60), ("hymba-1.5b", 636)])
+def test_apply_loss_and_grads_match_jax(arch, S, monkeypatch):
+    jlm, jparams, lm, params = _models(arch)
+    assert _chunkwise(lm.cfg, S) == (S > 100)
+    b = _batch(S)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+
+    jlog = np.asarray(jax.jit(jlm.apply)(jparams, jb)[0])
+    log = lm.apply(params, tb)[0].detach().numpy()
+    assert log.shape == (2, S, 128) and np.isfinite(log).all()
+    conditioned = (arch, S) != ("hymba-1.5b", 636)   # exception (1) above
+    if conditioned:
+        np.testing.assert_allclose(log, jlog, **LOGIT_TOL)
+    else:
+        _mostly_close(log, jlog, LOGIT_TOL)
+
+    def jloss():       # traced anew: a jit would keep the chunk it saw
+        return jax.jit(jax.value_and_grad(lambda p, b: jlm.loss(p, b)[0]))(
+            jparams, jb)
+    jl, jg = jloss()
+    if not all(np.isfinite(g).all() for g in jax.tree.leaves(jg)):
+        assert (arch, S) == ("hymba-1.5b", 636)   # exception (2) above
+        monkeypatch.setattr(jssm, "MAMBA_CHUNK", 10 ** 9)
+        jl, jg = jloss()
+    leaves, treedef = tree_flatten(params)
+    live = [x.requires_grad_(True) for x in leaves]
+    loss, _ = lm.loss(tree_unflatten(treedef, live), tb)
+    grads = torch.autograd.grad(loss, live)
+    np.testing.assert_allclose(float(loss.detach()), float(jl), **TOL)
+    jgl = jax.tree.leaves(jax.device_get(jg))
+    assert len(jgl) == len(grads)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    if conditioned:
+        for g, w in zip(grads, jgl):
+            np.testing.assert_allclose(g.numpy(), w, **TOL)
+    else:
+        _mostly_close([g.numpy() for g in grads], list(jgl), TOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_hwa_trainer_matches_jax(arch):
+    """8 HWA steps (K=2, H=2, I=3, the fused sync's plain version):
+    per-step losses, W̿ after each sync and the evaluations within 1e-5
+    of the JAX Trainer's."""
+    K, H, I, steps = 2, 2, 3, 8
+    jcfg = jax_smoke_config(arch)
+    jlm = jax_build_model(jcfg)
+    jpipe = JaxPipeline(jax_markov(vocab=jcfg.vocab_size, seq_len=32,
+                                   n_train=64, n_test=16, seed=0),
+                        batch_size=8, n_replicas=K, seed=0)
+    jtc = JaxTrainConfig(method="hwa", total_steps=steps, batch_size=8,
+                         base_lr=0.03, hwa=JaxHWAConfig(
+                             n_replicas=K, sync_period=H, window=I,
+                             use_kernels=True))
+    jt = JaxTrainer(jax_lm_task(jlm, jpipe), jtc)
+    jlog = {"loss": [], "wa": []}
+    _record(jt, jlog, lambda t: [np.asarray(x, np.float32)
+                                 for x in jax.tree.leaves(t)])
+    jout = jt.run()
+
+    jparams = jax.device_get(jlm.init(jax.random.key(jtc.seed)))
+    lm = build_model(get_smoke_config(arch))
+    task = Task(init=lambda: params_from_numpy(jparams, device="cpu"),
+                loss_fn=lm_task(lm, None).loss_fn, pipeline=_Injected(jpipe))
+    t = Trainer(task, TrainConfig(method="hwa", total_steps=steps,
+                                  batch_size=8, base_lr=0.03,
+                                  hwa=HWAConfig(n_replicas=K, sync_period=H,
+                                                window=I, use_kernels=True)))
+    log = {"loss": [], "wa": []}
+    _record(t, log, lambda tree: [x.float().numpy().copy()
+                                  for x in tree_leaves(tree)])
+    out = t.run()
+
+    assert len(log["loss"]) == steps and len(log["wa"]) == steps // H
+    np.testing.assert_allclose(log["loss"], jlog["loss"], **TOL)
+    for got, want in zip(log["wa"], jlog["wa"]):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, **TOL)
+    np.testing.assert_allclose([h["test_loss"] for h in out["history"]],
+                               [h["test_loss"] for h in jout["history"]],
+                               **TOL)
+    assert log["loss"][-1] < log["loss"][0]
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_matches_no_remat(arch, remat):
+    """The recurrent blocks under ``remat`` recompute to the same bits:
+    loss and gradients bit-equal to ``remat="none"``."""
+    b = _batch(24, seed=3)
+    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    res = {}
+    for r in ("none", remat):
+        lm = build_model(get_smoke_config(arch).with_(remat=r))
+        leaves, treedef = tree_flatten(lm.init(
+            torch.Generator().manual_seed(0), device="cpu"))
+        live = [x.requires_grad_(True) for x in leaves]
+        loss, _ = lm.loss(tree_unflatten(treedef, live), tb)
+        res[r] = [loss.detach(), *torch.autograd.grad(loss, live)]
+    assert all(torch.equal(a, b) for a, b in zip(res["none"], res[remat]))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_launchers_on_cpu(arch, capsys):
+    from repro_torch.launch.serve import main as serve
+    from repro_torch.launch.train import main as train
+    serve(["--arch", arch, "--device", "cpu", "--batch", "2",
+           "--prompt-len", "8", "--new-tokens", "4"])
+    train(["--arch", arch, "--device", "cpu", "--steps", "2", "--k", "2",
+           "--window", "3", "--sync-period", "2", "--batch-size", "8",
+           "--seq-len", "16"])
+    out = capsys.readouterr().out
+    assert f"[serve:paged] {arch} on cpu: generated (2, 4)" in out
+    assert f"[{arch}/hwa] step 2" in out and "on cpu: final" in out
+
+
+def test_chip_smoke_recurrent_phases_on_cpu(monkeypatch):
+    """chip_smoke.py's phase 12 serving and 2-layer reference at smoke
+    size on the CPU: the prefix fills, the step prefill with slots
+    reused, and the run-against-run comparison (the launch counts and
+    device times apply on the card only)."""
+    from test_torch_serve import _chip_smoke
+    smoke = _chip_smoke()
+    monkeypatch.setattr(smoke, "get_config", get_smoke_config)
+    cfg = get_smoke_config("hymba-1.5b").with_(attn_impl="flash_pallas")
+    reqs = smoke._recurrent_requests(cfg, 5, (6, 20), 5, 0)
+    res, _ = smoke.phase_serve_recurrent("cpu", cfg, reqs=reqs, max_batch=3,
+                                         page_size=4)
+    assert res["prefix_fills"] == 5 and res["tokens"] == 25
+    assert 0 < res["prompt_step_share"] < 1
+    for arch in ARCHS:
+        out = smoke.phase_recurrent_reference("cpu", arch, "float32")
+        assert out["tokens_equal"] and out["steps"] > 0

@@ -101,12 +101,17 @@ def _trace(vocab, seed):
 @pytest.mark.parametrize("arch,seed", [("granite-3-2b", 0),
                                        ("gemma2-27b", 1),
                                        ("granite-moe-1b-a400m", 2),
-                                       ("qwen2-moe-a2.7b", 3)])
+                                       ("qwen2-moe-a2.7b", 3),
+                                       ("xlstm-125m", 4),
+                                       ("hymba-1.5b", 5)])
 def test_scheduler_random_trace_equals_jax_engine(arch, seed):
     """The port's scheduler + engine emit tokens EQUAL to the JAX
     PagedDecodeEngine's on the same bridged parameters, both under
     attn_impl='flash_pallas' (JAX: interpret-mode Pallas; port: the
-    kernels' plain versions on the CPU)."""
+    kernels' plain versions on the CPU). The recurrent stacks (xlstm,
+    hymba) take the prefix fill and the step prefill, and the 7
+    requests over 3 slots reuse slots, so ``reset_paged_states`` and the
+    prefix fill's overwrite both run."""
     jcfg = jax_smoke_config(arch).with_(attn_impl="flash_pallas")
     jlm = jax_build_model(jcfg)
     jparams = jlm.init(jax.random.key(0))
