@@ -37,7 +37,16 @@ raising on any failure:
                S = T = 1,536, the sweeps at B4 S640 and dk/dv twice, the
                paged kernel with lens across 1,024 so the ring wraps,
                twice to the bit; the fused sync at xlstm-125m's 176.5M
-               and hymba's 748.1M parameters).
+               and hymba's 748.1M parameters); phase 13's (internvl2-1b's
+               G = 7 at head_dim 64: the forward over 256 vision + 512
+               prompt positions at B1 and B4 and in f32, the sweeps at B4
+               S768 directly, through the wrappers and in f32, dk/dv twice
+               to the bit, the paged kernel with lens past the vision
+               prefix in bf16 and f32 and twice to the bit; musicgen-
+               medium's G = 1 at head_dim 64: the forward at B1 and B4
+               S512, the sweeps at B4 S512, dk/dv and paged twice; the
+               fused sync at internvl2's 630.6M and musicgen's 931.2M at
+               24 layers).
 4. serve     — granite-3-2b at full width and depth (bf16, random weights
                from a seed) serves 12 requests through PagedDecodeEngine
                with 8 slots; the kernels' launch counts must equal
@@ -157,6 +166,31 @@ raising on any failure:
                exact launches. 12d: torch.profiler over a hymba decode step
                and an xlstm training step: the recurrences' share of the
                device time, kernels a layer, idle share.
+13. modality — 13a: internvl2-1b (24 layers, 630.6M parameters, 14/2
+               heads at head_dim 64, 256 x 1,024 f32 patch embeddings a
+               request through the vision projection) and then
+               musicgen-medium (48 layers, 1.837B, 24/24 heads, 4
+               codebook streams summed in and 4 heads out) at full width
+               and depth, bf16, random weights from a seed, serve 8
+               requests of 64-512 prompt tokens and 32 new through
+               PagedDecodeEngine (8 slots, page 16, chunk 512):
+               launches n_layers x admissions (flash) and n_layers x
+               decode steps (paged); prefill and decode tok/s, median
+               and tail step, peak memory; torch.profiler over 4 decode
+               steps (busy, idle share, kernels a step). 13b: each cut
+               to 2 layers, kernel path against plain path over a whole
+               serving run (3 requests over 2 slots) in f32 (every logit
+               of the prefills and steps within the f32 flash tolerance,
+               tokens equal) and bf16 (tokens equal or tied). 13c: the
+               whole-batch DecodeEngine on granite-3-2b and both archs
+               at full width cut to 2 layers, f32: one prefill at B4
+               (2 flash launches), the plain decode over the contiguous
+               ring; tokens equal to the paged engine's. 13d: HWA
+               training (phase 7's recipe, 6 steps, 3 fused syncs,
+               through hwa_inner_step and hwa_sync over dict batches of
+               tokens, targets and vis_embeds) of internvl2-1b whole and
+               musicgen-medium cut to 24 layers: finite, falling loss,
+               exact launches, step, sync, tok/s, mfu, peak memory.
 6. yardstick — each kernel timed at its main path's shapes (CUDA-graph
                replay between CUDA events: device time, cold L2), beside
                its plain version, a library call where one exists, and
@@ -167,7 +201,10 @@ raising on any failure:
                qwen2-moe-a2.7b's (B1 S512 and B8, Hq16 Hkv16 D128); and
                at hymba-1.5b's serving shapes (the prefix fill B1 S128
                and 12a's fullest decode step B8, Hq25 Hkv5 D64, window
-               1024), SDPA with ``enable_gqa``.
+               1024), SDPA with ``enable_gqa``; and at phase 13's: the
+               forward at a prefill chunk (B1) and the training batch
+               (B4), the paged kernel at 13a's fullest step and both
+               sweeps at 13d's batch, for internvl2-1b and musicgen-medium.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2.
@@ -195,7 +232,8 @@ from repro_torch.common.quant import max_ulp, rel_ulp_error  # noqa: E402
 from repro_torch.common.pytree import (tree_flatten, tree_leaves,  # noqa: E402
                                        tree_map, tree_unflatten)
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.hwa import HWAConfig, hwa_init  # noqa: E402
+from repro_torch.core.hwa import (HWAConfig, hwa_init,  # noqa: E402
+                                  hwa_inner_step, hwa_sync)
 from repro_torch.data import DataPipeline, make_markov_lm_dataset  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -211,12 +249,16 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref,  # noqa: E402
                                      wa_sync_fused_c_ref, wa_sync_fused_ref,
                                      wa_window_update_c_ref,
                                      wa_window_update_ref)
+from repro_torch.launch.serve import make_batch  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.cache import TRASH_PAGE  # noqa: E402
-from repro_torch.models.registry import (build_model,  # noqa: E402
+from repro_torch.models.registry import (_prefix_len,  # noqa: E402
+                                         build_model,
                                          lm_paged_decode_step,
                                          lm_paged_prefill_chunk)
-from repro_torch.serve.engine import PagedDecodeEngine  # noqa: E402
+from repro_torch.optim import cosine_schedule, sgd  # noqa: E402
+from repro_torch.serve.engine import (DecodeEngine,  # noqa: E402
+                                      PagedDecodeEngine)
 from repro_torch.serve.scheduler import ContinuousScheduler, Request  # noqa: E402
 from repro_torch.train.trainer import TrainConfig, Trainer, lm_task  # noqa: E402
 
@@ -675,6 +717,19 @@ MOE_TRAIN_ATTN = dict(B=4, S=512, Hq=16, Hkv=8, D=64)
 HYMBA_ATTN = dict(Hq=25, Hkv=5, D=64, window=1024)
 HYMBA_PAGED = dict(lens=[0, 1, 129, 300, 1023, 1024, 1025, 1184], ps=16,
                    TW=65, Hq=25, Hkv=5, D=64, window=1024)
+#: phase 13's attention shapes: internvl2-1b's 14 query heads over 2 KV
+#: heads (G = 7, the first odd group above hymba's 5: dk/dv runs a
+#: cluster of 7, the paged kernel 7 warps a CTA) at head_dim 64, over 256
+#: vision + 512 prompt positions a prefill chunk and a training sequence,
+#: and its decode step with lens past the vision prefix (TW 50 at page
+#: 16); musicgen-medium's 24/24 heads (G = 1 at head_dim 64), its prefill
+#: chunk and training batch at S 512 and its decode step
+INTERNVL2_ATTN = dict(Hq=14, Hkv=2, D=64)
+INTERNVL2_PAGED = dict(lens=[0, 1, 257, 300, 544, 700, 799, 800], ps=16,
+                       TW=50, **INTERNVL2_ATTN)
+MUSICGEN_ATTN = dict(Hq=24, Hkv=24, D=64)
+MUSICGEN_PAGED = dict(lens=[0, 1, 17, 16, 100, 300, 543, 544], ps=16,
+                      TW=34, **MUSICGEN_ATTN)
 
 #: the flash gradient matrix of tests/test_attention_ops.py (B = 2):
 #: S, Hq, Hkv, D, window, cap, dtype
@@ -749,26 +804,35 @@ def _recurrent_layer_counts(cfg, matmul: bool) -> int:
                            + (0 if matmul else 2))
 
 
+def _vocab_rows(cfg) -> int:
+    """Rows of the embedding and of the head: V, or CB x V for audio's
+    per-codebook tables."""
+    return cfg.vocab_size * (cfg.n_codebooks if cfg.family == "audio"
+                             else 1)
+
+
 def train_param_count(cfg) -> int:
-    """Parameters of a config (embed, head, meta tokens, per-layer
-    attention or recurrent blocks, feed-forward and norm scales, final
-    norm), without building them."""
-    D, V = cfg.d_model, cfg.vocab_size
+    """Parameters of a config (embed, head, meta tokens, the VLM's
+    vision projection, per-layer attention or recurrent blocks,
+    feed-forward and norm scales, final norm), without building them."""
+    D, V = cfg.d_model, _vocab_rows(cfg)
     if cfg.family in ("ssm", "hybrid"):
         return 2 * V * D + cfg.n_meta_tokens * D + D + \
             _recurrent_layer_counts(cfg, matmul=False)
     H, Kv, P = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     per_layer = 2 * D * H * P + 2 * D * Kv * P + \
         _ffn_param_count(cfg, active=False) + 2 * D
-    return 2 * V * D + cfg.n_layers * per_layer + D
+    vis = cfg.d_vis * D if cfg.family == "vlm" else 0
+    return 2 * V * D + vis + cfg.n_layers * per_layer + D
 
 
 def train_matmul_param_count(cfg) -> int:
     """The parameters one token's products touch, the N of ``mfu``'s
-    6*N*tokens: all but the embedding table (a gather) and the norm
-    scales, and of a MoE layer only the router, the top-k experts and
-    the shared experts."""
-    D, V = cfg.d_model, cfg.vocab_size
+    6*N*tokens: all but the embedding table (a gather), the norm scales
+    and the VLM's vision projection (its 256 positions a sequence only),
+    and of a MoE layer only the router, the top-k experts and the shared
+    experts."""
+    D, V = cfg.d_model, _vocab_rows(cfg)
     if cfg.family in ("ssm", "hybrid"):
         return V * D + _recurrent_layer_counts(cfg, matmul=True)
     H, Kv, P = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -816,6 +880,18 @@ def phase_kernels(device):
                     dtype=torch.bfloat16, seed=40),
         _flash_case(device, B=1, S=1536, T=1536, **HYMBA_ATTN,
                     dtype=torch.bfloat16, seed=41),
+        # internvl2-1b: the prefill chunk (256 + 512), the training batch,
+        # f32; musicgen-medium: the prefill chunk, the training batch
+        _flash_case(device, B=1, S=768, T=768, **INTERNVL2_ATTN,
+                    dtype=torch.bfloat16, seed=42),
+        _flash_case(device, B=4, S=768, T=768, **INTERNVL2_ATTN,
+                    dtype=torch.bfloat16, seed=43),
+        _flash_case(device, B=1, S=300, T=300, **INTERNVL2_ATTN,
+                    dtype=torch.float32, seed=44),
+        _flash_case(device, B=1, S=512, T=512, **MUSICGEN_ATTN,
+                    dtype=torch.bfloat16, seed=45),
+        _flash_case(device, B=4, S=512, T=512, **MUSICGEN_ATTN,
+                    dtype=torch.bfloat16, seed=46),
     ]
     paged = [
         # granite-3-2b decode: ragged lens incl. 0, 1 and a page crossing
@@ -848,6 +924,13 @@ def phase_kernels(device):
         _paged_case(device, **HYMBA_PAGED, dtype=torch.bfloat16, seed=8),
         _paged_case(device, **HYMBA_PAGED, dtype=torch.float32, seed=9),
         _paged_repeat_case(device, **HYMBA_PAGED, seed=10),
+        # internvl2-1b decode (G = 7) in bf16 and f32, musicgen-medium's
+        # (G = 1, head_dim 64); each twice to the bit
+        _paged_case(device, **INTERNVL2_PAGED, dtype=torch.bfloat16, seed=11),
+        _paged_case(device, **INTERNVL2_PAGED, dtype=torch.float32, seed=12),
+        _paged_repeat_case(device, **INTERNVL2_PAGED, seed=13),
+        _paged_case(device, **MUSICGEN_PAGED, dtype=torch.bfloat16, seed=14),
+        _paged_repeat_case(device, **MUSICGEN_PAGED, seed=15),
     ]
     P_train = -(-train_param_count(train_config()) // ALIGN) * ALIGN
     sync = [_sync_case(device, K=K, I=I, full=full, P=3 * ALIGN,
@@ -861,9 +944,13 @@ def phase_kernels(device):
         moe_train_config()) // ALIGN) * ALIGN, seed=3))
     torch.cuda.empty_cache()
     # phase 12c's packed sizes: xlstm-125m and hymba-1.5b at 16 layers
+    # and phase 13d's: internvl2-1b and musicgen-medium at 24 layers
     for seed, cfg in ((4, get_config("xlstm-125m")),
                       (5, get_config("hymba-1.5b").with_(
-                          n_layers=HYMBA_TRAIN_LAYERS))):
+                          n_layers=HYMBA_TRAIN_LAYERS)),
+                      (6, get_config("internvl2-1b")),
+                      (7, get_config("musicgen-medium").with_(
+                          n_layers=MUSICGEN_TRAIN_LAYERS))):
         sync.append(_sync_case(device, K=2, I=3, full=1.0, P=-(
             -train_param_count(cfg) // ALIGN) * ALIGN, seed=seed))
         torch.cuda.empty_cache()
@@ -938,6 +1025,19 @@ def phase_kernels(device):
         _bwd_case(device, B=4, S=640, **HYMBA_ATTN, dtype=torch.bfloat16,
                   seed=10),
         _dkv_repeat_case(device, B=4, S=640, **HYMBA_ATTN, seed=11),
+        # internvl2-1b's training batch (13d): G = 7 (a dk/dv cluster of
+        # 7), directly, through the wrappers and in f32, dk/dv twice to
+        # the bit; musicgen-medium's (G = 1 at head_dim 64)
+        _bwd_case(device, B=4, S=768, **INTERNVL2_ATTN, dtype=torch.bfloat16,
+                  seed=12),
+        _bwd_case(device, B=4, S=768, **INTERNVL2_ATTN, dtype=torch.bfloat16,
+                  through_ops=True, seed=13),
+        _bwd_case(device, B=1, S=300, **INTERNVL2_ATTN, dtype=torch.float32,
+                  seed=14),
+        _dkv_repeat_case(device, B=4, S=768, **INTERNVL2_ATTN, seed=15),
+        _bwd_case(device, B=4, S=512, **MUSICGEN_ATTN, dtype=torch.bfloat16,
+                  through_ops=True, seed=16),
+        _dkv_repeat_case(device, B=4, S=512, **MUSICGEN_ATTN, seed=17),
     ]
     result = {"flash_fwd": flash, "paged_attention": paged,
               "wa_sync_fused": sync, "flash_bwd": bwd, **slice3}
@@ -3109,7 +3209,7 @@ def phase_train_trace_recurrent(device, trainer, train):
     return stats
 
 
-def _compare_runs(label, runs, f32, tol):
+def _compare_runs(label, runs, f32, tol, tag="reference12"):
     """Phase 12b's gate on two serving runs of one model (the plain path,
     the kernel path): the greedy tokens equal (in bf16: or, at the first
     difference, the plain path's logit of the kernel path's token within
@@ -3134,7 +3234,7 @@ def _compare_runs(label, runs, f32, tol):
     tokens_ok = same or (not f32 and tie is not None
                          and tie <= REF_LOGIT_TOL)
     ok = tokens_ok and (close or not f32)
-    print(f"[reference12] {label}: kernel path vs plain path over "
+    print(f"[{tag}] {label}: kernel path vs plain path over "
           f"{steps} steps: greedy tokens equal {same}"
           f"{'' if tie is None else f' (first difference a tie of {tie:.4g})'}"
           f", max |dlogit| {err:.5g} ({f'each within {tol} + {tol}|logit|' if f32 else 'reported'}"
@@ -3225,6 +3325,484 @@ def phase_recurrent(device):
         gc.collect()
         torch.cuda.empty_cache()
     print(f"[recurrent] phase 12 in {time.perf_counter() - t0:.1f} s | "
+          f"{CARD['line']}")
+    return out
+
+
+# ------------------------------------------------- 13. vlm and audio
+
+#: phase 13a's served models, in order (internvl2's weights are freed
+#: before musicgen's are drawn)
+MODALITY_ARCHS = ("internvl2-1b", "musicgen-medium")
+#: 13a's traffic: phase 4's prompts, chunk, page and slots; 8 requests
+#: fill the 8 slots at once. internvl2's carry 256 x 1,024 f32 patch
+#: embeddings (the attention runs over 256 + 512 positions a chunk),
+#: musicgen's are 4-codebook streams.
+MODALITY_SERVE = dict(n_requests=8, prompt_range=(64, 512), max_new=32,
+                      max_batch=8, page_size=16, prefill_chunk=512)
+#: 13d: musicgen-medium cut from 48 to 24 layers (0.931B parameters; at
+#: 48, 1.837B need ~92 GB of HWA state at phase 7's ~50 bytes a
+#: parameter); internvl2-1b (0.631B) trains whole
+MUSICGEN_TRAIN_LAYERS = 24
+#: 13d's recipe: phase 7's K, H, I, 4 x 512 tokens a replica, SGD, lr
+#: and schedule, over 6 steps (3 syncs); the tokens are the port's Markov
+#: chain over the first 2,048 ids (a V x V chain at internvl2's 151,655
+#: would take 92 GB), each codebook its own chain for musicgen
+MODALITY_TRAIN = dict(steps=6, data_vocab=2048)
+#: 13c's whole-batch engine: these archs at full width cut to 2 layers,
+#: f32, B = 4 prompts of 256 tokens, 16 new
+DECODE_ENGINE_ARCHS = ("granite-3-2b",) + MODALITY_ARCHS
+DECODE_ENGINE_RUN = dict(layers=2, batch=4, prompt=256, new=16)
+
+
+def _modality_requests(cfg, n, prompt_range, new, seed):
+    """``n`` requests of ``prompt_range`` tokens from a numpy seed: (S,
+    CB) codebook streams for audio; the VLM's carry f32 (n_vis, d_vis)
+    vis_embeds."""
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(prompt_range[0], prompt_range[1] + 1, size=n)
+    cb = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+    reqs = []
+    for i, m in enumerate(lens):
+        vis = (rs.randn(cfg.n_vis_tokens, cfg.d_vis).astype(np.float32)
+               if cfg.family == "vlm" else None)
+        reqs.append(Request(rid=i, tokens=rs.randint(
+            0, cfg.vocab_size, size=(int(m),) + cb).astype(np.int32),
+            n_new=new, vis_embeds=vis))
+    return reqs
+
+
+def phase_serve_modality(device, cfg, *, reqs=None, params=None, seed=0,
+                         record=False, **traffic):
+    """Serve a vlm or audio model through PagedDecodeEngine and
+    ContinuousScheduler: each admission one chunk prefill over (vision
+    prefix +) prompt, then the decode steps. ``traffic`` overrides
+    MODALITY_SERVE's fields. On the card the launch counts must be exact:
+    the flash forward n_layers x admissions, the paged kernel n_layers x
+    decode steps. ``record`` keeps each prefill's and step's logits of
+    the slots that emit, one row a codebook (13b compares two runs)."""
+    dev = torch.device(device)
+    t = dict(MODALITY_SERVE, **traffic)
+    lm = build_model(cfg)
+    if params is None:
+        params = lm.init(torch.Generator(device=dev).manual_seed(seed),
+                         device=dev)
+    if reqs is None:
+        reqs = _modality_requests(cfg, t["n_requests"], t["prompt_range"],
+                                  t["max_new"], seed)
+    max_new = max(r.n_new for r in reqs)
+    npre = _prefix_len(cfg)
+    eng = PagedDecodeEngine(
+        lm=lm, params=params, max_batch=t["max_batch"],
+        max_seq_len=npre + max(len(r.tokens) for r in reqs) + max_new,
+        max_new=max_new, page_size=t["page_size"],
+        prefill_chunk=t["prefill_chunk"], device=dev)
+    pre_clock, step_clock = _Clock(dev), _Clock(dev)
+    log = {"admissions": 0, "emitted": 0, "lens": [], "logits": []}
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    timed_prefill = pre_clock.wrap(eng.prefill_into)
+    timed_step = step_clock.wrap(eng.step)
+
+    def keep(rows, logits):
+        nonlocal finite
+        finite = finite & torch.isfinite(logits).all()
+        if record:
+            log["logits"].append((rows.copy(), logits.reshape(
+                -1, logits.shape[-1]).float().clone()))
+
+    def counted_prefill(slot, batch1, n_valid):
+        log["admissions"] += 1
+        timed_prefill(slot, batch1, n_valid)
+        rows = np.zeros(eng.max_batch, bool)
+        rows[slot] = True
+        keep(rows, eng.state["logits"])
+
+    def counted_step(ctrl):
+        emitting = ctrl["out_idx"] != eng.scratch_idx
+        log["emitted"] += int(emitting.sum())
+        log["lens"].append([int(p) + 1 if e else 0
+                            for p, e in zip(ctrl["pos"], emitting)])
+        timed_step(ctrl)
+        keep(emitting, eng.state["logits"][torch.as_tensor(emitting,
+                                                           device=dev)])
+
+    eng.prefill_into, eng.step = counted_prefill, counted_step
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    _reset_counts()
+    t0 = time.perf_counter()
+    outs = ContinuousScheduler(eng).run(reqs)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    steps = len(step_clock.spans)
+    toks = np.stack([outs[r.rid] for r in reqs])
+    cb = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+    if toks.shape != (len(reqs), max_new) + cb:
+        raise AssertionError(f"output shape {toks.shape}")
+    if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError("token outside the vocab range")
+    if not bool(finite):
+        raise AssertionError("non-finite logits")
+    if log["admissions"] != len(reqs):
+        raise AssertionError(f"{log['admissions']} admissions for "
+                             f"{len(reqs)}")
+    if dev.type == "cuda" and cfg.attn_impl == "flash_pallas":
+        want = _want(flash_fwd=cfg.n_layers * log["admissions"],
+                     paged_attention=cfg.n_layers * steps)
+        if launches != want:
+            raise AssertionError(f"launch counts {launches} != {want}")
+    pre_ms, step_ms = pre_clock.ms(), step_clock.ms()
+    tail = int(100 * (1 - 10 / len(step_ms))) if len(step_ms) >= 20 else None
+    prompt_tokens = sum(len(r.tokens) for r in reqs)
+    full = [ln for ln in log["lens"] if all(ln)]
+    res = {
+        "arch": cfg.name, "layers": cfg.n_layers, "requests": len(reqs),
+        "slots": eng.max_batch, "admissions": log["admissions"],
+        "decode_steps": steps, "tokens": int(toks.size),
+        "launches": launches, "prefix": npre,
+        "prefill_tok_s": prompt_tokens / (sum(pre_ms) / 1e3),
+        "prefill_positions_s": (prompt_tokens + npre * len(reqs))
+        / (sum(pre_ms) / 1e3),
+        "decode_tok_s": log["emitted"] / (sum(step_ms) / 1e3),
+        "median_step_ms": float(np.median(step_ms)),
+        "tail_pct": tail,
+        "tail_step_ms": (float(np.percentile(step_ms, tail))
+                         if tail else None),
+        "median_prefill_ms": float(np.median(pre_ms)),
+        "wall_s": wall,
+        "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                         if dev.type == "cuda" else None),
+        "full_step_lens": max(full, key=sum) if full else None,
+        "prompt_lens": [len(r.tokens) for r in reqs],
+        "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.resolved_head_dim, "table_width": eng.table_width,
+        "outputs": toks, "step_logits": log["logits"],
+    }
+    print(f"[serve13] {cfg.name} L{cfg.n_layers} d{cfg.d_model} "
+          f"H{cfg.n_heads}/{cfg.n_kv_heads} {cfg.family} {cfg.dtype} "
+          f"{cfg.attn_impl} on {dev}: {len(reqs)} requests (prompts "
+          f"{min(res['prompt_lens'])}-{max(res['prompt_lens'])} + prefix "
+          f"{npre}, {max_new} new{f', {cb[0]} codebooks' if cb else ''}), "
+          f"{eng.max_batch} slots, {log['admissions']} admissions, {steps} "
+          f"decode steps, table width {eng.table_width}, launches "
+          f"{launches}")
+    print(f"[serve13] {cfg.name}: prefill {res['prefill_tok_s']:.1f} "
+          f"prompt tok/s ({res['prefill_positions_s']:.1f} positions/s), "
+          f"decode {res['decode_tok_s']:.1f} tok/s, median step "
+          f"{res['median_step_ms']:.3f} ms (p{tail} {res['tail_step_ms']} "
+          f"ms, n={steps}), median prefill {res['median_prefill_ms']:.3f} "
+          f"ms, wall {wall:.2f} s, peak memory {res['peak_mem_gib']} GiB | "
+          f"{CARD['line']}")
+    return res, eng
+
+
+def phase_trace_modality(device, eng, serve, n_steps=4):
+    """13a's trace: a fresh engine on the served weights admits
+    ``max_batch`` requests of the longest prompt that fits (chunk
+    prefills), then ``n_steps`` full decode steps run traced through the
+    scheduler's control-array code: device busy, idle share against 13a's
+    untraced median, kernels a step and a layer."""
+    dev = torch.device(device)
+    cfg = eng.lm.cfg
+    eng = PagedDecodeEngine(lm=eng.lm, params=eng.params,
+                            max_batch=eng.max_batch,
+                            max_seq_len=eng.max_seq_len, max_new=eng.max_new,
+                            page_size=eng.page_size,
+                            prefill_chunk=eng.prefill_chunk, device=dev)
+    sched = ContinuousScheduler(eng)
+    plen = min(eng.max_seq_len - eng.prefix_len - eng.max_new,
+               eng.prefill_chunk)
+    reqs = _modality_requests(cfg, eng.max_batch, (plen, plen), eng.max_new,
+                              1)
+    active = {a.slot: a for a in (sched._admit(r) for r in reqs)}
+    audio = cfg.family == "audio"
+
+    def steps(n):
+        for _ in range(n):
+            ctrl = sched._build_ctrl(active, eng.max_batch, eng.scratch_idx,
+                                     audio, cfg.n_codebooks if audio else None)
+            eng.step(ctrl)
+            for a in active.values():
+                a.pos += 1
+                a.emitted += 1
+
+    steps(1)                                  # warm
+    wall, busy, launches, rows = _profile(lambda: steps(n_steps), dev)
+    _report_trace(f"{cfg.name} decode step ({eng.max_batch} active)",
+                  n_steps, serve["median_step_ms"], wall, busy, launches,
+                  rows)
+    return {"busy_ms": busy / n_steps, "kernels": launches / n_steps,
+            "kernels_per_layer": launches / n_steps / cfg.n_layers,
+            "idle_share": (1 - busy / n_steps / serve["median_step_ms"])
+            if busy else None, "traced_wall_ms": wall / n_steps,
+            "top": [(n, ms / n_steps) for n, ms, _ in rows[:6]]}
+
+
+def phase_modality_reference(device, arch, dtype, seed=3, **traffic):
+    """13b: ``arch`` at full width cut to 2 layers, served twice on the
+    same weights and requests (3 over 2 slots, so a slot is reused)
+    through the plain path (naive prefill attention, the plain paged
+    version) and the kernel path (flash_pallas); phase 12b's
+    ``_compare_runs`` is the gate, over the prefill's and every step's
+    logits (one row a codebook). ``traffic`` overrides MODALITY_SERVE's
+    fields."""
+    dev = torch.device(device)
+    base = get_config(arch).with_(n_layers=2, dtype=dtype)
+    params = build_model(base).init(
+        torch.Generator(device=dev).manual_seed(seed), device=dev)
+    reqs = _modality_requests(base, 3, (40, 100), 16, seed)
+    traffic.setdefault("max_batch", 2)
+    runs = {}
+    for impl in ("naive", "flash_pallas"):
+        runs[impl], eng = phase_serve_modality(
+            dev, base.with_(attn_impl=impl), reqs=reqs, params=params,
+            record=True, **traffic)
+        del eng
+        gc.collect()
+    f32 = dtype == "float32"
+    tol = FLASH_TOL[torch.float32 if f32 else torch.bfloat16]
+    out = _compare_runs(f"{arch} L2 {dtype}", runs, f32, tol,
+                        tag="reference13")
+    out["launches"] = runs["flash_pallas"]["launches"]
+    del params, runs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_decode_engine(device, arch, **run):
+    """13c: the whole-batch DecodeEngine on ``arch`` at full width cut to
+    2 layers in f32 (flash_pallas): one prefill of the whole batch (the
+    flash forward n_layers x 1 times, at B = batch), then the plain
+    one-token decode over the contiguous ring; its greedy tokens must
+    equal the paged engine's on the same weights and prompts (chunk
+    prefill and the paged kernel)."""
+    dev = torch.device(device)
+    r = dict(DECODE_ENGINE_RUN, **run)
+    cfg = get_config(arch).with_(n_layers=r["layers"], dtype="float32",
+                                 attn_impl="flash_pallas")
+    lm = build_model(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(5), device=dev)
+    B, S, new = r["batch"], r["prompt"], r["new"]
+    batch = make_batch(cfg, B, S, seed=5)
+    eng = DecodeEngine(lm, params, max_seq_len=S + new, device=dev)
+    pre_clock, step_clock = _Clock(dev), _Clock(dev)
+    eng.step = step_clock.wrap(eng.step)
+    lm.prefill = pre_clock.wrap(lm.prefill)
+    _sync(dev)
+    _reset_counts()
+    try:
+        toks = eng.generate(batch, new)
+        _sync(dev)
+    finally:
+        del lm.prefill
+    launches = _counts()
+    if dev.type == "cuda":
+        want = _want(flash_fwd=cfg.n_layers)
+        if launches != want:
+            raise AssertionError(f"launch counts {launches} != {want}")
+    paged = PagedDecodeEngine(
+        lm=lm, params=params, max_batch=B,
+        max_seq_len=_prefix_len(cfg) + S + new, max_new=new, page_size=16,
+        prefill_chunk=S, device=dev).generate(batch, new)
+    same = np.array_equal(toks.cpu().numpy(), paged.numpy())
+    pre_ms, step_ms = pre_clock.ms(), step_clock.ms()
+    res = {"arch": arch, "layers": cfg.n_layers, "batch": B, "prompt": S,
+           "new": new, "tokens_equal": same, "launches": launches,
+           "prefill_ms": pre_ms[0], "median_step_ms": float(np.median(
+               step_ms)), "shape": tuple(toks.shape)}
+    print(f"[decode13] {arch} L{cfg.n_layers} d{cfg.d_model} f32 "
+          f"DecodeEngine on {dev}: B{B} prompts of {S} (+ prefix "
+          f"{_prefix_len(cfg)}), {new} new -> {tuple(toks.shape)}; prefill "
+          f"{res['prefill_ms']:.3f} ms (flash forward at B{B}), median step "
+          f"{res['median_step_ms']:.3f} ms; launches {launches}; tokens equal "
+          f"to the paged engine's: {same} | {CARD['line']}")
+    if not same:
+        raise AssertionError(f"{arch}: DecodeEngine tokens differ from the "
+                             f"paged engine's")
+    del eng, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def _modality_train_batches(cfg, K, B, S, steps, device, seed=0):
+    """Per step, a (K, ...) batch dict: tokens/targets from the Markov
+    chain over MODALITY_TRAIN's first ids ((K, B, S, CB) for audio: one
+    chain sample a codebook), f32 vis_embeds (K, B, n_vis, d_vis) for the
+    VLM."""
+    cb = cfg.n_codebooks if cfg.family == "audio" else 1
+    ds = make_markov_lm_dataset(vocab=MODALITY_TRAIN["data_vocab"],
+                                seq_len=S, n_train=K * steps * B * cb,
+                                n_test=1, seed=seed, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+
+    def shape(x):                         # (steps*K*B*cb, S) -> per step
+        x = x.reshape(steps, K, B, cb, S)
+        return x.permute(0, 1, 2, 4, 3) if cfg.family == "audio" \
+            else x[:, :, :, 0]
+
+    tokens, targets = shape(ds.train_inputs), shape(ds.train_targets)
+    out = []
+    for s in range(steps):
+        b = {"tokens": tokens[s], "targets": targets[s]}
+        if cfg.family == "vlm":
+            b["vis_embeds"] = torch.randn((K, B, cfg.n_vis_tokens, cfg.d_vis),
+                                          generator=gen, device=device)
+        out.append(b)
+    return out
+
+
+def phase_train_modality(device, cfg, full_layers):
+    """13d: HWA training of a vlm or audio config (K replicas, fused sync
+    every H steps, SGD, phase 7's recipe) through ``core.hwa``'s
+    ``hwa_inner_step`` and ``hwa_sync`` over dict batches (the Trainer's
+    pipeline carries (tokens, targets) only, as the reference's does).
+    Gates: finite losses and W̿; the loss falls, read on fixed data: W̿'s
+    mean loss on the first step's K batches below the initial weights'
+    (per-step losses are each on new batches, whose own spread over 6
+    steps is as large as the fall: they are reported); exact launches
+    (under remat="full" the forward runs twice a layer, replica and step;
+    each of the 2 x K probe losses once a layer)."""
+    dev = torch.device(device)
+    K, H, I = TRAIN["K"], TRAIN["H"], TRAIN["I"]
+    B, S, steps = TRAIN["batch"], TRAIN["seq"], MODALITY_TRAIN["steps"]
+    batches = _modality_train_batches(cfg, K, B, S, steps, dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    lm = build_model(cfg)
+    opt = sgd(momentum=0.9, weight_decay=5e-4)
+    sched = cosine_schedule(TRAIN["lr"], steps)
+    hcfg = HWAConfig(n_replicas=K, sync_period=H, window=I, use_kernels=True)
+    state = hwa_init(hcfg, lm.init(torch.Generator(device=dev).manual_seed(0),
+                                   device=dev), opt)
+    step_clock, sync_clock = _Clock(dev), _Clock(dev)
+    inner = step_clock.wrap(hwa_inner_step)
+    sync = sync_clock.wrap(hwa_sync)
+
+    @torch.no_grad()
+    def probe(params):
+        """Mean loss of ``params`` over the first step's K batches."""
+        return float(np.mean([float(lm.loss(params, {
+            k: v[r] for k, v in batches[0].items()})[0]) for r in range(K)]))
+
+    losses = []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    _reset_counts()
+    init_probe = probe(state.wa)
+    t0 = time.perf_counter()
+    for step in range(steps):
+        state, m = inner(hcfg, state, batches[step], lm.loss, opt,
+                         sched(step))
+        losses.append(m["per_replica_loss"])
+        if (step + 1) % H == 0:
+            state, _ = sync(hcfg, state)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    wa_probe = probe(state.wa)
+    launches = _counts()
+    per_step = torch.stack(losses).float().cpu()
+    if not bool(torch.isfinite(per_step).all()):
+        raise AssertionError(f"non-finite training loss: {per_step}")
+    wa_finite = all(bool(torch.isfinite(x).all())
+                    for x in tree_leaves(state.wa))
+    if not wa_finite:
+        raise AssertionError("non-finite W̿")
+    step_loss = per_step.mean(1).tolist()
+    first, last = float(np.mean(step_loss[:2])), float(np.mean(step_loss[-2:]))
+    if not (np.isfinite(wa_probe) and wa_probe < init_probe):
+        raise AssertionError(f"loss did not fall: on the first step's "
+                             f"batches {init_probe:.4f} at init, "
+                             f"{wa_probe:.4f} under W̿")
+    L, syncs = cfg.n_layers, steps // H
+    fwd_per_layer = 2 if cfg.remat != "none" else 1
+    want = _want(flash_fwd=fwd_per_layer * steps * K * L + 2 * K * L,
+                 wa_sync_fused=syncs, flash_bwd_dq=steps * K * L,
+                 flash_bwd_dkv=steps * K * L)
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    step_ms, sync_ms = step_clock.ms(), sync_clock.ms()
+    med_step = float(np.median(step_ms))
+    tokens = K * B * S
+    positions = K * B * (S + cfg.n_vis_tokens * (cfg.family == "vlm"))
+    n_matmul = train_matmul_param_count(cfg)
+    res = {"arch": cfg.name, "layers": L, "params": train_param_count(cfg),
+           "steps": steps, "syncs": syncs, "launches": launches,
+           "step_loss": step_loss, "init_probe_loss": init_probe,
+           "wa_probe_loss": wa_probe, "median_step_ms": med_step,
+           "step_ms": step_ms, "tok_s": tokens / (med_step / 1e3),
+           "mfu": 6 * n_matmul * positions / (med_step / 1e3)
+           / PEAK_FLOPS[torch.bfloat16],
+           "median_sync_ms": float(np.median(sync_ms)), "wall_s": wall,
+           "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                            if dev.type == "cuda" else float("nan"))}
+    extra = {"audio": f" x {cfg.n_codebooks} codebooks",
+             "vlm": f" + {cfg.n_vis_tokens} vision positions"}.get(
+                 cfg.family, "")
+    print(f"[train13] {cfg.name} L{L} (cut from {full_layers}) "
+          f"d{cfg.d_model} H{cfg.n_heads}/{cfg.n_kv_heads} {cfg.family} "
+          f"{cfg.dtype} remat={cfg.remat}, {res['params'] / 1e6:.1f}M params: "
+          f"HWA K{K} H{H} I{I} fused sync via hwa_inner_step/hwa_sync, SGD "
+          f"lr {TRAIN['lr']} m0.9 wd5e-4 cosine, {B}x{S} tokens per replica"
+          f"{extra}"
+          f", {steps} steps, {syncs} syncs, launches {launches}")
+    print(f"[train13] {cfg.name}: loss per step "
+          f"{[round(x, 4) for x in step_loss]} (first two {first:.4f} -> "
+          f"last two {last:.4f}); on the first step's batches "
+          f"{init_probe:.4f} at init -> {wa_probe:.4f} under W̿; median "
+          f"inner step {med_step:.3f} ms, "
+          f"{res['tok_s']:.1f} tok/s, mfu {res['mfu']:.4f} "
+          f"({n_matmul / 1e6:.1f}M "
+          f"parameters in products, {positions} positions), median sync "
+          f"{res['median_sync_ms']:.3f} ms, peak memory "
+          f"{res['peak_mem_gib']:.3f} GiB, wall {wall:.2f} s | "
+          f"{CARD['line']}")
+    del state, batches
+    return res
+
+
+def phase_modality(device):
+    """Phase 13, the VLM and audio families and the whole-batch engine.
+    13a: internvl2-1b (24 layers) and musicgen-medium (48) at full width
+    serve 8 requests, each with a trace of 4 decode steps. 13b: each cut
+    to 2 layers, kernel path against plain path in f32 and bf16. 13c: the
+    DecodeEngine against the paged engine on granite-3-2b and both. 13d:
+    HWA training of internvl2-1b whole and musicgen-medium cut to 24
+    layers."""
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    out = {"serve": {}, "trace": {}, "reference": {}, "decode_engine": {},
+           "train": {}}
+    for arch in MODALITY_ARCHS:
+        cfg = get_config(arch).with_(attn_impl="flash_pallas")
+        res, eng = phase_serve_modality(dev, cfg)
+        out["trace"][arch] = phase_trace_modality(dev, eng, res)
+        res.pop("outputs")
+        res.pop("step_logits")
+        out["serve"][arch] = res
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in MODALITY_ARCHS:
+        out["reference"][arch] = {
+            dt: phase_modality_reference(dev, arch, dt)
+            for dt in ("float32", "bfloat16")}
+    for arch in DECODE_ENGINE_ARCHS:
+        out["decode_engine"][arch] = phase_decode_engine(dev, arch)
+        gc.collect()
+    for arch, layers in (("internvl2-1b", None),
+                         ("musicgen-medium", MUSICGEN_TRAIN_LAYERS)):
+        full = get_config(arch)
+        cfg = full.with_(n_layers=layers or full.n_layers,
+                         attn_impl="flash_pallas", remat="full")
+        out["train"][arch] = phase_train_modality(dev, cfg, full.n_layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[modality] phase 13 in {time.perf_counter() - t0:.1f} s | "
           f"{CARD['line']}")
     return out
 
@@ -3522,6 +4100,7 @@ def phase_yardstick_sweeps_192(device):
     dq_ms = _time_ms(dq_only, sets, 100)
     dkv_ms = _time_ms(dkv_only, sets, 100)
     b_lib = _sdpa_bwd_ms(bsets, 50)
+    b_plain = _plain_bwd_ms(bsets[:4])
     prod = 2 * B * Hq * D * (S * (S + 1) // 2)
     q_bytes, kv_bytes, row_bytes = 2 * B * S * Hq * D, 2 * B * S * Hkv * D, \
         4 * B * Hq * S
@@ -3532,32 +4111,67 @@ def phase_yardstick_sweeps_192(device):
     shape = f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} (kernels at {Dp}) bf16"
     print(f"[yardstick] flash_bwd {shape}: dq {dq_ms:.4f} ms (bound "
           f"{dq_bound:.5f} by {dq_by}), dk/dv {dkv_ms:.4f} ms (bound "
-          f"{dkv_bound:.5f} by {dkv_by}), both at the true head_dim; sdpa "
-          f"backward {b_lib:.4f} ms | {CARD['line']}")
+          f"{dkv_bound:.5f} by {dkv_by}), both at the true head_dim; plain "
+          f"backward {b_plain:.3f} ms, sdpa backward {b_lib:.4f} ms | "
+          f"{CARD['line']}")
     return ({"shape": shape, "ms": dq_ms, "library_ms": b_lib,
-             "bound_ms": dq_bound, "bound_by": dq_by},
+             "plain_ms": b_plain, "bound_ms": dq_bound, "bound_by": dq_by},
             {"shape": shape, "ms": dkv_ms, "library_ms": b_lib,
-             "bound_ms": dkv_bound, "bound_by": dkv_by})
+             "plain_ms": b_plain, "bound_ms": dkv_bound, "bound_by": dkv_by})
+
+
+def _plain_bwd_ms(sets, iters=3):
+    """The plain backward (``kernels/ref.py``: both sweeps' work) on (q,
+    k, v, dout) sets at their true head_dim, after the plain forward's
+    (O, lse)."""
+    full = [(q, k, v, *flash_attention_fwd_ref(q, k, v), dout)
+            for q, k, v, dout in sets]
+    return _time_ms(lambda q, k, v, out, lse, dout: flash_attention_bwd_ref(
+        q, k, v, out, lse, dout), full, iters, warmup=1)
 
 
 def _sdpa_bwd_ms(sets, iters):
-    """The backward of torch's scaled_dot_product_attention on the same
-    inputs (B, H, S, D): its forward+backward minus its forward, each
-    timed by CUDA-graph replay. Timed here only: the port never calls it."""
+    """The backward of torch's scaled_dot_product_attention alone, on the
+    same inputs laid out (B, H, S, D): each set's forward runs once on a
+    side stream, then ``iters`` backward calls on it (``retain_graph``)
+    are captured in one CUDA graph on that stream, where autograd runs
+    them, and replayed between CUDA events: timed alone, not as the
+    difference of a forward+backward and a forward timing, which is not
+    robust (it came out negative at internvl2-1b's shape). Timed here
+    only: the port never calls it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
     lib = []
-    for q, k, v, dout in sets:
-        q, k, v, dout = (x.transpose(1, 2).detach() for x in (q, k, v, dout))
-        lib.append((q.requires_grad_(True), k.requires_grad_(True),
-                    v.requires_grad_(True), dout))
+    with torch.cuda.stream(side):
+        for q, k, v, dout in sets:
+            q, k, v, dout = (x.transpose(1, 2).detach()
+                             for x in (q, k, v, dout))
+            ins = tuple(x.requires_grad_(True) for x in (q, k, v))
+            lib.append((F.scaled_dot_product_attention(
+                *ins, is_causal=True, enable_gqa=True), ins, dout))
 
-    def fwd(q, k, v, dout):
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              enable_gqa=True)
+        def bwd(i):
+            out, ins, dout = lib[i % len(lib)]
+            return torch.autograd.grad(out, ins, dout, retain_graph=True)
 
-    def fwd_bwd(q, k, v, dout):
-        return torch.autograd.grad(fwd(q, k, v, dout), (q, k, v), dout)
-
-    return _time_ms(fwd_bwd, lib, iters) - _time_ms(fwd, lib, iters)
+        for i in range(3):                        # warm-up off the capture
+            bwd(i)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for i in range(iters):
+            bwd(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / iters
+    del graph, lib
+    return ms
 
 
 def phase_yardstick_train(device, train, kernels):
@@ -3720,6 +4334,104 @@ def phase_yardstick_windows(device, train, kernels, windows):
     return entries
 
 
+def phase_yardstick_modality(device, mod, seed=51):
+    """The attention kernels at phase 13's shapes, for each arch: the
+    flash forward at a 13a prefill chunk (B1, the vision prefix + 512
+    positions) and at 13d's training batch (B4), the paged kernel at
+    13a's fullest decode step (B8, its lens and TW), and the two backward
+    sweeps at 13d's batch; each beside its plain version (the sweeps'
+    is the whole plain backward), SDPA or SDPA's backward
+    (``enable_gqa``) and its bound. Returns {arch: {"fwd", "fwd_b4",
+    "paged", "dq", "dkv"}}."""
+    dev = torch.device(device)
+    dt = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for arch in MODALITY_ARCHS:
+        cfg = get_config(arch)
+        Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        npre = cfg.n_vis_tokens if cfg.family == "vlm" else 0
+        S = npre + TRAIN["seq"]
+        serve = mod["serve"][arch]
+        train = mod["train"][arch]
+        rec = {}
+        for key, B in (("fwd", 1), ("fwd_b4", TRAIN["batch"])):
+            sets = [tuple(_randn(gen, (B, S, h, D), dt, dev)
+                          for h in (Hq, Hkv, Hkv))
+                    for _ in range(24 if B == 1 else 8)]
+            f_ms = _time_ms(lambda q, k, v: fa.flash_attention_fwd(q, k, v),
+                            sets, 100)
+            f_plain = _time_ms(lambda q, k, v: flash_attention_fwd_ref(
+                q, k, v), sets, 5, warmup=1)
+            f_lib = _sdpa_ms(sets, 100)
+            prod = 2 * B * Hq * D * (S * (S + 1) // 2)
+            f_bound, f_by = _bound(
+                2 * prod, 2 * (2 * B * S * Hq * D + 2 * B * S * Hkv * D)
+                + 4 * B * Hq * S, dt)
+            rec[key] = {"shape": f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} bf16",
+                        "ms": f_ms, "plain_ms": f_plain, "library_ms": f_lib,
+                        "bound_ms": f_bound, "bound_by": f_by}
+            del sets
+        rec["fwd"]["launches"] = serve["launches"]["flash_fwd"]
+        rec["fwd_b4"]["launches"] = train["launches"]["flash_fwd"]
+
+        lens, TW, ps = serve["full_step_lens"], serve["table_width"], 16
+        psets = [_paged_inputs(dev, lens=lens, Hq=Hq, Hkv=Hkv, D=D, ps=ps,
+                               TW=TW, dtype=dt, seed=seed + i)
+                 for i in range(8)]
+        p_ms = _time_ms(lambda *a: pa.paged_attention_cuda(*a), psets, 500)
+        p_plain = _time_ms(lambda *a: paged_attention_ref(*a), psets, 50)
+        tokens = int(sum(lens))
+        p_bound, p_by = _bound(4 * Hq * D * tokens,
+                               2 * (2 * len(lens) * Hq * D
+                                    + 2 * tokens * Hkv * D)
+                               + 4 * len(lens) * (TW + 1), dt)
+        rec["paged"] = {"shape": f"B{len(lens)} Hq{Hq} Hkv{Hkv} D{D} ps{ps} "
+                                 f"TW{TW} lens {lens} bf16",
+                        "ms": p_ms, "plain_ms": p_plain, "library_ms": None,
+                        "bound_ms": p_bound, "bound_by": p_by,
+                        "launches": serve["launches"]["paged_attention"]}
+        del psets
+
+        B = TRAIN["batch"]
+        sets, bsets = [], []
+        for _ in range(8):
+            q, dout = (_randn(gen, (B, S, Hq, D), dt, dev) for _ in range(2))
+            k, v = (_randn(gen, (B, S, Hkv, D), dt, dev) for _ in range(2))
+            o, lse = fa.flash_attention_fwd(q, k, v)
+            delta = (dout.float() * o.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+            sets.append((q, k, v, o, lse, dout, delta))
+            bsets.append((q, k, v, dout))
+        dq_only, dkv_only = _sweep_launchers(dev, D ** -0.5)
+        dq_ms = _time_ms(dq_only, sets, 100)
+        dkv_ms = _time_ms(dkv_only, sets, 100)
+        b_lib = _sdpa_bwd_ms(bsets, 50)
+        b_plain = _plain_bwd_ms(bsets[:4])
+        prod = 2 * B * Hq * D * (S * (S + 1) // 2)
+        q_bytes, kv_bytes, row_bytes = 2 * B * S * Hq * D, \
+            2 * B * S * Hkv * D, 4 * B * Hq * S
+        shape = f"B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} bf16"
+        for key, ms, flops, nbytes, launches in (
+                ("dq", dq_ms, 3 * prod, 3 * q_bytes + 2 * kv_bytes
+                 + 2 * row_bytes, train["launches"]["flash_bwd_dq"]),
+                ("dkv", dkv_ms, 4 * prod, 2 * q_bytes + 4 * kv_bytes
+                 + 2 * row_bytes, train["launches"]["flash_bwd_dkv"])):
+            bound, by = _bound(flops, nbytes, dt)
+            rec[key] = {"shape": shape, "ms": ms, "library_ms": b_lib,
+                        "plain_ms": b_plain, "bound_ms": bound,
+                        "bound_by": by, "launches": launches}
+        del sets, bsets
+        torch.cuda.empty_cache()
+        out[arch] = rec
+        for key, r in rec.items():
+            print(f"[yardstick] {arch} {key} {r['shape']}: {r['ms']:.4f} ms "
+                  f"(plain {r['plain_ms']:.3f}, library {r['library_ms']}, "
+                  f"bound {r['bound_ms']:.5f} by {r['bound_by']}) | "
+                  f"{CARD['line']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3770,6 +4482,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rec = phase_recurrent(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mod = phase_modality(device)
     entries = phase_yardstick(device, serve, kernels)
     fwd_slm, paged_slm = phase_yardstick_serving(device, serve_slm)
     fwd_qwen, paged_qwen = phase_yardstick_serving(
@@ -3804,7 +4519,14 @@ def main() -> int:
              "moe_train": moe_res["train"]["launches"],
              "hymba_serve": rec["serve"]["hymba-1.5b"]["launches"],
              "hymba_train": rec["train"]["hymba-1.5b"]["launches"],
-             "xlstm_train": rec["train"]["xlstm-125m"]["launches"]}
+             "xlstm_train": rec["train"]["xlstm-125m"]["launches"],
+             "vlm_serve": mod["serve"]["internvl2-1b"]["launches"],
+             "audio_serve": mod["serve"]["musicgen-medium"]["launches"],
+             "naive_serve": {k: sum(r["launches"][k] for r in
+                                    mod["decode_engine"].values())
+                             for k in _counts()},
+             "vlm_train": mod["train"]["internvl2-1b"]["launches"],
+             "audio_train": mod["train"]["musicgen-medium"]["launches"]}
     for e in entries:
         by_path = e.setdefault("launches_by_path", {"train": e["launches"]})
         for path, counts in paths.items():
@@ -3819,6 +4541,13 @@ def main() -> int:
     # the sweeps' head_dim-192 instances (entries 3 and 4: dq, dk/dv)
     entries[3]["at_stablelm_shape"], entries[4]["at_stablelm_shape"] = \
         phase_yardstick_sweeps_192(device)
+    # phase 13's shapes: internvl2-1b (G = 7) and musicgen-medium (G = 1,
+    # head_dim 64) on the forward, the paged kernel and both sweeps
+    for arch, recs in phase_yardstick_modality(device, mod).items():
+        key = "at_" + arch.split("-")[0] + "_shape"
+        entries[0][key] = {"prefill": recs["fwd"], "train": recs["fwd_b4"]}
+        entries[1][key] = recs["paged"]
+        entries[3][key], entries[4][key] = recs["dq"], recs["dkv"]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

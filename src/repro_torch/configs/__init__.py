@@ -3,8 +3,7 @@ of the JAX package's config modules.
 
 Each module defines ``config()`` (the published configuration, source
 cited) and ``smoke_config()`` (a reduced same-family variant for the CPU
-tests). ``ARCH_IDS`` lists only the configs the port has taken over so
-far; the others follow with the remaining model families.
+tests). ``ARCH_IDS`` lists all ten configs of the JAX package.
 """
 from __future__ import annotations
 
@@ -21,6 +20,8 @@ ARCH_IDS = [
     "qwen2-moe-a2.7b",
     "xlstm-125m",
     "hymba-1.5b",
+    "musicgen-medium",
+    "internvl2-1b",
 ]
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")

@@ -19,7 +19,10 @@ compress the mesh-native window state), the sync-tree flags and
 ``--inject-nan`` (offered there only with ``--mesh-native``) wait for
 the multi-replica sync across processes (ROADMAP.md Queue A 13). A
 caller that builds its own ``TrainConfig`` passes any ``HWAConfig``
-window (stride, streaming, kernels) through the Trainer unchanged.
+window (stride, streaming, kernels) through the Trainer unchanged. The
+vlm and audio archs are refused, as the JAX launcher refuses them: their
+batches carry vision embeddings or codebook streams, which the Trainer's
+(tokens, targets) pipeline does not; ``core.hwa``'s functions take them.
 """
 from __future__ import annotations
 
@@ -80,6 +83,10 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch)
     if args.attn_impl:
         cfg = cfg.with_(attn_impl=args.attn_impl)
+    if cfg.family in ("vlm", "audio"):
+        raise SystemExit(f"{args.arch}: the Trainer's batches are (tokens, "
+                         f"targets) only; train the modality archs through "
+                         f"lm.loss and core.hwa directly")
     lm = build_model(cfg)
     ds = make_markov_lm_dataset(vocab=cfg.vocab_size, seq_len=args.seq_len,
                                 n_train=2048, n_test=512, seed=args.seed,

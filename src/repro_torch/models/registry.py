@@ -1,15 +1,24 @@
-"""LM assembly: embeddings (+ learned meta-token prefix) -> layer stack
--> head, for the dense, MoE, ssm (xLSTM) and hybrid (Hymba) families.
+"""LM assembly: embeddings (+ learned meta-token or vision prefix) ->
+layer stack -> head, for the dense, MoE, ssm (xLSTM), hybrid (Hymba),
+vlm (InternVL2) and audio (MusicGen) families.
 
 Counterpart of ``repro.models.registry``. Parameters are a nested dict
-with the JAX package's layout and leaf names (``embed`` (V, D), ``head``
-(D, V), ``meta`` (n_meta, D) where the config has meta tokens,
-``stack``: one stacked dict per pattern spec, ``ln_f``), so the bridge
-moves them leaf for leaf. :class:`LM` is the ``nn.Module`` face of
-the model: it builds parameters on a device and runs the training loss
-and the paged serving entry points against a parameter tree it is
-handed, so a trainer can differentiate a replica's tree and a server can
-hot-swap the tree between steps.
+with the JAX package's layout and leaf names (``embed`` (V, D), or
+(CB, V, D) for audio; ``head`` (D, V), or (CB, D, V); ``vis_proj``
+(d_vis, D) for the VLM; ``meta`` (n_meta, D) where the config has meta
+tokens; ``stack``: one stacked dict per pattern spec; ``ln_f``), so the
+bridge moves them leaf for leaf. :class:`LM` is the ``nn.Module`` face of
+the model: it builds parameters on a device and runs the training loss,
+the whole-batch decode entry points and the paged serving entry points
+against a parameter tree it is handed, so a trainer can differentiate a
+replica's tree and a server can hot-swap the tree between steps.
+
+Batch conventions (a dict of tensors; targets only for the loss):
+  dense/moe/ssm/hybrid : tokens (B, S) int, targets (B, S)
+  vlm                  : + vis_embeds (B, n_vis, d_vis) f32, a stub
+                         frontend's patch embeddings
+  audio                : tokens/targets (B, S, n_codebooks): EnCodec
+                         streams
 """
 from __future__ import annotations
 
@@ -35,10 +44,16 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None):
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     D, V = cfg.d_model, cfg.vocab_size
+    cb = (cfg.n_codebooks,) if cfg.family == "audio" else ()
     params = {
-        "embed": normal_init(generator, (V, D), dtype, fan_in=D, device=dev),
-        "head": normal_init(generator, (D, V), dtype, fan_in=D, device=dev),
+        "embed": normal_init(generator, cb + (V, D), dtype, fan_in=D,
+                             device=dev),
+        "head": normal_init(generator, cb + (D, V), dtype, fan_in=D,
+                            device=dev),
     }
+    if cfg.family == "vlm":
+        params["vis_proj"] = normal_init(generator, (cfg.d_vis, D), dtype,
+                                         fan_in=cfg.d_vis, device=dev)
     if cfg.n_meta_tokens:
         params["meta"] = normal_init(generator, (cfg.n_meta_tokens, D),
                                      dtype, fan_in=D, device=dev)
@@ -53,14 +68,24 @@ def _embed_tokens(cfg, params, tokens):
     both devices, where the index's ``index_put_`` accumulates in
     parallel on the CPU in whatever order its threads meet, so that two
     runs of the same step differ and a resumed run could not be bit-exact
-    (``resilience.session``)."""
+    (``resilience.session``). Audio tokens (..., CB) sum their
+    codebooks' rows as the reference does: ``0 + p0 + p1 + ...`` in the
+    model dtype (a Python ``sum``: a stacked reduction may add in
+    another order)."""
+    if cfg.family == "audio":
+        return sum(nn.functional.embedding(tokens[..., c].long(),
+                                           params["embed"][c])
+                   for c in range(cfg.n_codebooks))
     return nn.functional.embedding(tokens.long(), params["embed"])
 
 
 def _prefix_len(cfg) -> int:
-    """Learned prefix tokens ahead of the prompt: Hymba's meta tokens
-    (the VLM's vision prefix comes with its family)."""
-    return cfg.n_meta_tokens
+    """Prefix positions ahead of the prompt: Hymba's meta tokens, the
+    VLM's vision tokens."""
+    n = cfg.n_meta_tokens
+    if cfg.family == "vlm":
+        n += cfg.n_vis_tokens
+    return n
 
 
 def _meta_prefix(params, batch_size: int):
@@ -68,12 +93,26 @@ def _meta_prefix(params, batch_size: int):
     return params["meta"].expand(batch_size, *params["meta"].shape)
 
 
-def _assemble_input(cfg, params, batch):
-    """Token embeddings behind any meta-token prefix. Returns (x,
-    positions); the positions cover the prefix."""
-    x = _embed_tokens(cfg, params, batch["tokens"])
+def _prefix(cfg, params, batch_size: int, vis_embeds):
+    """The prefix parts in order: meta tokens, then the vision tokens
+    (the patch embeddings cast to the model dtype and then projected, in
+    the reference's order)."""
+    parts = []
     if cfg.n_meta_tokens:
-        x = torch.cat([_meta_prefix(params, x.shape[0]), x], dim=1)
+        parts.append(_meta_prefix(params, batch_size))
+    if cfg.family == "vlm":
+        vis = params["vis_proj"]
+        parts.append(vis_embeds.to(vis.device, vis.dtype) @ vis)
+    return parts
+
+
+def _assemble_input(cfg, params, batch):
+    """Token embeddings behind any prefix (meta tokens, then the vision
+    tokens). Returns (x, positions); the positions cover the prefix."""
+    x = _embed_tokens(cfg, params, batch["tokens"])
+    parts = _prefix(cfg, params, x.shape[0], batch.get("vis_embeds"))
+    if parts:
+        x = torch.cat(parts + [x], dim=1)
     return x, torch.arange(x.shape[1], device=x.device)
 
 
@@ -84,8 +123,13 @@ def _drop_prefix(cfg, x):
 
 
 def _head(cfg, params, x):
-    logits = (x @ params["head"]).float()
-    return softcap(logits, cfg.final_softcap)
+    """f32 logits (..., V), or (..., CB, V) for audio's per-codebook
+    heads."""
+    if cfg.family == "audio":
+        logits = torch.einsum("...d,cdv->...cv", x, params["head"])
+    else:
+        logits = x @ params["head"]
+    return softcap(logits.float(), cfg.final_softcap)
 
 
 # ------------------------------------------------------------------
@@ -94,7 +138,8 @@ def _head(cfg, params, x):
 
 
 def lm_apply(cfg: ModelConfig, params, batch):
-    """Teacher-forcing forward. Returns (logits (B, S, V) f32, aux)."""
+    """Teacher-forcing forward. Returns (logits (B, S, V) f32, or (B, S,
+    CB, V) for audio, aux)."""
     x, positions = _assemble_input(cfg, params, batch)
     x, aux = tfm.apply_stack_train(cfg, params["stack"], x, positions)
     x = _drop_prefix(cfg, apply_norm(cfg, params["ln_f"], x))
@@ -125,7 +170,8 @@ def _head_and_xent(cfg, params, x, targets):
     reference chunks it: past 512 tokens (and at a multiple of 512) each
     512-token slice's logits are recomputed in the backward
     (``torch.utils.checkpoint``), which bounds the f32 logits held at
-    (B, 512, V). Returns (loss_mean, acc_mean)."""
+    (B, 512, V) ((B, 512, CB, V) for audio's (B, S, CB) targets). Returns
+    (loss_mean, acc_mean)."""
     S = targets.shape[1]
     if S % _XENT_CHUNK or S <= _XENT_CHUNK:
         logits = _head(cfg, params, x)
@@ -157,6 +203,50 @@ def lm_loss(cfg: ModelConfig, params, batch):
 
 
 # ------------------------------------------------------------------
+# whole-batch decode path (contiguous ring cache)
+# ------------------------------------------------------------------
+
+
+def lm_init_cache(cfg: ModelConfig, batch_size: int, seq_len: int,
+                  dtype=None, device=None):
+    """The whole-batch engine's cache: per-spec K/V rings and recurrent
+    states for ``seq_len`` tokens plus the model's prefix, and ``pos``
+    (0-dim int32, tokens consumed so far)."""
+    dev = resolve_device(device)
+    total = seq_len + _prefix_len(cfg)
+    return {"layers": tfm.init_stack_cache(cfg, batch_size, total,
+                                           dtype or _dtype(cfg), dev),
+            "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+@torch.no_grad()
+def lm_prefill(cfg: ModelConfig, params, cache, batch):
+    """Batched prefill: the full forward over (prefix +) prompt, every
+    layer's cache populated in place. Returns (last-token logits (B, V)
+    or (B, CB, V) f32, cache positioned after the prompt)."""
+    x, positions = _assemble_input(cfg, params, batch)
+    x = tfm.apply_stack_prefill(cfg, params["stack"], cache["layers"], x,
+                                positions)
+    x = apply_norm(cfg, params["ln_f"], x)[:, -1]
+    cache["pos"] = torch.full((), positions.shape[0], dtype=torch.int32,
+                              device=x.device)
+    return _head(cfg, params, x), cache
+
+
+@torch.no_grad()
+def lm_decode_step(cfg: ModelConfig, params, cache, tokens):
+    """One-token decode. tokens: (B,) int (or (B, CB) for audio). The
+    cache is written in place. Returns (logits (B, V) or (B, CB, V) f32,
+    cache)."""
+    x = _embed_tokens(cfg, params, tokens[:, None])          # (B, 1, D)
+    pos = cache["pos"]
+    x = tfm.apply_stack_decode(cfg, params["stack"], cache["layers"], x, pos)
+    x = apply_norm(cfg, params["ln_f"], x)[:, 0]
+    cache["pos"] = pos + 1
+    return _head(cfg, params, x), cache
+
+
+# ------------------------------------------------------------------
 # paged serving path
 # ------------------------------------------------------------------
 
@@ -175,10 +265,11 @@ def lm_paged_decode_step(cfg: ModelConfig, params, caches, tokens, pos_b,
                          tables, page_size: int):
     """One fixed-shape continuous-batching token step.
 
-    tokens: (B,) int; pos_b: (B,) int32 per-sequence positions (tokens
-    already cached — inactive slots carry pos 0 and write the trash page);
-    tables: (B, TW) int32 block tables. The pools in ``caches`` are
-    written in place. Returns (logits (B, V) f32, caches).
+    tokens: (B,) int ((B, CB) for audio); pos_b: (B,) int32
+    per-sequence positions (tokens already cached — inactive slots carry
+    pos 0 and write the trash page); tables: (B, TW) int32 block tables.
+    The pools in ``caches`` are written in place. Returns (logits (B, V)
+    or (B, CB, V) f32, caches).
     """
     x = _embed_tokens(cfg, params, tokens[:, None])          # (B, 1, D)
     x = tfm.apply_stack_decode_paged(cfg, params["stack"], caches, x, pos_b,
@@ -192,14 +283,17 @@ def lm_paged_prefill_chunk(cfg: ModelConfig, params, caches, batch,
                            n_valid: int, slot: int, tables, page_size: int):
     """Prefill ONE batch slot's prompt chunk into its pages.
 
-    batch: single-sequence batch dict (tokens (1, S_pad)) padded to the
+    batch: single-sequence batch dict (tokens (1, S_pad), or (1, S_pad,
+    CB), + vis_embeds (1, n_vis, d_vis) for the VLM) padded to the
     engine's static chunk length; n_valid: real token count INCLUDING
-    any meta prefix; slot: batch-slot index. Exact for attention-only
-    stacks at any n_valid (pad K/V goes to the trash page, causal masking
-    hides pad queries); recurrent stacks additionally need n_valid ==
-    S_total, so the engine routes them through
-    :func:`lm_paged_prefix_fill` and the step prefill instead. Returns
-    (next-token logits (1, V) f32, caches), written in place.
+    the meta/vision prefix; slot: batch-slot index. Exact for
+    attention-only stacks at any n_valid (pad K/V goes to the trash
+    page, causal masking hides pad queries); recurrent stacks
+    additionally need n_valid == S_total, so the engine routes them
+    through :func:`lm_paged_prefix_fill` and the step prefill instead.
+    Returns
+    (next-token logits (1, V) or (1, CB, V) f32, caches), written in
+    place.
     """
     x, _ = _assemble_input(cfg, params, batch)               # (1, S, D)
     x = tfm.apply_stack_prefill_paged(cfg, params["stack"], caches, x,
@@ -210,25 +304,27 @@ def lm_paged_prefill_chunk(cfg: ModelConfig, params, caches, batch,
 
 @torch.no_grad()
 def lm_paged_prefix_fill(cfg: ModelConfig, params, caches, slot: int, tables,
-                         page_size: int):
-    """Run the learned prefix (the meta tokens) for one slot at its exact
-    static length, so the slot's recurrent states are exact: its K/V go
-    to the slot's pages and each recurrent layer's state after the prefix
-    to row ``slot``. The engine then feeds the prompt through the decode
-    step (step prefill). Returns the caches, written in place."""
+                         page_size: int, vis_embeds=None):
+    """Run the prefix (meta tokens; vision tokens from ``vis_embeds`` (1,
+    n_vis, d_vis) for the VLM) for one slot at its exact static length,
+    so the slot's recurrent states are exact: its K/V go to the slot's
+    pages and each recurrent layer's state after the prefix to row
+    ``slot``. The engine then feeds the prompt through the decode step
+    (step prefill). Returns the caches, written in place."""
     npre = _prefix_len(cfg)
     if not npre:
         raise ValueError("prefix fill on a model without a prefix")
-    x = _meta_prefix(params, 1)
+    x = torch.cat(_prefix(cfg, params, 1, vis_embeds), dim=1)
     tfm.apply_stack_prefill_paged(cfg, params["stack"], caches, x, npre,
                                   slot, tables[slot], page_size)
     return caches
 
 
 class LM(nn.Module):
-    """The LM of one of the ported families. Holds the config; parameters are a tree the caller
-    owns (``init`` makes one), so the serving engine can swap weights
-    between steps without touching the module."""
+    """The LM of one of the ported families. Holds the config; parameters
+    are a tree the caller owns (``init`` makes one), so the serving
+    engine can swap weights between steps without touching the
+    module."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -243,6 +339,15 @@ class LM(nn.Module):
 
     def loss(self, params, batch):
         return lm_loss(self.cfg, params, batch)
+
+    def init_cache(self, batch_size, seq_len, dtype=None, device=None):
+        return lm_init_cache(self.cfg, batch_size, seq_len, dtype, device)
+
+    def prefill(self, params, cache, batch):
+        return lm_prefill(self.cfg, params, cache, batch)
+
+    def decode_step(self, params, cache, tokens):
+        return lm_decode_step(self.cfg, params, cache, tokens)
 
     def init_paged_cache(self, max_batch, n_pages, page_size, dtype=None,
                          device=None):
@@ -259,9 +364,10 @@ class LM(nn.Module):
         return lm_paged_prefill_chunk(self.cfg, params, caches, batch,
                                       n_valid, slot, tables, page_size)
 
-    def paged_prefix_fill(self, params, caches, slot, tables, page_size):
+    def paged_prefix_fill(self, params, caches, slot, tables, page_size,
+                          vis_embeds=None):
         return lm_paged_prefix_fill(self.cfg, params, caches, slot, tables,
-                                    page_size)
+                                    page_size, vis_embeds=vis_embeds)
 
     def forward(self, params, caches, tokens, pos_b, tables, page_size):
         """The serving step: :meth:`paged_decode_step`."""

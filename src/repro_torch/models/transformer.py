@@ -1,5 +1,6 @@
-"""Decoder stack of the LM families: init, the training path and the
-paged serving path.
+"""Decoder stack of the LM families: init, the training path, the
+whole-batch decode path (contiguous ring cache) and the paged serving
+path.
 
 Counterpart of ``repro.models.transformer``. A model is a *pattern* of
 sub-layer specs (a "super-block") repeated ``n_layers / len(pattern)``
@@ -8,7 +9,7 @@ times; each spec's parameters are stacked along a leading layer axis
 out, so a bridged parameter tree is a plain copy. Where JAX scans over
 the stacked layers, the port runs a Python loop:
 
-  dense   : [attn+mlp]                      (window per spec)
+  dense / vlm / audio : [attn+mlp]          (window per spec)
   moe     : [attn+moe]                      (models.moe)
   gemma2  : [local attn, global attn] x 23
   xlstm   : [mLSTM block, sLSTM block] x 6  (models.ssm)
@@ -18,9 +19,10 @@ Sub-layer kinds: "attn" (GQA attention + MLP or MoE), "mlstm" and
 "slstm" (xLSTM blocks; sLSTM carries its own FFN), "hybrid" (Hymba's
 attention and Mamba heads side by side, fused by softmax(fuse), + MLP).
 
-The paged path updates the page pools and the per-slot recurrent states
-IN PLACE (``index_put_``, ``copy_``) where the JAX package returns new
-caches through donated buffers.
+The decode paths update their caches IN PLACE (``index_copy_``,
+``index_put_``, ``copy_``): the contiguous K/V rings and the page pools
+and the recurrent states, where the JAX package returns new caches
+through donated buffers.
 """
 from __future__ import annotations
 
@@ -33,8 +35,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.kernels.head_dim import pad_head_dim, padded_head_dim
 from repro_torch.models import ssm
 from repro_torch.models.attention import run_attention
-from repro_torch.models.cache import (TRASH_PAGE, init_paged_pool,
-                                      paged_phys_pages)
+from repro_torch.models.cache import (TRASH_PAGE, attn_cache_len,
+                                      cache_positions, init_attn_cache,
+                                      init_paged_pool, paged_phys_pages,
+                                      update_attn_cache)
 from repro_torch.models.common import (activation, apply_norm, apply_rope,
                                        init_norm, normal_init)
 from repro_torch.models.moe import init_moe, moe_forward
@@ -49,10 +53,11 @@ class LayerSpec:
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm", "audio"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (the port covers the "
-            f"dense, MoE, ssm and hybrid families; see ROADMAP.md Queue A)")
+            f"family {cfg.family!r} has no LM stack (the port covers the "
+            f"dense, MoE, ssm, hybrid, vlm and audio families; convnets "
+            f"are models.convnet)")
     if cfg.expert_parallel:
         raise NotImplementedError(
             "expert_parallel=True (the all-to-all MoE path) needs a device "
@@ -415,6 +420,31 @@ def _store_state(dst, new, slot=None):
         d.copy_(v if slot is None else v[0])
 
 
+def _cell_step(cfg, spec, p, cache, x):
+    """An mLSTM or sLSTM block over x from the layer cache's state, which
+    it replaces in place. Returns x."""
+    y, new = _CELLS[spec.kind][0](cfg, p["cell"],
+                                  apply_norm(cfg, p["ln1"], x),
+                                  cache["cell"])
+    _store_state(cache["cell"], new)
+    return x + y
+
+
+def _attn_ffn_tail(cfg, spec, p, x, attn_out, m_out):
+    """The rest of an attention layer once its attention (and, for a
+    hybrid layer, its Mamba) output exists: fuse, post-norm, residual,
+    feed-forward. Returns x."""
+    if m_out is not None:
+        attn_out = _fuse_hybrid(p, attn_out, m_out)
+    if "ln1_post" in p:
+        attn_out = apply_norm(cfg, p["ln1_post"], attn_out)
+    x = x + attn_out
+    mlp_out, _ = _apply_ffn(cfg, spec, p, apply_norm(cfg, p["ln2"], x))
+    if "ln2_post" in p:
+        mlp_out = apply_norm(cfg, p["ln2_post"], mlp_out)
+    return x + mlp_out
+
+
 def apply_layer_decode_paged(cfg, spec: LayerSpec, p, cache, x, pos_b,
                              tables, page_size: int):
     """One-token layer step with per-sequence positions.
@@ -426,11 +456,7 @@ def apply_layer_decode_paged(cfg, spec: LayerSpec, p, cache, x, pos_b,
     in place.
     """
     if spec.kind in _CELLS:
-        y, new = _CELLS[spec.kind][0](cfg, p["cell"],
-                                      apply_norm(cfg, p["ln1"], x),
-                                      cache["cell"])
-        _store_state(cache["cell"], new)
-        return x + y
+        return _cell_step(cfg, spec, p, cache, x)
     pages = cache["pages"]
     h = apply_norm(cfg, p["ln1"], x)
     q_pos = pos_b[:, None]                        # (B, 1) per-sequence
@@ -444,17 +470,11 @@ def apply_layer_decode_paged(cfg, spec: LayerSpec, p, cache, x, pos_b,
     H, P, D = p["attn"]["wo"].shape
     attn_out = (out.reshape(-1, H * P) @ p["attn"]["wo"].reshape(H * P, D)
                 )[:, None]
+    m_out = None
     if spec.kind == "hybrid":
         m_out, new = ssm.mamba_scan(cfg, p["mamba"], h, cache["mamba"])
         _store_state(cache["mamba"], new)
-        attn_out = _fuse_hybrid(p, attn_out, m_out)
-    if "ln1_post" in p:
-        attn_out = apply_norm(cfg, p["ln1_post"], attn_out)
-    x = x + attn_out
-    mlp_out, _ = _apply_ffn(cfg, spec, p, apply_norm(cfg, p["ln2"], x))
-    if "ln2_post" in p:
-        mlp_out = apply_norm(cfg, p["ln2_post"], mlp_out)
-    return x + mlp_out
+    return _attn_ffn_tail(cfg, spec, p, x, attn_out, m_out)
 
 
 def apply_stack_decode_paged(cfg: ModelConfig, stack_params, caches, x,
@@ -505,19 +525,13 @@ def apply_layer_prefill_paged(cfg, spec: LayerSpec, p, cache, x,
     _pool_write(pages["v"], (phys, pslot), v[0])
     attn_out = _attn_call(cfg, p["attn"], h, positions, k, v, positions,
                           spec.window)
+    m_out = None
     if spec.kind == "hybrid":
         m_out, new = ssm.mamba_scan(cfg, p["mamba"], h,
                                     ssm.init_mamba_state(cfg, 1, x.dtype,
                                                          x.device))
         _store_state(cache["mamba"], new, slot)
-        attn_out = _fuse_hybrid(p, attn_out, m_out)
-    if "ln1_post" in p:
-        attn_out = apply_norm(cfg, p["ln1_post"], attn_out)
-    x = x + attn_out
-    mlp_out, _ = _apply_ffn(cfg, spec, p, apply_norm(cfg, p["ln2"], x))
-    if "ln2_post" in p:
-        mlp_out = apply_norm(cfg, p["ln2_post"], mlp_out)
-    return x + mlp_out
+    return _attn_ffn_tail(cfg, spec, p, x, attn_out, m_out)
 
 
 def apply_stack_prefill_paged(cfg: ModelConfig, stack_params, caches, x,
@@ -528,4 +542,113 @@ def apply_stack_prefill_paged(cfg: ModelConfig, stack_params, caches, x,
     for spec, p, cache in iter_layers(cfg, stack_params, caches):
         x = apply_layer_prefill_paged(cfg, spec, p, cache, x, n_valid, slot,
                                       table_row, page_size)
+    return x
+
+
+# ------------------------------------------------------------------
+# whole-batch decode path (contiguous ring cache)
+# ------------------------------------------------------------------
+#
+# The whole-batch engine's caches: per spec, the attention layers' K/V
+# rings ``"attn"`` {"k", "v"} (L, B, C, Hkv, D) and the recurrent states
+# (``"mamba"``, ``"cell"``) stacked on L. One position for the whole
+# batch: the prefill runs every sequence from 0, the decode step writes
+# slot ``pos % C`` of every row.
+
+
+def _write_prefill_cache(attn_cache, k, v, positions):
+    """Populate the ring cache from a full-sequence prefill, in place.
+    Only the last C positions can survive in a ring of size C."""
+    C = attn_cache["k"].shape[1]
+    if k.shape[1] >= C:
+        k, v, positions = k[:, -C:], v[:, -C:], positions[-C:]
+    slots = torch.remainder(positions, C).long()
+    attn_cache["k"].index_copy_(1, slots, k.to(attn_cache["k"].dtype))
+    attn_cache["v"].index_copy_(1, slots, v.to(attn_cache["v"].dtype))
+
+
+def apply_layer_prefill(cfg, spec: LayerSpec, p, cache, x, positions):
+    """Full-sequence forward of one layer that also populates its cache
+    (in place): the K/V ring from the whole prompt, and each recurrent
+    state after a scan of the whole prompt from the cache's state (no
+    pads, so the state is exact). Attention runs ``cfg.attn_impl``: the
+    flash kernel on the card under ``flash_pallas``. Returns x."""
+    if spec.kind in _CELLS:
+        return _cell_step(cfg, spec, p, cache, x)
+    h = apply_norm(cfg, p["ln1"], x)
+    k, v = _project_kv(cfg, p["attn"], h, positions)
+    _write_prefill_cache(cache["attn"], k, v, positions)
+    attn_out = _attn_call(cfg, p["attn"], h, positions, k, v, positions,
+                          spec.window)
+    m_out = None
+    if spec.kind == "hybrid":
+        m_out, new = ssm.mamba_scan(cfg, p["mamba"], h, cache["mamba"])
+        _store_state(cache["mamba"], new)
+    return _attn_ffn_tail(cfg, spec, p, x, attn_out, m_out)
+
+
+def apply_stack_prefill(cfg: ModelConfig, stack_params, caches, x,
+                        positions):
+    """Prefill through all layers, caches written in place. Returns y."""
+    for spec, p, cache in iter_layers(cfg, stack_params, caches):
+        x = apply_layer_prefill(cfg, spec, p, cache, x, positions)
+    return x
+
+
+def init_layer_cache(cfg, spec: LayerSpec, batch, seq_len, dtype, device):
+    """One layer's contiguous cache (no leading layer axis)."""
+    cache = {}
+    if spec.kind in ("attn", "hybrid"):
+        c = init_attn_cache(1, batch, attn_cache_len(seq_len, spec.window),
+                            cfg.n_kv_heads, cfg.resolved_head_dim, dtype,
+                            device)
+        cache["attn"] = {k: v[0] for k, v in c.items()}
+    if spec.kind == "hybrid":
+        cache["mamba"] = ssm.init_mamba_state(cfg, batch, dtype, device)
+    if spec.kind in _CELLS:
+        cache["cell"] = _CELLS[spec.kind][1](cfg, batch, dtype, device)
+    return cache
+
+
+def init_stack_cache(cfg: ModelConfig, batch, seq_len, dtype, device):
+    """Per-spec caches of :func:`init_layer_cache`, stacked on the
+    super-block axis."""
+    pattern = block_pattern(cfg)
+    n_blocks = cfg.n_layers // len(pattern)
+
+    def stacked(tree):
+        if isinstance(tree, dict):
+            return {k: stacked(v) for k, v in tree.items()}
+        return tree.expand(n_blocks, *tree.shape).clone()
+
+    return [stacked(init_layer_cache(cfg, spec, batch, seq_len, dtype,
+                                     device)) for spec in pattern]
+
+
+def apply_layer_decode(cfg, spec: LayerSpec, p, cache, x, pos):
+    """One-token layer step. x: (B, 1, D); pos: 0-dim int32 tensor (tokens
+    so far). The token's K/V go to ring slot ``pos % C`` and the states
+    are replaced, in place. Attention is the plain version over the ring
+    (``run_attention`` at one query), as in the reference. Returns x."""
+    if spec.kind in _CELLS:
+        return _cell_step(cfg, spec, p, cache, x)
+    h = apply_norm(cfg, p["ln1"], x)
+    q_pos = pos.reshape(1)
+    k_new, v_new = _project_kv(cfg, p["attn"], h, q_pos)
+    ring = update_attn_cache(cache["attn"], k_new, v_new, pos)
+    k_pos = cache_positions(ring["k"].shape[1], pos)
+    attn_out = _attn_call(cfg, p["attn"], h, q_pos, ring["k"], ring["v"],
+                          k_pos, spec.window)
+    m_out = None
+    if spec.kind == "hybrid":
+        m_out, new = ssm.mamba_scan(cfg, p["mamba"], h, cache["mamba"])
+        _store_state(cache["mamba"], new)
+    return _attn_ffn_tail(cfg, spec, p, x, attn_out, m_out)
+
+
+def apply_stack_decode(cfg: ModelConfig, stack_params, caches, x, pos):
+    """One-token step through all layers, caches written in place.
+    Returns y (B, 1, D)."""
+    for spec, p, cache in iter_layers(cfg, stack_params, caches):
+        x = apply_layer_decode(cfg, spec, p, cache, x, pos)
     return x

@@ -1,6 +1,13 @@
-"""Paged continuous-batching serving engine.
+"""Serving engines: prefill + greedy/temperature decode.
 
-Counterpart of ``repro.serve.engine.PagedDecodeEngine``: a page-pool KV
+Counterpart of ``repro.serve.engine``. Two engines share the model's
+functions:
+
+- :class:`DecodeEngine`: the whole-batch engine, a static batch over a
+  contiguous ``(L, B, C, Hkv, D)`` ring cache, sampling and decode fused
+  in one step. It is the reference's default engine and the oracle the
+  paged engine is held to.
+- :class:`PagedDecodeEngine`: a page-pool KV
 cache with per-sequence block tables, ONE decode step over fixed
 (max_batch, pool) shapes so admissions and evictions never change a
 shape, sampling on the device, and an on-device output buffer (no
@@ -13,7 +20,14 @@ in the reference), the page pools are written in place, and tokens and
 the output buffer stay on the device until a request finishes. Recurrent
 stacks (xLSTM, Hymba) run the exact-length prefix fill at admission and
 then take their prompt one token a step through the decode step (step
-prefill). The whole-batch ``DecodeEngine`` is not ported yet.
+prefill).
+
+Both serve every ported family, multi-codebook audio included: its
+tokens, last sampled tokens and output buffer carry a trailing CB axis,
+and the model sees plain parallel streams. MusicGen's delay pattern
+(codebook c shifted c steps) is offered as :func:`apply_delay_pattern`
+and :func:`undo_delay_pattern`; no engine applies it, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -32,13 +46,88 @@ from repro_torch.models.registry import (LM, _prefix_len,
 from repro_torch.serve.pages import PageManager
 
 
+def apply_delay_pattern(tokens, pad_token: int = 0):
+    """(B, S, CB) -> (B, S+CB-1, CB) with codebook c delayed by c steps."""
+    B, S, CB = tokens.shape
+    out = torch.full((B, S + CB - 1, CB), pad_token, dtype=tokens.dtype,
+                     device=tokens.device)
+    for c in range(CB):
+        out[:, c:c + S, c] = tokens[..., c]
+    return out
+
+
+def undo_delay_pattern(tokens, n_frames: int):
+    """(B, S+CB-1, CB) -> (B, n_frames, CB)."""
+    CB = tokens.shape[-1]
+    return torch.stack([tokens[:, c:c + n_frames, c] for c in range(CB)],
+                       dim=-1)
+
+
 def _sample(logits, generator, temperature: float):
     """Argmax at temperature 0; otherwise a categorical draw from the
-    engine's device generator (not JAX's bits)."""
+    engine's device generator (not JAX's bits). logits (..., V)."""
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(logits / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[..., 0]
+    flat = probs.reshape(-1, probs.shape[-1])
+    return torch.multinomial(flat, 1, generator=generator)[:, 0] \
+        .reshape(probs.shape[:-1])
+
+
+def _as_tensor(x, device, dtype):
+    x = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+    return x.to(device, dtype)
+
+
+def _batch_to_device(batch, device):
+    """A batch dict of arrays or tensors as the model takes it: int64
+    tokens and f32 ``vis_embeds`` on ``device`` (other keys dropped)."""
+    out = {"tokens": _as_tensor(batch["tokens"], device, torch.int64)}
+    if batch.get("vis_embeds") is not None:
+        out["vis_embeds"] = _as_tensor(batch["vis_embeds"], device,
+                                       torch.float32)
+    return out
+
+
+@dataclasses.dataclass
+class DecodeEngine:
+    """Whole-batch engine: a static batch, a contiguous cache, one prefill
+    of the whole batch (the flash kernel at B = batch under
+    ``flash_pallas``), then one fused step a token (sample the previous
+    logits, decode). Sampling draws from a ``torch.Generator`` on the
+    engine's device. ``device`` defaults to the card."""
+    lm: LM
+    params: object
+    max_seq_len: int
+    device: str | torch.device | None = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+
+    def step(self, cache, logits, generator, temperature: float):
+        """Sample from ``logits`` and decode the sample: (token, next
+        logits, cache)."""
+        tok = _sample(logits, generator, temperature).to(torch.int32)
+        logits, cache = self.lm.decode_step(self.params, cache, tok)
+        return tok, logits, cache
+
+    def generate(self, batch, n_new_tokens: int, *, temperature: float = 0.0,
+                 seed: int = 0):
+        """Prefill ``batch`` (tokens (B, S) or (B, S, CB), + vis_embeds for
+        the VLM) then decode ``n_new_tokens`` greedily or sampled.
+        Returns int32 tokens on the device: (B, n_new) or (B, n_new, CB)
+        for audio."""
+        b = _batch_to_device(batch, self.device)
+        cache = self.lm.init_cache(b["tokens"].shape[0], self.max_seq_len,
+                                   device=self.device)
+        logits, cache = self.lm.prefill(self.params, cache, b)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        outs = []
+        for _ in range(n_new_tokens):
+            tok, logits, cache = self.step(cache, logits, gen, temperature)
+            outs.append(tok)
+        return torch.stack(outs, dim=1)
 
 
 def model_table_width(cfg, max_seq_len: int, page_size: int) -> int:
@@ -97,16 +186,18 @@ class PagedDecodeEngine:
     def reset_state(self, seed: int = 0):
         """Fresh caches / output buffer / generator / page manager."""
         dev = self.device
+        cfg = self.lm.cfg
         caches = self.lm.init_paged_cache(self.max_batch, self.n_pages,
                                           self.page_size, device=dev)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
+        cb = (cfg.n_codebooks,) if cfg.family == "audio" else ()
         self.state = {
             "caches": caches,
-            "last": torch.zeros((self.max_batch,), dtype=torch.int32,
+            "last": torch.zeros((self.max_batch,) + cb, dtype=torch.int32,
                                 device=dev),
             # last column = scratch for non-emitting steps
-            "out": torch.zeros((self.max_batch, self.max_new + 1),
+            "out": torch.zeros((self.max_batch, self.max_new + 1) + cb,
                                dtype=torch.int32, device=dev),
             "generator": gen,
             "logits": None,      # the latest step's logits, for inspection
@@ -126,20 +217,20 @@ class PagedDecodeEngine:
         in-flight state untouched."""
         self.params = new_params
 
-    def _to_device(self, arr, dtype):
-        return torch.as_tensor(np.asarray(arr)).to(self.device, dtype)
-
     def step(self, ctrl: dict):
         """One fixed-shape decode step. ``ctrl`` holds host-built arrays:
         tables (B,TW) i32, pos (B,) i32, use_prompt (B,) bool,
-        prompt_tok (B,) i32, out_idx (B,) i32, reset (B,) bool. The
-        recurrent states of the slots flagged in ``reset`` are zeroed
+        prompt_tok (B,)/(B,CB) i32, out_idx (B,) i32, reset (B,) bool.
+        The recurrent states of the slots flagged in ``reset`` are zeroed
         first."""
         s = self.state
-        c = {k: self._to_device(v, torch.bool if k in ("use_prompt", "reset")
-                                else torch.int32) for k, v in ctrl.items()}
+        c = {k: _as_tensor(v, self.device, torch.bool
+                           if k in ("use_prompt", "reset") else torch.int32)
+             for k, v in ctrl.items()}
         caches = tfm.reset_paged_states(s["caches"], c["reset"])
-        tok_in = torch.where(c["use_prompt"], c["prompt_tok"], s["last"])
+        up = c["use_prompt"]
+        upb = up if s["last"].ndim == 1 else up[:, None]
+        tok_in = torch.where(upb, c["prompt_tok"], s["last"])
         logits, caches = lm_paged_decode_step(
             self.lm.cfg, self.params, caches, tok_in, c["pos"], c["tables"],
             self.page_size)
@@ -151,20 +242,24 @@ class PagedDecodeEngine:
         s.update(caches=caches, last=sampled, logits=logits)
 
     def prefill_into(self, slot: int, batch1: dict, n_valid: int):
-        """Chunk-prefill one slot: pads the prompt to ``prefill_chunk``,
-        writes its pages, samples the first output token into
-        ``out[slot, 0]``. One dispatch per admission."""
+        """Chunk-prefill one slot: pads the prompt (tokens (1, S) or (1,
+        S, CB); ``vis_embeds`` passed on) to ``prefill_chunk``, writes
+        its pages, samples the first output token into ``out[slot, 0]``.
+        One dispatch per admission."""
         tokens = np.asarray(batch1["tokens"])
         S = tokens.shape[1]
         if S > self.prefill_chunk:
             raise ValueError(f"prompt of {S} tokens exceeds prefill_chunk "
                              f"{self.prefill_chunk}")
-        tokens = np.pad(tokens, [(0, 0), (0, self.prefill_chunk - S)])
+        width = [(0, 0), (0, self.prefill_chunk - S)] + \
+            [(0, 0)] * (tokens.ndim - 2)
+        padded = dict(batch1, tokens=np.pad(tokens, width))
         s = self.state
         logits, caches = lm_paged_prefill_chunk(
             self.lm.cfg, self.params, s["caches"],
-            {"tokens": self._to_device(tokens, torch.int64)}, n_valid, slot,
-            self._to_device(self.pages.tables, torch.int32), self.page_size)
+            _batch_to_device(padded, self.device), n_valid, slot,
+            _as_tensor(self.pages.tables, self.device, torch.int32),
+            self.page_size)
         sampled = _sample(logits, s["generator"],
                           self.temperature).to(torch.int32)[0]
         s["last"][slot] = sampled
@@ -176,8 +271,8 @@ class PagedDecodeEngine:
         static-length entry point for recurrent stacks. Overwrites the
         slot's recurrent states."""
         lm_paged_prefix_fill(self.lm.cfg, self.params, self.state["caches"],
-                             slot, self._to_device(self.pages.tables,
-                                                   torch.int32),
+                             slot, _as_tensor(self.pages.tables, self.device,
+                                              torch.int32),
                              self.page_size)
 
     def read_out(self, slot: int, n: int) -> np.ndarray:
@@ -194,11 +289,17 @@ class PagedDecodeEngine:
                 c["pages"] = {k: v[:, gather] for k, v in c["pages"].items()}
 
     def generate(self, batch, n_new_tokens: int, *, seed: int = 0):
-        """Whole-batch convenience wrapper: admits all B sequences through
-        the continuous scheduler at once. Returns (B, n_new) int32."""
+        """Whole-batch convenience wrapper (the counterpart of
+        :meth:`DecodeEngine.generate` at temperature 0): admits all B
+        sequences through the continuous scheduler at once. Returns (B,
+        n_new) int32, or (B, n_new, CB) for audio, on the host."""
         from repro_torch.serve.scheduler import ContinuousScheduler, Request
         tokens = np.asarray(batch["tokens"])
-        reqs = [Request(rid=b, tokens=tokens[b], n_new=n_new_tokens)
+        vis = batch.get("vis_embeds")
+        vis = None if vis is None else np.asarray(
+            vis.cpu() if torch.is_tensor(vis) else vis)
+        reqs = [Request(rid=b, tokens=tokens[b], n_new=n_new_tokens,
+                        vis_embeds=None if vis is None else vis[b])
                 for b in range(tokens.shape[0])]
         outs = ContinuousScheduler(self).run(reqs, seed=seed)
         return torch.as_tensor(np.stack([outs[b] for b in range(len(reqs))]))

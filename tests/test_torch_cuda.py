@@ -73,6 +73,14 @@ FLASH_CASES = [
          window=1024),
     dict(B=1, S=1100, T=1100, Hq=25, Hkv=5, D=64, dtype=torch.float32,
          window=1024),
+    # internvl2-1b (G = 7): the prefill chunk over 256 vision + 512 prompt
+    # positions, the training batch, and f32; musicgen-medium (G = 1 at
+    # head_dim 64): the prefill chunk and the training batch
+    dict(B=1, S=768, T=768, Hq=14, Hkv=2, D=64, dtype=torch.bfloat16),
+    dict(B=4, S=768, T=768, Hq=14, Hkv=2, D=64, dtype=torch.bfloat16),
+    dict(B=1, S=300, T=300, Hq=14, Hkv=2, D=64, dtype=torch.float32),
+    dict(B=1, S=512, T=512, Hq=24, Hkv=24, D=64, dtype=torch.bfloat16),
+    dict(B=4, S=512, T=512, Hq=24, Hkv=24, D=64, dtype=torch.bfloat16),
 ]
 
 PAGED_CASES = [
@@ -108,6 +116,14 @@ PAGED_CASES = [
          ps=16, TW=65, dtype=torch.bfloat16, window=1024),
     dict(lens=[0, 1, 129, 300, 1023, 1024, 1025, 1184], Hq=25, Hkv=5, D=64,
          ps=16, TW=65, dtype=torch.float32, window=1024),
+    # internvl2-1b decode: 7 warps a CTA (G = 7), lens past the 256 vision
+    # positions; musicgen-medium decode: G = 1 at head_dim 64
+    dict(lens=[0, 1, 257, 300, 544, 700, 799, 800], Hq=14, Hkv=2, D=64,
+         ps=16, TW=50, dtype=torch.bfloat16),
+    dict(lens=[0, 1, 257, 300, 544, 700, 799, 800], Hq=14, Hkv=2, D=64,
+         ps=16, TW=50, dtype=torch.float32),
+    dict(lens=[0, 1, 17, 16, 100, 300, 543, 544], Hq=24, Hkv=24, D=64,
+         ps=16, TW=34, dtype=torch.bfloat16),
 ]
 
 #: two paged launches on the same inputs (chip_smoke._paged_repeat_case)
@@ -120,6 +136,10 @@ PAGED_REPEAT_CASES = [
          TW=35),
     dict(lens=[0, 1, 129, 300, 1023, 1024, 1025, 1184], Hq=25, Hkv=5, D=64,
          ps=16, TW=65, window=1024),
+    dict(lens=[0, 1, 257, 300, 544, 700, 799, 800], Hq=14, Hkv=2, D=64,
+         ps=16, TW=50),
+    dict(lens=[0, 1, 17, 16, 100, 300, 543, 544], Hq=24, Hkv=24, D=64,
+         ps=16, TW=34),
 ]
 
 
@@ -184,6 +204,15 @@ BWD_CASES = [
          window=1024, through_ops=True),
     dict(B=1, S=1100, Hq=25, Hkv=5, D=64, dtype=torch.float32,
          window=1024),
+    # internvl2-1b's training batch (256 + 512 positions): G = 7, a dk/dv
+    # cluster of 7, directly and through the wrappers, and f32;
+    # musicgen-medium's: G = 1 at head_dim 64
+    dict(B=4, S=768, Hq=14, Hkv=2, D=64, dtype=torch.bfloat16),
+    dict(B=4, S=768, Hq=14, Hkv=2, D=64, dtype=torch.bfloat16,
+         through_ops=True),
+    dict(B=1, S=300, Hq=14, Hkv=2, D=64, dtype=torch.float32),
+    dict(B=4, S=512, Hq=24, Hkv=24, D=64, dtype=torch.bfloat16,
+         through_ops=True),
 ]
 
 #: two dk/dv launches on the same inputs (chip_smoke._dkv_repeat_case)
@@ -194,6 +223,8 @@ DKV_REPEAT_CASES = [
     dict(B=2, S=256, Hq=8, Hkv=2, D=192),
     dict(B=4, S=512, Hq=16, Hkv=8, D=64),
     dict(B=4, S=640, Hq=25, Hkv=5, D=64, window=1024),
+    dict(B=4, S=768, Hq=14, Hkv=2, D=64),
+    dict(B=4, S=512, Hq=24, Hkv=24, D=64),
 ]
 
 

@@ -4,9 +4,9 @@ smoke configs and both MoE archs' (the padded prefill chunk routes its
 pad tokens too) in f32, attn_impl='flash_pallas' on both sides (JAX:
 interpret-mode Pallas; port: the kernels' plain versions on the CPU).
 Logits and the updated page pools agree to rtol = atol = 1e-4: XLA's and
-torch's CPU matmuls sum in different orders. Also: the parts this slice
-does not port raise NotImplementedError, and the recurrent archs'
-configs equal the reference's."""
+torch's CPU matmuls sum in different orders. Also: a convnet or unknown
+family is refused, and the recurrent archs' configs equal the
+reference's."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -95,9 +95,10 @@ def test_init_matches_jax_layout():
 
 
 def test_unported_paths_raise():
-    """The families still unported raise (the MoE family is ported:
-    tests/test_torch_moe.py holds its sharded paths raising); ``flash_jnp``
-    (ported) runs and an unknown implementation is refused."""
+    """Every LM family is ported (the MoE family's sharded paths raise:
+    tests/test_torch_moe.py); a convnet config and an unknown family are
+    still refused by ``build_model``. ``flash_jnp`` (ported) runs and an
+    unknown attention implementation is refused."""
     cfg = get_smoke_config("granite-3-2b")
     q = torch.zeros(1, 8, 4, 16)
     pos = torch.arange(8)
@@ -105,9 +106,10 @@ def test_unported_paths_raise():
     assert tuple(out.shape) == (1, 8, 4, 16)
     with pytest.raises(ValueError, match="unknown attn_impl"):
         run_attention("flash", q, q[:, :, :2], q[:, :, :2], pos, pos)
-    for family in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError):
-            build_model(cfg.with_(family=family))
+    with pytest.raises(ValueError, match="convnet"):
+        build_model(cfg.with_(family="convnet"))
+    with pytest.raises(NotImplementedError, match="no LM stack"):
+        build_model(cfg.with_(family="diffusion"))
 
 
 @pytest.mark.parametrize("arch", ["xlstm-125m", "hymba-1.5b"])
