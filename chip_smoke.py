@@ -46,7 +46,32 @@ raising on any failure:
                medium's G = 1 at head_dim 64: the forward at B1 and B4
                S512, the sweeps at B4 S512, dk/dv and paged twice; the
                fused sync at internvl2's 630.6M and musicgen's 931.2M at
-               24 layers).
+               24 layers); phase 14's (gemma2-27b's G = 2 at head_dim 128
+               with softcap 50: the forward over its 5,888-token chunk on
+               a local layer, window 4096, and a global one, and in f32
+               at S 4,200; the paged kernel with lens across 4,096 at TW
+               370, local in bf16 and f32, global, and twice to the bit;
+               command-r-35b's G = 8: the forward at B1 S512 and in f32,
+               the paged kernel in bf16 and f32 and twice to the bit, the
+               sweeps at B1 S512 directly, through the wrappers and in
+               f32, dk/dv twice to the bit).
+14. large    — run right after phase 3, on a card holding under 1 GiB:
+               14a gemma2-27b (46 layers, 28.407B, local and global
+               layers, window 4096, softcaps 50 and 30, a 256,000-word
+               head) whole in bf16 serves 6 requests of 4,200-5,800
+               prompt tokens (every prefill and step binds the window)
+               and 32 new over 4 slots, page 16, one 5,888-token chunk;
+               14b command-r-35b (40 layers, 32.381B, G = 8) phase 4's 12
+               requests: phase 4's gates (launches n_layers x admissions
+               and n_layers x steps, finite logits, mid-run admissions,
+               the pool at the kernel's head_dim), the parameter count,
+               init and serving peaks under 80 GB; each traced (its first
+               pool dropped). 14c: each cut to 2 layers, kernel path
+               against plain path in f32 and bf16 (gemma2 at prompt 4,700
+               in a 4,736 chunk: the window binds). 14d: gemma2 at 2
+               layers in f32 through the DecodeEngine (B2, prompts of
+               4,500: its window ring wraps), tokens equal to the paged
+               engine's. One model on the card at a time.
 4. serve     — granite-3-2b at full width and depth (bf16, random weights
                from a seed) serves 12 requests through PagedDecodeEngine
                with 8 slots; the kernels' launch counts must equal
@@ -204,7 +229,12 @@ raising on any failure:
                1024), SDPA with ``enable_gqa``; and at phase 13's: the
                forward at a prefill chunk (B1) and the training batch
                (B4), the paged kernel at 13a's fullest step and both
-               sweeps at 13d's batch, for internvl2-1b and musicgen-medium.
+               sweeps at 13d's batch, for internvl2-1b and musicgen-medium;
+               and at phase 14's: the forward at the served chunk and the
+               paged kernel at 14a-b's first decode step, for gemma2-27b's
+               local and global layers (library none: SDPA has no tanh
+               softcap) and command-r-35b's G = 8 (SDPA, ``enable_gqa``).
+               A [time] line gives phase 14's and the script's seconds.
 
 The second-to-last line is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2.
@@ -730,6 +760,23 @@ INTERNVL2_PAGED = dict(lens=[0, 1, 257, 300, 544, 700, 799, 800], ps=16,
 MUSICGEN_ATTN = dict(Hq=24, Hkv=24, D=64)
 MUSICGEN_PAGED = dict(lens=[0, 1, 17, 16, 100, 300, 543, 544], ps=16,
                       TW=34, **MUSICGEN_ATTN)
+#: phase 14's attention shapes. gemma2-27b: 32 query heads over 16 KV
+#: heads (G = 2) at head_dim 128 with tanh softcap 50, window 4096 on its
+#: local layers and none on its global ones, over its 5,888-token prefill
+#: chunk (46 x 128), and its decode step with lens across 4,096 (TW 370
+#: at page 16: the table is the global layers' width, so a local layer's
+#: pages never wrap and only the mask applies the window; 4,096 and 4,097
+#: are the edges). command-r-35b: 64 over 8 (G = 8: the largest cluster
+#: of dk/dv, 8 warps and a cluster of 8 CTAs in the paged kernel) at
+#: head_dim 128, its 512-token chunk and phase 4's decode lens.
+GEMMA2_ATTN = dict(Hq=32, Hkv=16, D=128, cap=50.0)
+GEMMA2_WINDOW = 4096
+GEMMA2_CHUNK = 5888
+GEMMA2_PAGED = dict(lens=[1, 4095, 4096, 4097, 4098, 4700, 5800, 5920],
+                    ps=16, TW=370, **GEMMA2_ATTN)
+COMMANDR_ATTN = dict(Hq=64, Hkv=8, D=128)
+COMMANDR_PAGED = dict(lens=[0, 1, 17, 16, 100, 300, 543, 560], ps=16,
+                      TW=35, **COMMANDR_ATTN)
 
 #: the flash gradient matrix of tests/test_attention_ops.py (B = 2):
 #: S, Hq, Hkv, D, window, cap, dtype
@@ -892,6 +939,20 @@ def phase_kernels(device):
                     dtype=torch.bfloat16, seed=45),
         _flash_case(device, B=4, S=512, T=512, **MUSICGEN_ATTN,
                     dtype=torch.bfloat16, seed=46),
+        # gemma2-27b's prefill chunk: a local layer (the window binds) and
+        # a global one, and in f32 with S across 4,096; command-r-35b's
+        # (G = 8) in bf16 and f32
+        _flash_case(device, B=1, S=GEMMA2_CHUNK, T=GEMMA2_CHUNK,
+                    **GEMMA2_ATTN, window=GEMMA2_WINDOW,
+                    dtype=torch.bfloat16, seed=47),
+        _flash_case(device, B=1, S=GEMMA2_CHUNK, T=GEMMA2_CHUNK,
+                    **GEMMA2_ATTN, dtype=torch.bfloat16, seed=48),
+        _flash_case(device, B=1, S=4200, T=4200, **GEMMA2_ATTN,
+                    window=GEMMA2_WINDOW, dtype=torch.float32, seed=49),
+        _flash_case(device, B=1, S=512, T=512, **COMMANDR_ATTN,
+                    dtype=torch.bfloat16, seed=50),
+        _flash_case(device, B=1, S=300, T=300, **COMMANDR_ATTN,
+                    dtype=torch.float32, seed=51),
     ]
     paged = [
         # granite-3-2b decode: ragged lens incl. 0, 1 and a page crossing
@@ -931,6 +992,19 @@ def phase_kernels(device):
         _paged_repeat_case(device, **INTERNVL2_PAGED, seed=13),
         _paged_case(device, **MUSICGEN_PAGED, dtype=torch.bfloat16, seed=14),
         _paged_repeat_case(device, **MUSICGEN_PAGED, seed=15),
+        # gemma2-27b decode, lens across 4,096 at TW 370: a local layer
+        # (window 4096) in bf16 and f32, a global one, and twice to the
+        # bit; command-r-35b's (G = 8) in bf16 and f32 and twice
+        _paged_case(device, **GEMMA2_PAGED, window=GEMMA2_WINDOW,
+                    dtype=torch.bfloat16, seed=16),
+        _paged_case(device, **GEMMA2_PAGED, window=GEMMA2_WINDOW,
+                    dtype=torch.float32, seed=17),
+        _paged_case(device, **GEMMA2_PAGED, dtype=torch.bfloat16, seed=18),
+        _paged_repeat_case(device, **GEMMA2_PAGED, window=GEMMA2_WINDOW,
+                           seed=19),
+        _paged_case(device, **COMMANDR_PAGED, dtype=torch.bfloat16, seed=20),
+        _paged_case(device, **COMMANDR_PAGED, dtype=torch.float32, seed=21),
+        _paged_repeat_case(device, **COMMANDR_PAGED, seed=22),
     ]
     P_train = -(-train_param_count(train_config()) // ALIGN) * ALIGN
     sync = [_sync_case(device, K=K, I=I, full=full, P=3 * ALIGN,
@@ -1038,6 +1112,15 @@ def phase_kernels(device):
         _bwd_case(device, B=4, S=512, **MUSICGEN_ATTN, dtype=torch.bfloat16,
                   through_ops=True, seed=16),
         _dkv_repeat_case(device, B=4, S=512, **MUSICGEN_ATTN, seed=17),
+        # command-r-35b's G = 8 (a dk/dv cluster of 8, its largest):
+        # directly, through the wrappers, in f32, and dk/dv twice
+        _bwd_case(device, B=1, S=512, **COMMANDR_ATTN, dtype=torch.bfloat16,
+                  seed=18),
+        _bwd_case(device, B=1, S=512, **COMMANDR_ATTN, dtype=torch.bfloat16,
+                  through_ops=True, seed=19),
+        _bwd_case(device, B=1, S=300, **COMMANDR_ATTN, dtype=torch.float32,
+                  seed=20),
+        _dkv_repeat_case(device, B=1, S=512, **COMMANDR_ATTN, seed=21),
     ]
     result = {"flash_fwd": flash, "paged_attention": paged,
               "wa_sync_fused": sync, "flash_bwd": bwd, **slice3}
@@ -1099,7 +1182,12 @@ def phase_serve(device, cfg=None, *, n_requests=12, max_batch=8,
     cfg = cfg or get_config("granite-3-2b").with_(attn_impl="flash_pallas")
     lm = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     params = lm.init(gen, device=dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    init_peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+                 if dev.type == "cuda" else None)
     eng = PagedDecodeEngine(lm=lm, params=params, max_batch=max_batch,
                             max_seq_len=max_seq_len, max_new=max_new,
                             page_size=page_size, prefill_chunk=prefill_chunk,
@@ -1192,14 +1280,16 @@ def phase_serve(device, cfg=None, *, n_requests=12, max_batch=8,
         "prompt_lens": lens.tolist(), "arch": cfg.name,
         "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
         "head_dim": cfg.resolved_head_dim, "kernel_head_dim": pool_d,
-        "outputs": toks,
+        "table_width": eng.table_width, "params": n_params,
+        "init_peak_gib": init_peak, "outputs": toks,
     }
     print(f"[serve] {cfg.name} L{cfg.n_layers} d{cfg.d_model} "
           f"H{cfg.n_heads}/{cfg.n_kv_heads} hd{cfg.resolved_head_dim} (kernels "
           f"and pool at {pool_d}) ff{cfg.d_ff} V{cfg.vocab_size} "
           f"{cfg.dtype} on {dev}: {n_requests} requests, {max_batch} slots, "
           f"{admissions} admissions ({res['mid_run_admissions']} mid-run), "
-          f"{steps} decode steps, launches {launches}")
+          f"{steps} decode steps, launches {launches}; {n_params} "
+          f"parameters ({n_params / 1e9:.3f}B), init peak {init_peak} GiB")
     print(f"[serve] {cfg.name}: prefill {res['prefill_tok_s']:.1f} tok/s, decode "
           f"{res['decode_tok_s']:.1f} tok/s, median step "
           f"{res['median_step_ms']:.3f} ms (p{tail} {res['tail_step_ms']} "
@@ -1302,8 +1392,10 @@ REF_LOGIT_TOL = 0.1
 
 
 def phase_reference(device, n_layers=2, prompt_len=300, seed=0,
-                    arch="granite-3-2b", dtype=None, gate_logits=True):
-    """Full-width ``arch`` cut to ``n_layers``: one prefill chunk and one
+                    arch="granite-3-2b", dtype=None, gate_logits=True,
+                    chunk=512):
+    """Full-width ``arch`` cut to ``n_layers``: one prefill chunk of
+    ``chunk`` tokens (``prompt_len`` of them real) and one
     decode step (of the plain path's greedy token) through the kernels
     against the plain path (naive prefill attention, gather-reference
     decode) on the same weights and inputs, in the config's dtype or
@@ -1322,7 +1414,8 @@ def phase_reference(device, n_layers=2, prompt_len=300, seed=0,
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = build_model(base).init(gen, device=dev)
     rs = np.random.RandomState(seed)
-    ps, chunk, TW, B = 16, 512, 35, 2
+    ps, B = 16, 2
+    TW = chunk // ps + 3
     tokens = np.zeros((1, chunk), np.int64)
     tokens[0, :prompt_len] = rs.randint(0, base.vocab_size, prompt_len)
     tables = np.zeros((B, TW), np.int32)
@@ -1362,7 +1455,8 @@ def phase_reference(device, n_layers=2, prompt_len=300, seed=0,
         rule = f"tol {tol}{'' if gate_logits else ', reported, not gated'}"
     ok = logits_ok and all(tokens_ok) and all(
         bool(torch.isfinite(t).all()) for t in logits["flash_pallas"])
-    print(f"[reference] {arch} cut to {n_layers} layers, {base.dtype}: kernel "
+    print(f"[reference] {arch} cut to {n_layers} layers, {base.dtype}, "
+          f"prompt {prompt_len} in a chunk of {chunk}: kernel "
           f"path vs plain path max |dlogit| prefill {errs[0]:.5g}, decode "
           f"{errs[1]:.5g} ({rule}; max |logit| {scale:.3f}); greedy tokens "
           f"prefill, decode {[int(t.argmax()) for t, _ in pairs]} vs "
@@ -3572,7 +3666,7 @@ def phase_modality_reference(device, arch, dtype, seed=3, **traffic):
     return out
 
 
-def phase_decode_engine(device, arch, **run):
+def phase_decode_engine(device, arch, tag="decode13", **run):
     """13c: the whole-batch DecodeEngine on ``arch`` at full width cut to
     2 layers in f32 (flash_pallas): one prefill of the whole batch (the
     flash forward n_layers x 1 times, at B = batch), then the plain
@@ -3613,7 +3707,7 @@ def phase_decode_engine(device, arch, **run):
            "new": new, "tokens_equal": same, "launches": launches,
            "prefill_ms": pre_ms[0], "median_step_ms": float(np.median(
                step_ms)), "shape": tuple(toks.shape)}
-    print(f"[decode13] {arch} L{cfg.n_layers} d{cfg.d_model} f32 "
+    print(f"[{tag}] {arch} L{cfg.n_layers} d{cfg.d_model} f32 "
           f"DecodeEngine on {dev}: B{B} prompts of {S} (+ prefix "
           f"{_prefix_len(cfg)}), {new} new -> {tuple(toks.shape)}; prefill "
           f"{res['prefill_ms']:.3f} ms (flash forward at B{B}), median step "
@@ -3804,6 +3898,87 @@ def phase_modality(device):
         torch.cuda.empty_cache()
     print(f"[modality] phase 13 in {time.perf_counter() - t0:.1f} s | "
           f"{CARD['line']}")
+    return out
+
+
+# ------------------------------------------------- 14. the large dense LMs
+
+#: 14a-b: the two largest dense configs served whole in bf16 through
+#: PagedDecodeEngine + ContinuousScheduler. gemma2-27b: 6 requests over
+#: 4 slots (admissions mid-run), prompts of 4,200-5,800 tokens in one
+#: chunk of 5,888 (46 x 128), so every prefill and decode step binds the
+#: window of the local layers; its pool is 1 + 4 x 370 pages (~8.3 GiB).
+#: command-r-35b: phase 4's traffic (12 requests, 8 slots, 64-512).
+LARGE_SERVE = {
+    "gemma2-27b": dict(n_requests=6, max_batch=4, prefill_chunk=GEMMA2_CHUNK,
+                       max_seq_len=5920, prompt_range=(4200, 5800)),
+    "command-r-35b": {},
+}
+#: the served trees' parameter counts, in billions to 3 decimals (the
+#: reference's init shapes)
+LARGE_PARAMS_B = {"gemma2-27b": 28.407, "command-r-35b": 32.381}
+#: 14c: each cut to 2 layers (gemma2 keeps one local and one global
+#: layer); gemma2's prompt of 4,700 in a chunk of 4,736 binds the window
+#: in the prefill and the decode step; command-r runs G = 8
+LARGE_REFERENCE = {"gemma2-27b": dict(prompt_len=4700, chunk=4736),
+                   "command-r-35b": dict(prompt_len=300)}
+#: 14d: gemma2 cut to 2 layers in f32 through the whole-batch
+#: DecodeEngine: its contiguous ring (window 4096) wraps in the prefill
+LARGE_DECODE = dict(arch="gemma2-27b", batch=2, prompt=4500, new=16)
+
+
+def phase_large(device, serve_over=None, reference=None, decode=None):
+    """Phase 14: gemma2-27b and command-r-35b, one at a time, on a card
+    that holds nothing else (checked: under 1 GiB allocated). 14a-b: each
+    served whole (``LARGE_SERVE``; ``serve_over`` overrides its traffic)
+    with phase 4's gates, its parameter count, peak memory under 80 GB
+    and, for a windowed model, every prompt past the window; then traced
+    at the run's shortest prompt (its caches dropped first: the trace
+    builds a second pool on the same weights). 14c: each cut to 2
+    layers, kernel path against plain path in f32 and bf16
+    (``phase_reference``; ``reference`` overrides its arguments). 14d:
+    ``phase_decode_engine`` at ``LARGE_DECODE`` (``decode`` overrides)."""
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        held = torch.cuda.memory_allocated(dev)
+        if held >= 2**30:
+            raise AssertionError(f"{held / 2**30:.2f} GiB held on the card "
+                                 f"before phase 14")
+    out = {"serve": {}, "reference": {}}
+    for arch, traffic in LARGE_SERVE.items():
+        cfg = get_config(arch).with_(attn_impl="flash_pallas")
+        traffic = dict(traffic, **(serve_over or {}).get(arch, {}))
+        serve, eng = phase_serve(dev, cfg, **traffic)
+        window = cfg.sliding_window if cfg.global_every else None
+        if window and min(serve["prompt_lens"]) <= window:
+            raise AssertionError(f"{arch}: a prompt within the window")
+        if cuda:
+            if round(serve["params"] / 1e9, 3) != LARGE_PARAMS_B[arch]:
+                raise AssertionError(f"{arch}: {serve['params']} parameters")
+            if serve["peak_mem_gib"] * 2**30 >= 80e9 or \
+                    serve["init_peak_gib"] * 2**30 >= 80e9:
+                raise AssertionError(f"{arch}: peak memory over 80 GB")
+        eng.state = None
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        phase_trace(dev, eng, serve, prompt_len=min(serve["prompt_lens"]))
+        del eng
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        serve.pop("outputs")
+        out["serve"][arch] = serve
+    for arch, kw in LARGE_REFERENCE.items():
+        kw = dict(kw, **(reference or {}).get(arch, {}))
+        out["reference"][arch] = [
+            phase_reference(dev, arch=arch, dtype=dt, **kw)
+            for dt in ("float32", "bfloat16")]
+        if cuda:
+            torch.cuda.empty_cache()
+    out["decode_engine"] = phase_decode_engine(
+        dev, tag="decode14", **dict(LARGE_DECODE, **(decode or {})))
     return out
 
 
@@ -4432,15 +4607,124 @@ def phase_yardstick_modality(device, mod, seed=51):
     return out
 
 
+def _causal_pairs(S, window=None) -> int:
+    """(row, key) pairs a causal S x S attention computes, under a window
+    of ``window`` keys where given."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def phase_yardstick_large(device, large, seed=61):
+    """The flash forward and the paged kernel at phase 14's shapes, for
+    each arch and each kind of layer it has (gemma2-27b: local, window
+    4096, and global, both with softcap 50; command-r-35b: one kind, G =
+    8): the forward at the served prefill chunk (B1, gemma2 S 5,888,
+    command-r S 512), the paged kernel at 14a-b's first full decode step
+    (its lens and TW); each beside its plain version, SDPA with
+    ``enable_gqa`` where the layer has no softcap (else none: SDPA has
+    none), and its bound from this input's pairs. A row's launches are
+    its kind's share of the serving run's. Returns {arch: {"fwd": {kind:
+    rec}, "paged": {kind: rec}}}."""
+    dev = torch.device(device)
+    dt = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for arch, serve in large["serve"].items():
+        cfg = get_config(arch)
+        Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        cap = cfg.logit_softcap
+        S = LARGE_SERVE[arch].get("prefill_chunk", 512)
+        kinds = ({"local": cfg.sliding_window, "global": None}
+                 if cfg.global_every else {"all": None})
+        share = len(kinds)
+        rec = {"fwd": {}, "paged": {}}
+        n_sets = max(2, min(16, (2 << 30) // (2 * S * (Hq + 2 * Hkv) * D)))
+        sets = [tuple(_randn(gen, (1, S, h, D), dt, dev)
+                      for h in (Hq, Hkv, Hkv)) for _ in range(n_sets)]
+        for kind, w in kinds.items():
+            opts = dict(window=w, logit_softcap=cap)
+            f_ms = _time_ms(lambda q, k, v: fa.flash_attention_fwd(
+                q, k, v, **opts), sets, 50 if S > 512 else 200)
+            f_plain = _time_ms(lambda q, k, v: flash_attention_fwd_ref(
+                q, k, v, **opts), sets, 1 if S > 512 else 10, warmup=1)
+            f_lib = None if cap else _sdpa_ms(sets, 200)
+            pairs = _causal_pairs(S, w)
+            f_bound, f_by = _bound(
+                4 * Hq * D * pairs,
+                2 * (2 * S * Hq * D + 2 * S * Hkv * D) + 4 * Hq * S, dt)
+            rec["fwd"][kind] = {
+                "shape": f"B1 S{S} Hq{Hq} Hkv{Hkv} D{D} w{w} cap{cap} bf16",
+                "ms": f_ms, "plain_ms": f_plain, "library_ms": f_lib,
+                "bound_ms": f_bound, "bound_by": f_by,
+                "launches": serve["launches"]["flash_fwd"] // share}
+            if f_lib is None:
+                rec["fwd"][kind]["library"] = "none: SDPA has no tanh softcap"
+        del sets
+        lens, TW, ps = serve["first_decode_lens"], serve["table_width"], 16
+        psets = [_paged_inputs(dev, lens=lens, Hq=Hq, Hkv=Hkv, D=D, ps=ps,
+                               TW=TW, dtype=dt, seed=seed + i)
+                 for i in range(8)]
+        tokens = int(sum(lens))
+        for kind, w in kinds.items():
+            opts = dict(window=w, logit_softcap=cap)
+            p_ms = _time_ms(lambda *a: pa.paged_attention_cuda(*a, **opts),
+                            psets, 500)
+            p_plain = _time_ms(lambda *a: paged_attention_ref(*a, **opts),
+                               psets, 50)
+            # the keys a step reads: within the window where one binds
+            keys = int(sum(min(n, w or n) for n in lens))
+            p_bound, p_by = _bound(4 * Hq * D * keys,
+                                   2 * (2 * len(lens) * Hq * D
+                                        + 2 * keys * Hkv * D)
+                                   + 4 * len(lens) * (TW + 1), dt)
+            rec["paged"][kind] = {
+                "shape": f"B{len(lens)} Hq{Hq} Hkv{Hkv} D{D} ps{ps} TW{TW} "
+                         f"w{w} cap{cap} lens {lens} ({tokens} tokens) bf16",
+                "ms": p_ms, "plain_ms": p_plain, "library_ms": None,
+                "bound_ms": p_bound, "bound_by": p_by,
+                "launches": serve["launches"]["paged_attention"] // share}
+        del psets
+        torch.cuda.empty_cache()
+        out[arch] = rec
+        for name, recs in rec.items():
+            for kind, r in recs.items():
+                print(f"[yardstick] {arch} {name} {kind} {r['shape']}: "
+                      f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, library "
+                      f"{r['library_ms'] or r.get('library', 'none')}, "
+                      f"bound {r['bound_ms']:.5f} by {r['bound_by']}; "
+                      f"launches {r['launches']}) | {CARD['line']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
     device = "cuda"
+    t_start = last = time.perf_counter()
+
+    def stamp(label):
+        """A [time] line: the seconds since the previous stamp."""
+        nonlocal last
+        now = time.perf_counter()
+        print(f"[time] {label}: {now - last:.1f} s (script at "
+              f"{now - t_start:.1f} s)")
+        last = now
+
     phase_device(device)
     phase_build(device)
+    stamp("phases 1-2")
     kernels = phase_kernels(device)
+    stamp("phase 3")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 14 first, while the card holds nothing of another phase
+    large = phase_large(device)
+    stamp("phase 14")
+    gc.collect()
+    torch.cuda.empty_cache()
     serve, eng = phase_serve(device)
     phase_trace(device, eng, serve)
     del eng                  # its timing wrappers hold it in a cycle: collect
@@ -4456,6 +4740,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_reference(device, arch="stablelm-12b")
     torch.cuda.empty_cache()
+    stamp("phases 4-5")
     train, trainer = phase_train(device)
     phase_train_trace(device, trainer, train)
     windows = phase_windows(device, trainer, train)
@@ -4465,6 +4750,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_reference(device)
     torch.cuda.empty_cache()
+    stamp("phases 7-8")
     baselines = phase_baselines(device)
     ckpt = phase_checkpoint(device)
     gc.collect()
@@ -4473,18 +4759,23 @@ def main() -> int:
     train.pop("final_window")
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("phase 9")
     resilient = phase_resilient(device)
     remat = phase_flash_jnp_remat(device)
     resnet = phase_resnet(device)
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("phase 10")
     moe_res = phase_moe(device)
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("phase 11")
     rec = phase_recurrent(device)
     gc.collect()
     torch.cuda.empty_cache()
+    stamp("phase 12")
     mod = phase_modality(device)
+    stamp("phase 13")
     entries = phase_yardstick(device, serve, kernels)
     fwd_slm, paged_slm = phase_yardstick_serving(device, serve_slm)
     fwd_qwen, paged_qwen = phase_yardstick_serving(
@@ -4526,7 +4817,10 @@ def main() -> int:
                                     mod["decode_engine"].values())
                              for k in _counts()},
              "vlm_train": mod["train"]["internvl2-1b"]["launches"],
-             "audio_train": mod["train"]["musicgen-medium"]["launches"]}
+             "audio_train": mod["train"]["musicgen-medium"]["launches"],
+             "gemma2_serve": large["serve"]["gemma2-27b"]["launches"],
+             "command_r_serve": large["serve"]["command-r-35b"]["launches"],
+             "gemma2_naive_serve": large["decode_engine"]["launches"]}
     for e in entries:
         by_path = e.setdefault("launches_by_path", {"train": e["launches"]})
         for path, counts in paths.items():
@@ -4548,6 +4842,14 @@ def main() -> int:
         entries[0][key] = {"prefill": recs["fwd"], "train": recs["fwd_b4"]}
         entries[1][key] = recs["paged"]
         entries[3][key], entries[4][key] = recs["dq"], recs["dkv"]
+    # phase 14's shapes: gemma2-27b's local and global layers, command-r-
+    # 35b's G = 8, on the forward and the paged kernel
+    for arch, recs in phase_yardstick_large(device, large).items():
+        key = "at_" + arch.rsplit("-", 1)[0].replace("-", "_") + "_shape"
+        entries[0][key], entries[1][key] = recs["fwd"], recs["paged"]
+    stamp("phase 6")
+    print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s "
+          f"from phase 1 to the kernels line | {CARD['line']}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,15 +13,43 @@ import torch
 import torch.nn.functional as F
 
 
+#: the most elements one f32 draw of :func:`normal_init` holds (256 MiB)
+DRAW_ELEMS = 1 << 26
+
+
+def _draw_pieces(out):
+    """The views of ``out`` that :func:`normal_init` draws one at a time,
+    in memory order: a leaf of three or more axes (a stack of layers) one
+    slice of its leading axis at a time, and any slice or 2-D leaf of more
+    than DRAW_ELEMS elements in blocks of 16·k rows."""
+    for s in (out.unbind(0) if out.dim() >= 3 else (out,)):
+        if s.dim() < 2 or s.numel() <= DRAW_ELEMS:
+            yield s
+            continue
+        yield from s.split(max(16, DRAW_ELEMS // s[0].numel() // 16 * 16))
+
+
 def normal_init(generator: torch.Generator, shape, dtype, fan_in=None,
                 device=None):
-    """Normal init scaled by 1/sqrt(fan_in), drawn in f32 then cast."""
+    """Normal init scaled by 1/sqrt(fan_in), drawn in f32 then cast.
+
+    The result is allocated in ``dtype`` and filled piece by piece
+    (:func:`_draw_pieces`), so the f32 transient is one piece, never the
+    whole leaf: command-r-35b's stacked w_gate is 7.4B elements. On the
+    CPU torch fills normals 16 at a time from one uniform stream, so where
+    every piece but the last holds a multiple of 16 elements the bits
+    equal those of one draw of the whole leaf; on the card each piece is
+    a Philox draw of its own."""
+    shape = tuple(shape)
     fan_in = fan_in if fan_in is not None else \
         shape[-2] if len(shape) >= 2 else shape[-1]
     scale = 1.0 / math.sqrt(max(fan_in, 1))
-    x = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
-                    device=device)
-    return (x * scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for piece in _draw_pieces(out):
+        x = torch.randn(piece.shape, generator=generator,
+                        dtype=torch.float32, device=device)
+        piece.copy_(x.mul_(scale))
+    return out
 
 
 # ---------------------------------------------------------------- norms

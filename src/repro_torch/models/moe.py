@@ -37,29 +37,24 @@ _UNPORTED = ("the sharded and expert-parallel MoE paths need a device mesh; "
              "they wait for ROADMAP.md Queue A 13")
 
 
-def _stacked(gen, n, shape, dtype, fan_in, device):
-    """``n`` layers of ``normal_init(shape)``, drawn a layer at a time so
-    that the f32 draw of a large expert leaf (qwen2-moe's w_gate is 8.3 GB
-    in bf16 over 24 layers) never exists whole beside the result."""
-    out = torch.empty((n, *shape), dtype=dtype, device=device)
-    for i in range(n):
-        out[i] = normal_init(gen, shape, dtype, fan_in=fan_in, device=device)
-    return out
-
-
 def init_moe(cfg, n: int, gen: torch.Generator, dtype, device):
-    """``n`` stacked layers of the reference's ``init_moe`` tree."""
+    """``n`` stacked layers of the reference's ``init_moe`` tree, each
+    leaf drawn a layer at a time (``normal_init``)."""
     D, E, Fe = cfg.d_model, cfg.n_experts, cfg.expert_d_ff or cfg.d_ff
-    p = {"router": _stacked(gen, n, (D, E), torch.float32, D, device),
-         "w_gate": _stacked(gen, n, (E, D, Fe), dtype, D, device),
-         "w_up": _stacked(gen, n, (E, D, Fe), dtype, D, device),
-         "w_down": _stacked(gen, n, (E, Fe, D), dtype, Fe, device)}
+
+    def draw(shape, dt, fan_in):
+        return normal_init(gen, (n, *shape), dt, fan_in=fan_in, device=device)
+
+    p = {"router": draw((D, E), torch.float32, D),
+         "w_gate": draw((E, D, Fe), dtype, D),
+         "w_up": draw((E, D, Fe), dtype, D),
+         "w_down": draw((E, Fe, D), dtype, Fe)}
     if cfg.n_shared_experts:
         Fs = cfg.n_shared_experts * Fe
-        p["sh_gate"] = _stacked(gen, n, (D, Fs), dtype, D, device)
-        p["sh_up"] = _stacked(gen, n, (D, Fs), dtype, D, device)
-        p["sh_down"] = _stacked(gen, n, (Fs, D), dtype, Fs, device)
-        p["sh_route"] = _stacked(gen, n, (D, 1), torch.float32, D, device)
+        p["sh_gate"] = draw((D, Fs), dtype, D)
+        p["sh_up"] = draw((D, Fs), dtype, D)
+        p["sh_down"] = draw((Fs, D), dtype, Fs)
+        p["sh_route"] = draw((D, 1), torch.float32, D)
     return p
 
 

@@ -81,6 +81,18 @@ FLASH_CASES = [
     dict(B=1, S=300, T=300, Hq=14, Hkv=2, D=64, dtype=torch.float32),
     dict(B=1, S=512, T=512, Hq=24, Hkv=24, D=64, dtype=torch.bfloat16),
     dict(B=4, S=512, T=512, Hq=24, Hkv=24, D=64, dtype=torch.bfloat16),
+    # gemma2-27b (G = 2 at head_dim 128, softcap 50): its 5,888-token
+    # prefill chunk on a local layer (window 4096 binds) and a global one,
+    # and f32 with S across 4,096; command-r-35b (G = 8): its 512-token
+    # chunk and f32
+    dict(B=1, S=5888, T=5888, Hq=32, Hkv=16, D=128, dtype=torch.bfloat16,
+         window=4096, cap=50.0),
+    dict(B=1, S=5888, T=5888, Hq=32, Hkv=16, D=128, dtype=torch.bfloat16,
+         cap=50.0),
+    dict(B=1, S=4200, T=4200, Hq=32, Hkv=16, D=128, dtype=torch.float32,
+         window=4096, cap=50.0),
+    dict(B=1, S=512, T=512, Hq=64, Hkv=8, D=128, dtype=torch.bfloat16),
+    dict(B=1, S=300, T=300, Hq=64, Hkv=8, D=128, dtype=torch.float32),
 ]
 
 PAGED_CASES = [
@@ -124,6 +136,19 @@ PAGED_CASES = [
          ps=16, TW=50, dtype=torch.float32),
     dict(lens=[0, 1, 17, 16, 100, 300, 543, 544], Hq=24, Hkv=24, D=64,
          ps=16, TW=34, dtype=torch.bfloat16),
+    # gemma2-27b decode: lens across 4,096 (its edges 4,096 and 4,097) at
+    # TW 370, a local layer (window 4096) in bf16 and f32 and a global one
+    dict(lens=[1, 4095, 4096, 4097, 4098, 4700, 5800, 5920], Hq=32, Hkv=16,
+         D=128, ps=16, TW=370, dtype=torch.bfloat16, window=4096, cap=50.0),
+    dict(lens=[1, 4095, 4096, 4097, 4098, 4700, 5800, 5920], Hq=32, Hkv=16,
+         D=128, ps=16, TW=370, dtype=torch.float32, window=4096, cap=50.0),
+    dict(lens=[1, 4095, 4096, 4097, 4098, 4700, 5800, 5920], Hq=32, Hkv=16,
+         D=128, ps=16, TW=370, dtype=torch.bfloat16, cap=50.0),
+    # command-r-35b decode: 8 warps a CTA (G = 8) at head_dim 128
+    dict(lens=[0, 1, 17, 16, 100, 300, 543, 560], Hq=64, Hkv=8, D=128,
+         ps=16, TW=35, dtype=torch.bfloat16),
+    dict(lens=[0, 1, 17, 16, 100, 300, 543, 560], Hq=64, Hkv=8, D=128,
+         ps=16, TW=35, dtype=torch.float32),
 ]
 
 #: two paged launches on the same inputs (chip_smoke._paged_repeat_case)
@@ -140,6 +165,10 @@ PAGED_REPEAT_CASES = [
          ps=16, TW=50),
     dict(lens=[0, 1, 17, 16, 100, 300, 543, 544], Hq=24, Hkv=24, D=64,
          ps=16, TW=34),
+    dict(lens=[1, 4095, 4096, 4097, 4098, 4700, 5800, 5920], Hq=32, Hkv=16,
+         D=128, ps=16, TW=370, window=4096, cap=50.0),
+    dict(lens=[0, 1, 17, 16, 100, 300, 543, 560], Hq=64, Hkv=8, D=128,
+         ps=16, TW=35),
 ]
 
 
@@ -213,6 +242,12 @@ BWD_CASES = [
     dict(B=1, S=300, Hq=14, Hkv=2, D=64, dtype=torch.float32),
     dict(B=4, S=512, Hq=24, Hkv=24, D=64, dtype=torch.bfloat16,
          through_ops=True),
+    # command-r-35b's G = 8 (a dk/dv cluster of 8, its largest): directly,
+    # through the wrappers, and f32
+    dict(B=1, S=512, Hq=64, Hkv=8, D=128, dtype=torch.bfloat16),
+    dict(B=1, S=512, Hq=64, Hkv=8, D=128, dtype=torch.bfloat16,
+         through_ops=True),
+    dict(B=1, S=300, Hq=64, Hkv=8, D=128, dtype=torch.float32),
 ]
 
 #: two dk/dv launches on the same inputs (chip_smoke._dkv_repeat_case)
@@ -225,6 +260,7 @@ DKV_REPEAT_CASES = [
     dict(B=4, S=640, Hq=25, Hkv=5, D=64, window=1024),
     dict(B=4, S=768, Hq=14, Hkv=2, D=64),
     dict(B=4, S=512, Hq=24, Hkv=24, D=64),
+    dict(B=1, S=512, Hq=64, Hkv=8, D=128),
 ]
 
 

@@ -1,7 +1,8 @@
 """The port's dense LM against the JAX reference on bridged parameters:
-one paged prefill chunk and one paged decode step, granite and gemma2
-smoke configs and both MoE archs' (the padded prefill chunk routes its
-pad tokens too) in f32, attn_impl='flash_pallas' on both sides (JAX:
+one paged prefill chunk and one paged decode step, the granite, gemma2
+and command-r smoke configs (command-r also at its published group, 8
+query heads a KV head) and both MoE archs' (the padded prefill chunk
+routes its pad tokens too) in f32, attn_impl='flash_pallas' on both sides (JAX:
 interpret-mode Pallas; port: the kernels' plain versions on the CPU).
 Logits and the updated page pools agree to rtol = atol = 1e-4: XLA's and
 torch's CPU matmuls sum in different orders. Also: a convnet or unknown
@@ -27,17 +28,33 @@ from repro_torch.models.registry import lm_paged_prefill_chunk as prefill
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+#: command-r-35b's published group (64 query heads over 8 KV heads, G =
+#: 8) on its smoke width: the ``-g8`` cases
+G8 = dict(n_heads=16, n_kv_heads=2)
+
+
+def smoke_configs(arch):
+    """(JAX, port) smoke configs of ``arch``; ``<arch>-g8`` is the arch's
+    smoke config at G = 8 (``G8``) on both packages."""
+    base = arch.removesuffix("-g8")
+    over = G8 if base != arch else {}
+    return (jax_smoke_config(base).with_(**over),
+            get_smoke_config(base).with_(**over))
+
+
 def _pools(caches):
     return [np.asarray(c["pages"][k]) for c in caches for k in ("k", "v")]
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "gemma2-27b",
-                                  "granite-moe-1b-a400m", "qwen2-moe-a2.7b"])
+                                  "granite-moe-1b-a400m", "qwen2-moe-a2.7b",
+                                  "command-r-35b", "command-r-35b-g8"])
 def test_paged_prefill_and_decode_match_jax(arch):
-    jcfg = jax_smoke_config(arch).with_(attn_impl="flash_pallas")
+    jcfg, cfg = smoke_configs(arch)
+    jcfg = jcfg.with_(attn_impl="flash_pallas")
     jlm = jax_build_model(jcfg)
     jparams = jlm.init(jax.random.key(0))
-    cfg = get_smoke_config(arch).with_(attn_impl="flash_pallas")
+    cfg = cfg.with_(attn_impl="flash_pallas")
     lm = build_model(cfg)
     params = params_from_numpy(jax.device_get(jparams), device="cpu")
 
@@ -81,11 +98,10 @@ def test_init_matches_jax_layout():
     """The port's own init gives the JAX parameter tree's structure,
     shapes and dtypes leaf for leaf."""
     for arch in ("granite-3-2b", "gemma2-27b", "granite-moe-1b-a400m",
-                 "qwen2-moe-a2.7b"):
-        jparams = jax_build_model(jax_smoke_config(arch)).init(
-            jax.random.key(0))
-        params = init_lm(get_smoke_config(arch),
-                         torch.Generator().manual_seed(0), device="cpu")
+                 "qwen2-moe-a2.7b", "command-r-35b", "command-r-35b-g8"):
+        jcfg, cfg = smoke_configs(arch)
+        jparams = jax_build_model(jcfg).init(jax.random.key(0))
+        params = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
         jleaves, jdef = jax.tree.flatten(jax.device_get(jparams))
         leaves, tdef = jax.tree.flatten(params)
         assert jdef == tdef
