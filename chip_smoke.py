@@ -114,12 +114,13 @@ raising on any failure:
                losses of each method's evaluated weights, exact launches,
                and a SAM step launching twice each attention kernel of a
                ca step; median step and update, peak memory.
-               9b: HWA (K=2, H=2, I=3, fused sync) on the model cut to 2
-               layers, 8 steps, checkpointed every 4 into a temporary
+               9b: HWA (K=2, H=2, I=3, fused sync) on the model cut to 1
+               layer, 8 steps, checkpointed every 4 into a temporary
                session (keep 2): both manifests verify, each save loads
                back bit for bit, a flipped bit in the newest save falls
-               back to step 4, and the run resumed there ends bit for bit
-               as the uninterrupted run did (W̿ and history); then the
+               back to step 4, and the run resumed there (saving nothing
+               more) ends bit for bit as the uninterrupted run did (W̿
+               and history); then the
                window state saved with save_window_state and published
                through publish_checkpoint into a 2-layer engine equals
                publish_window_state's params to the bit. GB a save,
@@ -130,7 +131,7 @@ raising on any failure:
                equal to an engine given those params directly, launches
                8 x admissions and 8 x decode steps; the publish's time.
 10. phase 10 — 10a: resilient HWA (K=2, H=2, I=3, f32 ring, kernels) on
-               phase 9b's 2-layer model: a healthy sync through the
+               the training model cut to 2 layers: a healthy sync through the
                resilient route (window-update kernel) bit-equal to the
                plain route with one window-update launch; Trainer.run
                with replica 1 poisoned with NaN before step 3: k_alive 1
@@ -216,6 +217,30 @@ raising on any failure:
                tokens, targets and vis_embeds) of internvl2-1b whole and
                musicgen-medium cut to 24 layers: finite, falling loss,
                exact launches, step, sync, tok/s, mfu, peak memory.
+15. mesh     — HWA across processes (``launch.train.run_mesh_native``:
+               one spawned rank a replica, ``gloo`` on this card with
+               CUDA tensors staged through host memory) on full-width
+               granite-3-2b, flash kernels, remat off, right after phase
+               14, on a card this process holds under 4 GiB of. 15a: flat, K 2,
+               4 layers, 8 steps, H 2, I 3: every W̄ 0 ULP from
+               ``online_average_canonical`` of the replicas gathered
+               before it (computed on the card), every rank restarted
+               from it, exact launches (the window update once a rank a
+               sync, the flash forward and both sweeps once a layer a
+               step a rank), no collective in a train step, one two-way
+               all-reduce a sync; W̿, replicas and losses against the
+               one-process stacked run (phase 7's path) on the same
+               batches. 15b: the two-level tree, K 4 as 2 pods of 2, 2
+               layers, H₂ 2, f32, 4 steps: inner syncs cross no pod and push no
+               window, every W̄ 0 ULP from the grouped or pod mean. 15c:
+               the bf16 ring with bf16 comms and the fp8 ring with fp8
+               comms on that tree: W̿ within the reference's 4 rel-ULP
+               budgets of an exact f32 window on the same replicas, the
+               cross-pod payload 2 or 1 bytes an element plus scales.
+               15d: the fault check's nan-replica, resume-exact and
+               corrupt-fallback legs on the card. ``[mesh15]`` lines give
+               each sync's ms, its collectives and bytes a level, the
+               host-staged bytes and the launches.
 6. yardstick — each kernel timed at its main path's shapes (CUDA-graph
                replay between CUDA events: device time, cold L2), beside
                its plain version, a library call where one exists, and
@@ -279,6 +304,7 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref,  # noqa: E402
                                      wa_sync_fused_c_ref, wa_sync_fused_ref,
                                      wa_window_update_c_ref,
                                      wa_window_update_ref)
+from repro_torch.launch.mesh import kernel_counts  # noqa: E402
 from repro_torch.launch.serve import make_batch  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.cache import TRASH_PAGE  # noqa: E402
@@ -342,13 +368,9 @@ def _reset_counts():
 
 
 def _counts():
-    return {"flash_fwd": fa.LAUNCHES, "paged_attention": pa.LAUNCHES,
-            "wa_sync_fused": wa.LAUNCHES, "flash_bwd_dq": fab.DQ_LAUNCHES,
-            "flash_bwd_dkv": fab.DKV_LAUNCHES,
-            "wa_window_update": wa.WINDOW_UPDATE_LAUNCHES,
-            "online_mean": wa.ONLINE_MEAN_LAUNCHES,
-            "wa_window_update_c": wa.WINDOW_UPDATE_C_LAUNCHES,
-            "wa_sync_fused_c": wa.SYNC_FUSED_C_LAUNCHES}
+    """Every kernel wrapper's launch count in this process (a spawned
+    rank reports its own, ``launch.mesh.spawn_ranks``)."""
+    return kernel_counts()
 
 
 def _want(**nonzero):
@@ -2049,8 +2071,11 @@ def _window_routes(dev, trainer, lm, params, syncs=3):
 BASELINES = dict(methods=("ca", "swa", "ema", "lookahead", "sam"), steps=8,
                  n_train=2 * TRAIN["batch"], swa_start_frac=0.5,
                  lookahead_k=3, eval_every=4)
-#: 9b: the same model cut to 2 layers, HWA with the fused sync
-CKPT = dict(layers=2, steps=8, every=4, keep=2)
+#: 9b: the same model cut to 1 layer, HWA with the fused sync, one save
+#: (at step 6 of 8). Its file IO makes room for phase 15's time: the
+#: second save, the bit flip and the fallback scan run in 15a/15d, on the
+#: mesh-native checkpoints of the same session code
+CKPT = dict(layers=1, steps=8, every=6, keep=2)
 
 
 def _host_copy(tree):
@@ -2208,20 +2233,19 @@ def phase_baselines(device, cfg=None):
 
 
 def phase_checkpoint(device, cfg=None):
-    """9b: HWA on the training model cut to 2 layers (K 2, H 2, I 3, the
-    fused sync) checkpointing every 4 of 8 steps into a temporary session
-    directory: both manifests verify (the newest before a bit is flipped
-    in it, the older one in the scan after), each save loads back bit
-    for bit, a flipped bit in the newest save falls back to the older
-    one, and the run resumed from it ends bit for bit where the
-    uninterrupted run ended. Then the run's window state goes through save_window_state
-    and publish_checkpoint into a 2-layer engine, whose params must equal
-    publish_window_state's of the same state to the bit."""
+    """9b: HWA on the training model cut to ``CKPT["layers"]`` (K 2, H 2, I
+    3, the fused sync) checkpointing once (step 6 of 8) into a temporary
+    session directory: the save loads back bit for bit, and the run
+    resumed from it (its scan verifies the manifest) ends bit for bit
+    where the uninterrupted run ended. Then the run's window state goes through
+    save_window_state and publish_checkpoint into a 2-layer engine, whose
+    params must equal publish_window_state's of the same state to the
+    bit. (The bit flip and the fallback to an older save run in phase 15,
+    at full width.)"""
     import shutil
     import tempfile
 
     from repro_torch.checkpoint.io import save_window_state
-    from repro_torch.resilience.faults import flip_bit
     from repro_torch.resilience.session import CheckpointSession
     from repro_torch.serve.publish import WeightPublisher
 
@@ -2240,8 +2264,10 @@ def phase_checkpoint(device, cfg=None):
         return out
 
     def trainer_for(resume):
+        # the resumed run saves nothing (its save was checked by nothing)
+        every = c["steps"] + 1 if resume else c["every"]
         return _train_setup(dev, cfg, steps=c["steps"], checkpoint_dir=root,
-                            checkpoint_every=c["every"],
+                            checkpoint_every=every,
                             checkpoint_keep=c["keep"], resume=resume)
 
     try:
@@ -2254,8 +2280,9 @@ def phase_checkpoint(device, cfg=None):
             step = int(state.step)
             if step % c["every"] == 0:
                 # the state the session saves right after this sync
-                kept[step] = (_host_copy(state) if step < c["steps"]
-                              else state)
+                kept[step] = _host_copy(state)
+            if step == c["steps"]:
+                kept[step] = state
             return state, m
 
         trainer._sync_step = kept_sync
@@ -2274,18 +2301,10 @@ def phase_checkpoint(device, cfg=None):
                      flash_bwd_dkv=n * K * L)
         if dev.type == "cuda" and launches != want:
             fails.append(f"launch counts {launches} != {want}")
-        if steps != [c["every"], c["steps"]]:
+        if steps != [c["every"]]:
             fails.append(f"checkpoints at {steps}")
         load_s, gb = [], []
         template = kept[c["every"]]
-        # only the newest save is verified here: the scan after the flip
-        # below verifies the older one (it returns a step only if that
-        # step verifies), so every manifest is read and checked once
-        t0 = time.perf_counter()
-        ok, problems = session.verify(c["steps"])
-        verify_s = time.perf_counter() - t0
-        if not ok:
-            fails.append(f"step {c['steps']} does not verify: {problems}")
         for step in steps:
             gb.append(sum(f["size"] for f in
                           session.manifest(step)["files"].values()) / 1e9)
@@ -2298,14 +2317,10 @@ def phase_checkpoint(device, cfg=None):
         final = kept.pop(c["steps"])
         del template, kept
         gc.collect()
-        newest = os.path.join(session.step_dir(c["steps"]), "hwa.npz")
-        flip_bit(newest)
         t0 = time.perf_counter()
-        fallback = session.latest_intact()
-        scan_s = time.perf_counter() - t0
-        if fallback != c["every"]:
-            fails.append(f"after a flipped bit latest_intact() is "
-                         f"{fallback}, not {c['every']}")
+        if session.latest_intact() != c["every"]:
+            fails.append(f"step {c['every']} does not verify")
+        verify_s = time.perf_counter() - t0
         resumed = trainer_for(True).run()
         _sync(dev)
         if not _trees_bits_equal(resumed["params"], out["params"]):
@@ -2342,7 +2357,7 @@ def phase_checkpoint(device, cfg=None):
         shutil.rmtree(root, ignore_errors=True)
     res = {"params": train_param_count(cfg), "gb_per_save": gb,
            "save_s": saves, "verify_s": verify_s, "load_s": load_s,
-           "scan_after_flip_s": scan_s, "window_gb": wgb,
+           "window_gb": wgb,
            "window_save_s": wsave_s, "window_publish_s": wpub_s,
            "launches": launches,
            "history": [h["test_loss"] for h in out["history"]]}
@@ -2350,11 +2365,10 @@ def phase_checkpoint(device, cfg=None):
           f"({res['params'] / 1e6:.1f}M params), HWA K{TRAIN['K']} "
           f"H{TRAIN['H']} I{TRAIN['I']} fused sync, {c['steps']} steps, "
           f"saves at {steps}: {[round(x, 3) for x in gb]} GB a save, save "
-          f"{[round(x, 2) for x in saves]} s (the resumed run's last), "
+          f"{[round(x, 2) for x in saves]} s, "
           f"verify {verify_s:.2f} s, load "
-          f"{[round(x, 2) for x in load_s]} s, latest_intact after a flipped "
-          f"bit (verifies both saves) {scan_s:.2f} s -> step {fallback}; "
-          f"resumed W̿ and history "
+          f"{[round(x, 2) for x in load_s]} s; resumed from step "
+          f"{c['every']}: W̿ and history "
           f"bit-equal; window state {wgb:.3f} GB saved in {wsave_s:.2f} s, "
           f"published from the file in {wpub_s:.2f} s, bit-equal to the live "
           f"publish; launches {launches} | {CARD['line']}")
@@ -2430,7 +2444,7 @@ def _leaf_names(tree, prefix=""):
 
 # ------------------------------------------------------------ 10. phase 10
 
-#: 10a: phase 9b's 2-layer model, HWA K 2 H 2 I 3 on an f32 ring with the
+#: 10a: the training model cut to 2 layers, HWA K 2 H 2 I 3 on an f32 ring with the
 #: kernels, resilient; replica 1 poisoned before step index 2 (the sync
 #: after step 4 must drop it, the one after step 6 count it again)
 RESILIENT = dict(layers=2, steps=6, poison_before=2, scale=1e3)
@@ -3982,6 +3996,335 @@ def phase_large(device, serve_over=None, reference=None, decode=None):
     return out
 
 
+# ---------------------------------------------------- 15. mesh-native HWA
+
+#: phase 15: HWA across processes (``launch.train.run_mesh_native``: one
+#: spawned rank a replica, ``gloo`` on this one card, CUDA tensors staged
+#: through host memory) on granite-3-2b at its published width cut to
+#: MESH_LAYERS layers, with the flash kernels and remat off, H 2, I 3, SGD
+#: lr 0.1, 4 x 512 tokens a replica a step. Depth: each rank holds its
+#: replica (bf16), f32 momentum, the f32 ring of I slots and total, and
+#: the packed f32 sync buffers, ~36 bytes a parameter: 322.8M at 2 layers,
+#: ~12 GB a rank, ~50 GB for K = 4 (15b-c) and for 15d's two runs side by
+#: side. Checkpoints (15a, 15d) are gathered to rank 0's host.
+MESH_LAYERS = 2
+MESH_FULL = True
+MESH_RUN = dict(arch="granite-3-2b", steps=8, sync_period=2, window=3,
+                batch_size=4, seq_len=512, lr=0.1, seed=0, device="cuda")
+#: 15a's comparison with the one-process stacked run: the reference's
+#: bf16 budget (rel-ULPs) on W̿ and the replicas, 1e-3 on the losses
+MESH_STACKED_ULPS = 4.0
+MESH_LOSS_TOL = 1e-3
+#: 15c: the compressed rings and payloads against an exact f32 window of
+#: the same replicas (benchmarks/thresholds.json ``ulp_budgets``)
+MESH_ULP_BUDGET = {"bf16": 4.0, "fp8": 4.0}
+
+
+def _mesh_cfg():
+    """Phase 15's model: granite-3-2b at its published width cut to
+    MESH_LAYERS (the smoke config when MESH_FULL is off, as the CPU
+    rehearsal runs it), the flash kernels, remat off."""
+    from repro_torch.configs import get_smoke_config
+    cfg = (get_config("granite-3-2b").with_(n_layers=MESH_LAYERS)
+           if MESH_FULL else get_smoke_config("granite-3-2b"))
+    return cfg.with_(attn_impl="flash_pallas", remat="none")
+
+
+def _mesh_args(K, **kw):
+    from repro_torch.launch.train import mesh_args
+    return mesh_args(**dict(MESH_RUN, k=K, **kw))
+
+
+def _mesh_report(label, out, cfg):
+    """Print a run's syncs (rank 0's ms, each level's collectives and
+    bytes a rank, host-staged bytes) and its launches; return them."""
+    K = out["mesh"].get("pod", 1) * out["mesh"]["replica"]
+    syncs = out["ranks"][0]["syncs"]
+    for h, s in zip(out["history"], syncs):
+        lv = "; ".join(
+            f"{name}: {r['all_reduce']} all-reduce {r['all_gather']} "
+            f"all-gather, {r['bytes'] / 2**20:.1f} MiB, staged "
+            f"{r['staged_bytes'] / 2**20:.1f} MiB"
+            for name, r in s["collectives"].items())
+        p = h.get("probe")
+        if p is None:
+            print(f"[mesh15] {label} step {h['step']} {h['sync']} sync "
+                  f"{s['ms']:.1f} ms | {lv} | not probed")
+            continue
+        print(f"[mesh15] {label} step {h['step']} {h['sync']} sync "
+              f"{s['ms']:.1f} ms | {lv} | W̄ {p['mean_ulps']} ULP"
+              + (f" ({p['mean_rel_ulps']:.3f} rel-ULP of the ring dtype)"
+                 if "mean_rel_ulps" in p else "")
+              + f", restarts equal {p['restarts_equal']}"
+              + (f", W̿ {p['wa_rel_ulps']:.3f} rel-ULP"
+                 if "wa_rel_ulps" in p else ""))
+    by_kind = {}
+    for s in syncs:
+        by_kind.setdefault(s["sync"], []).append(s["ms"])
+    med = {k: round(float(np.median(v)), 1) for k, v in by_kind.items()}
+    peaks = [r["peak_gib"] for r in out["ranks"]]
+    print(f"[mesh15] {label}: {cfg.name} L{cfg.n_layers} d{cfg.d_model} K{K} "
+          f"{out['mesh']} backend {out['backend']}, {out['syncs']} syncs, "
+          f"median sync ms {med}, "
+          f"losses first {np.mean(out['losses'][0]):.4f} last "
+          f"{np.mean(out['losses'][-1]):.4f}, launches "
+          f"{ {k: v for k, v in out['launches'].items() if v} }, peak "
+          f"device memory per rank "
+          f"{[None if p is None else round(p, 2) for p in peaks]} GiB | "
+          f"{CARD['line']}")
+    return {"sync_ms": by_kind, "syncs": syncs, "history": out["history"],
+            "launches": out["launches"], "losses": out["losses"],
+            "peak_gib": peaks}
+
+
+def _nonzero(rows):
+    return {lvl: {op: n for op, n in row.items()
+                  if op in ("all_reduce", "all_gather", "gather", "barrier")
+                  and n}
+            for lvl, row in rows.items()}
+
+
+def _mesh_checks(label, out, *, exact=True, cuda=True):
+    """Every rank's train steps and syncs issue exactly the collectives
+    their bundles declare (none in a train step), and on the card launch
+    exactly the kernels the bundles declare; every rank restarted from
+    the same W̄; with ``exact`` every W̄ 0 ULP from its core.online
+    oracle."""
+    for rank in out["ranks"]:
+        if rank["train_collectives"] or rank["train_declared"]:
+            raise AssertionError(f"{label}: rank {rank['rank']}'s train "
+                                 f"steps issued {rank['train_collectives']} "
+                                 f"(declared {rank['train_declared']})")
+        for s in rank["syncs"]:
+            if _nonzero(s["collectives"]) != s["declared"]:
+                raise AssertionError(f"{label}: rank {rank['rank']} "
+                                     f"{s['sync']} sync issued "
+                                     f"{s['collectives']}, declared "
+                                     f"{s['declared']}")
+        want = rank["declared_launches"]
+        got = {k: v for k, v in rank["launches"].items() if v}
+        if cuda and (want is None
+                     or got != {k: v for k, v in want.items() if v}):
+            raise AssertionError(f"{label}: rank {rank['rank']} launched "
+                                 f"{got}, its bundles declare {want}")
+    bad = [h for h in out["history"] if "probe" in h and (
+        not h["probe"]["restarts_equal"]
+        or (exact and h["probe"]["mean_ulps"]))]
+    if bad:
+        raise AssertionError(f"{label}: W̄ off its oracle, or ranks "
+                             f"restarted from different W̄: {bad}")
+
+
+def _stacked_mesh_run(dev, cfg, K):
+    """Phase 7's path on 15a's batches: ``hwa_inner_step``/``hwa_sync``
+    with K stacked replicas in this process, the fused sync kernel.
+    Returns the losses, W̿ and replicas on the host."""
+    from repro_torch.launch.train import mesh_batch
+    lm = build_model(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(
+        MESH_RUN["seed"]), device=dev)
+    hcfg = HWAConfig(n_replicas=K, window=MESH_RUN["window"],
+                     use_kernels=True)
+    opt = sgd(momentum=0.9, weight_decay=5e-4)
+    state = hwa_init(hcfg, params, opt)
+    del params
+    losses = []
+    for step in range(MESH_RUN["steps"]):
+        b = mesh_batch(MESH_RUN["seed"], step, K, MESH_RUN["batch_size"],
+                       MESH_RUN["seq_len"], cfg.vocab_size)
+        state, m = hwa_inner_step(hcfg, state, {
+            k: torch.from_numpy(v).to(dev) for k, v in b.items()},
+            lm.loss, opt, MESH_RUN["lr"])
+        losses.append(m["per_replica_loss"].float().cpu().tolist())
+        if (step + 1) % MESH_RUN["sync_period"] == 0:
+            state, _ = hwa_sync(hcfg, state)
+    out = {"losses": losses, "wa": tree_map(lambda x: x.cpu(), state.wa),
+           "inner": tree_map(lambda x: x.cpu(), state.inner)}
+    del state
+    _free(dev)
+    return out
+
+
+def phase_mesh_flat(device, ckpt_dir):
+    """15a: flat sync, K = 2 ranks, f32 ring, 8 steps, a checkpoint every
+    4 steps into ``ckpt_dir`` (15d's saves): every W̄ 0 ULP from
+    ``online_average_canonical`` of the replicas gathered before it (on
+    the card); the launches and collectives each rank's bundles declare
+    (the window update once a rank a sync; the flash forward and both
+    sweeps once a layer a step a rank; no collective in a train step and
+    one two-way all-reduce a sync); the run held against phase 7's
+    stacked path on the same batches. Returns the report and the run (its
+    final state's digest is 15d's uninterrupted run)."""
+    from repro_torch.launch.train import run_mesh_native
+    dev = torch.device(device)
+    K = 2
+    cfg = _mesh_cfg()
+    args = _mesh_args(K, device=dev.type, checkpoint_dir=ckpt_dir,
+                      checkpoint_every=4)
+    t0 = time.perf_counter()
+    ref = _stacked_mesh_run(dev, cfg, K)
+    t1 = time.perf_counter()
+    _reset_counts()
+    out = run_mesh_native(args, cfg=cfg, probe=True,
+                          with_state=("inner", "wa"), digest=True)
+    parent = _counts()
+    print(f"[mesh15] 15a: the stacked run {t1 - t0:.1f} s, the mesh-native "
+          f"run {time.perf_counter() - t1:.1f} s, its checkpoints "
+          + ", ".join(f"step {c['step']} {c['gb']:.3f} GB in {c['s']:.1f} s"
+                      for c in out["saves"]))
+    if any(parent.values()):
+        raise AssertionError(f"15a: this process launched {parent}")
+    if [c["step"] for c in out["saves"]] != [4, 8]:
+        raise AssertionError(f"15a: saves {out['saves']}")
+    _mesh_checks("15a", out, cuda=dev.type == "cuda")
+    st = out.pop("_state")
+    wa_err = max(rel_ulp_error(r, g, "bf16") for r, g in zip(
+        tree_leaves(ref["wa"]), tree_leaves(st["wa"])))
+    inner_err = max(rel_ulp_error(r, g, "bf16") for r, g in zip(
+        tree_leaves(ref["inner"]), tree_leaves(st["inner"])))
+    loss_err = float(np.max(np.abs(np.asarray(ref["losses"])
+                                   - np.asarray(out["losses"]))))
+    bitwise = _trees_bits_equal(ref["wa"], st["wa"]) and \
+        _trees_bits_equal(ref["inner"], st["inner"])
+    del st, ref
+    print(f"[mesh15] 15a against the stacked one-process run: W̿ "
+          f"{wa_err:.3f} rel-ULP, replicas {inner_err:.3f} rel-ULP (bf16; "
+          f"limit {MESH_STACKED_ULPS}), losses |d| {loss_err:.2e} (limit "
+          f"{MESH_LOSS_TOL}), bit-equal {bitwise}")
+    if not (wa_err <= MESH_STACKED_ULPS and inner_err <= MESH_STACKED_ULPS
+            and loss_err <= MESH_LOSS_TOL):
+        raise AssertionError("15a: the mesh-native run left the stacked "
+                             "run's tolerance")
+    res = _mesh_report("15a flat", out, cfg)
+    res.update(wa_rel_ulps=wa_err, inner_rel_ulps=inner_err,
+               loss_err=loss_err, bitwise=bitwise, saves=out["saves"])
+    return res, out
+
+
+def phase_mesh_tree(device):
+    """15b: the two-level tree, K = 4 ranks as 2 pods of 2, H₂ 2, f32, 4
+    steps (an inner and an outer sync): the inner sync crosses no pod and
+    pushes no window, every W̄ 0 ULP from ``pod_mean_grouped``/
+    ``online_average_grouped``. 15c: the bf16 ring with bf16 comms and
+    the fp8 ring with fp8 comms on the same tree: W̿ within the
+    reference's budgets of an exact f32 window fed the exact means of the
+    same replicas, the cross-pod payload 2 or 1 bytes an element plus the
+    fp8 scales. The three runs share one spawn of the four ranks; 15c
+    probes its outer syncs only (its inner syncs are 15b's, bit for bit:
+    the same replicas through the same f32 level)."""
+    from repro_torch.launch.train import run_mesh_native
+    K, steps = 4, 4
+    toks = ("f32", "bf16", "fp8")
+    cuda = torch.device(device).type == "cuda"
+    cfg = _mesh_cfg()
+    _reset_counts()
+    t0 = time.perf_counter()
+    outs = run_mesh_native(
+        [_mesh_args(K, sync_tree="two-level", outer_every=2, wa_dtype=tok,
+                    comms_dtype=tok, steps=steps,
+                    device=torch.device(device).type) for tok in toks],
+        cfg=cfg, probe=[True, "outer", "outer"], with_state=False)
+    print(f"[mesh15] 15b-c: the three runs in one spawn "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(_counts().values()):
+        raise AssertionError(f"15b-c: this process launched {_counts()}")
+    res = {}
+    for tok, out in zip(toks, outs):
+        label = "15b" if tok == "f32" else f"15c {tok}"
+        if [h["sync"] for h in out["history"]] != ["inner", "outer"]:
+            raise AssertionError(f"{label}: syncs {out['history']}")
+        _mesh_checks(label, out, exact=tok == "f32", cuda=cuda)
+        P = None
+        for s in out["ranks"][0]["syncs"]:
+            rep = s["collectives"]["replica"]
+            P = rep["bytes"] // 4
+            if s["sync"] == "outer" and tok != "f32":
+                pod = s["collectives"]["pod"]["bytes"]
+                want_b = 2 * P if tok == "bf16" else P + 4 * (P // ALIGN)
+                if pod != want_b:
+                    raise AssertionError(f"{label}: cross-pod payload "
+                                         f"{pod} B != {want_b} B")
+        for h in out["history"]:
+            if tok != "f32" and h["sync"] == "outer" and not (
+                    h["probe"]["wa_rel_ulps"] <= MESH_ULP_BUDGET[tok]):
+                raise AssertionError(f"{label}: W̿ {h['probe']} past the "
+                                     f"{tok} budget")
+        res[tok] = _mesh_report(label, out, cfg)
+        res[tok]["packed"] = P
+    return res
+
+
+def phase_mesh_faults(device, flat_run, ckpt_dir):
+    """15d: the fault check's three mesh legs at 15a's size, two runs side
+    by side. nan-replica: a NaN replica quarantined (k_alive 1) and
+    recovered (2) with W̿ finite, through the alive-masked sync over the
+    full-width buffer. corrupt-fallback over 15a's session: a bit flipped
+    in step 8's replicas fails its CRC, the ranks' own scan falls back to
+    step 4, and the run resumed from it ends with the SHA-256 of 15a's
+    uninterrupted final state. That resume is resume-exact's
+    checkpoint@4 + --resume, so resume-exact is not run a second time.
+    Each leg prints its ranks' device memory (after the resume's load,
+    and at the peak)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.resilience import check as fault_check
+    run = {k: MESH_RUN[k] for k in ("arch", "window", "sync_period",
+                                    "batch_size", "seq_len", "lr", "seed")}
+    run["cfg"] = _mesh_cfg()
+    legs = [fault_check.Leg("nan-replica", lambda d: fault_check
+                            .leg_nan_replica(d, run=run)),
+            fault_check.Leg("corrupt-fallback", lambda d: fault_check
+                            .leg_corrupt_fallback(d, run=run,
+                                                  saved=(flat_run, ckpt_dir)))]
+    dev = torch.device(device)
+    with ThreadPoolExecutor(len(legs)) as pool:
+        report = dict(zip((leg.name for leg in legs), pool.map(
+            lambda leg: fault_check.run_leg(leg, dev), legs)))
+    for name, r in report.items():
+        print(f"[mesh15] 15d {name}: {'ok' if r['ok'] else 'FAIL'} — "
+              f"{r.get('detail', r.get('error'))}")
+    if not all(r["ok"] for r in report.values()):
+        raise AssertionError(f"15d: fault legs failed: {report}")
+    print("[mesh15] 15d resume-exact: ok — corrupt-fallback's resume is "
+          "checkpoint@4 + --resume, bit-equal (SHA-256) to the "
+          "uninterrupted 15a run")
+    return report
+
+
+def phase_mesh(device):
+    """Phase 15: mesh-native HWA across processes (15a-d), on a card this
+    process holds little of (checked: under 4 GiB allocated). Launch
+    counts and device memory apply on the card only. 15a's checkpoints
+    live in a temporary directory until 15d is done."""
+    import shutil
+    import tempfile
+    dev = torch.device(device)
+    _free(dev)
+    held = (torch.cuda.memory_allocated(dev) / 2**30
+            if dev.type == "cuda" else 0.0)
+    print(f"[mesh15] this process holds {held:.2f} GiB of the card before "
+          f"spawning the ranks")
+    if held > 4.0:
+        raise AssertionError(f"phase 15 needs the card: {held:.2f} GiB "
+                             f"held")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        t0 = time.perf_counter()
+        out = {}
+        out["flat"], flat_run = phase_mesh_flat(dev, ckpt_dir)
+        _free(dev)
+        t1 = time.perf_counter()
+        out["tree"] = phase_mesh_tree(dev)
+        t2 = time.perf_counter()
+        out["faults"] = phase_mesh_faults(device, flat_run, ckpt_dir)
+        t3 = time.perf_counter()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"[mesh15] phase 15 in {t3 - t0:.1f} s (15a {t1 - t0:.1f} s, "
+          f"15b-c {t2 - t1:.1f} s, 15d {t3 - t2:.1f} s) | {CARD['line']}")
+    return out
+
+
 # --------------------------------------------------------- 6. yardstick
 
 
@@ -4725,6 +5068,9 @@ def main() -> int:
     stamp("phase 14")
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 15 next: its ranks need the card to themselves
+    mesh = phase_mesh(device)
+    stamp("phase 15")
     serve, eng = phase_serve(device)
     phase_trace(device, eng, serve)
     del eng                  # its timing wrappers hold it in a cycle: collect
@@ -4820,7 +5166,12 @@ def main() -> int:
              "audio_train": mod["train"]["musicgen-medium"]["launches"],
              "gemma2_serve": large["serve"]["gemma2-27b"]["launches"],
              "command_r_serve": large["serve"]["command-r-35b"]["launches"],
-             "gemma2_naive_serve": large["decode_engine"]["launches"]}
+             "gemma2_naive_serve": large["decode_engine"]["launches"],
+             # phase 15: every rank's launches, summed over the ranks
+             "mesh_flat": mesh["flat"]["launches"],
+             "mesh_tree": {k: sum(r["launches"][k] for r in
+                                  mesh["tree"].values())
+                           for k in _counts()}}
     for e in entries:
         by_path = e.setdefault("launches_by_path", {"train": e["launches"]})
         for path, counts in paths.items():

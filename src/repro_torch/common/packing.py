@@ -15,9 +15,11 @@ A spec also names the storage dtype of the WA ring laid out by it
 its number of per-block scales. :func:`spec_to_json` writes a layout in
 the reference's JSON form (checkpoints store it beside the buffers) and
 :func:`spec_from_json` reads it back; :func:`repack` moves a buffer
-between two single-device layouts of one leaf set. The sharded and
-grouped layouts (``shards > 1``, ``groups``) wait for ROADMAP.md Queue
-A 13: a stored record of one raises.
+between two single-device layouts of one leaf set. The mesh-native sync
+(``launch.sync``) keeps this layout: a rank holds one whole replica. The
+sharded and grouped layouts (``shards > 1``, ``groups``) come with a
+data or model axis inside a replica, ROADMAP.md Queue A 16: a stored
+record of one raises.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ from repro_torch.common.pytree import tree_flatten, tree_unflatten
 PyTree = Any
 
 #: what a sharded or grouped layout waits for
-MESH_ITEM = "ROADMAP.md Queue A 13 (multi-replica sync across processes)"
+MESH_ITEM = ("ROADMAP.md Queue A 16 (a data or model axis inside a "
+             "replica: --tp, --fsdp and their packed layouts)")
 
 # The reference's packed alignment (one (8, 1024) f32 tile): kept so the
 # two packages lay a tree out identically. The CUDA sync kernel needs only

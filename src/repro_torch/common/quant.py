@@ -31,6 +31,10 @@ from repro_torch.common.packing import ALIGN
 #: elements covered by one fp8 scale: one packed ALIGN block
 SCALE_BLOCK = ALIGN
 
+#: elements a plain compressed-ring update encodes at a time: whole
+#: scale blocks, so chunking leaves the bits as they are
+SLOT_CHUNK = 512 * SCALE_BLOCK
+
 #: largest finite float8_e4m3fn value (e4m3fn has no inf)
 FP8_MAX = 448.0
 

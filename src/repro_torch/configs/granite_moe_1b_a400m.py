@@ -3,7 +3,7 @@
 24L d_model=1024 16H (GQA kv=8) d_ff=512 vocab=49155, MoE 32e top-8.
 The reference also runs its expert-parallel all-to-all variant
 (``expert_parallel=True``) on device meshes; the port raises on it
-(ROADMAP.md Queue A 13).
+(ROADMAP.md Queue A 16).
 """
 from repro_torch.models.types import ModelConfig
 

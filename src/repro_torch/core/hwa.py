@@ -20,9 +20,11 @@ the functions return the state for the reference's calling pattern.
 Every window of the reference is ported: the f32 ring, the bf16 and fp8
 rings (``hwa_init(ring_dtype=...)``), the sparse stride and the
 streaming window, and the resilient sync (``HWAConfig.resilient``: the
-alive-masked mean of ``resilience.health``). Not ported yet (they raise
-``NotImplementedError``): the two-level sync tree and the mesh-native
-functions (ROADMAP.md Queue A 13).
+alive-masked mean of ``resilience.health``). As in the reference, the
+stacked path ignores ``outer_every``: the two-level tree is the
+mesh-native path's (``launch.sync``), whose builders refuse a value that
+disagrees with their topology. :func:`hwa_local_inner_step` is one
+replica's step there, a rank's whole train step.
 """
 from __future__ import annotations
 
@@ -83,20 +85,12 @@ register_dataclass(HWAState, data_fields=["inner", "inner_opt",
                                           "step"])
 
 
-def check_config(cfg: HWAConfig) -> None:
-    """Raise for the options this port does not cover yet."""
-    if cfg.outer_every != 1:
-        raise NotImplementedError("the two-level sync tree is not ported "
-                                  "yet: ROADMAP.md Queue A 13")
-
-
 def hwa_init(cfg: HWAConfig, params: PyTree, optimizer: Optimizer,
              ring_dtype=torch.float32) -> HWAState:
     """All replicas start from the same initialization (Algorithm 1 line
     1 with a shared init); they diverge through data order.
     ``ring_dtype`` (a dtype or a ``f32``/``bf16``/``fp8`` token) selects
     the compressed window ring (``core.offline.window_init``)."""
-    check_config(cfg)
     dev = tree_leaves(params)[0].device
     inner = broadcast_to_replicas(params, cfg.n_replicas)
     inner_opt = broadcast_to_replicas(optimizer.init(params), cfg.n_replicas)
@@ -151,6 +145,27 @@ def hwa_inner_step(cfg: HWAConfig, state: HWAState, batches: PyTree,
     state.step = state.step + 1
     return state, {"loss": losses.mean(), "per_replica_loss": losses,
                    **scalar}
+
+
+def hwa_local_inner_step(params: PyTree, opt_state: PyTree, batch: PyTree,
+                         loss_fn: Callable, optimizer: Optimizer, lr
+                         ) -> tuple[PyTree, PyTree, torch.Tensor, dict]:
+    """One replica's step (Algorithm 1 lines 5-7) with no leading K axis:
+    the mesh-native train step of a rank. The same arithmetic as one
+    replica of :func:`hwa_inner_step`. It issues no collective:
+    inter-replica traffic happens only in the sync, every H steps.
+    Returns (new params, new optimizer state, loss, metrics)."""
+    leaves, treedef = tree_flatten(params)
+    live = [x.detach().requires_grad_(True) for x in leaves]
+    loss, metrics = loss_fn(tree_unflatten(treedef, live), batch)
+    grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                materialize_grads=True)
+    with torch.no_grad():
+        plain = tree_unflatten(treedef, [x.detach() for x in live])
+        updates, opt2 = optimizer.update(
+            tree_unflatten(treedef, list(grads)), opt_state, plain, lr)
+        new = apply_updates(plain, updates)
+    return new, opt2, loss.detach(), metrics
 
 
 def window_push_packed(cfg: HWAConfig, new_buf: torch.Tensor,
@@ -241,7 +256,6 @@ def hwa_sync(cfg: HWAConfig, state: HWAState) -> tuple[HWAState, dict]:
     still takes the window-update kernel with ``use_kernels`` (an f32 or
     bf16 ring). With every replica alive it is bit-equal to the plain
     route. The alive count is the ``k_alive`` metric (int32)."""
-    check_config(cfg)
     div = replica_divergence(state.inner)
     ws = state.window_state
     alive = None

@@ -10,8 +10,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.common.pytree import sum_axis0_f32
-from repro_torch.common.quant import (SCALE_BLOCK, decode_slot, encode_slot,
-                                     fma_f32, kahan_add)
+from repro_torch.common.quant import (SCALE_BLOCK, SLOT_CHUNK, decode_slot,
+                                     encode_slot, fma_f32, kahan_add)
 from repro_torch.models.attention import NEG_INF, naive_attention
 from repro_torch.models.cache import paged_slot_pages
 from repro_torch.models.common import softcap
@@ -73,28 +73,35 @@ def wa_window_update_c_ref(ring, scales, total, comp, new, idx, full_flag,
     port rounds it once too (``common.quant.fma_f32``), so that its fp8
     totals are the ones the reference's sync produces.
 
-    ring, scales, total and comp are written IN PLACE. Returns (ring,
-    scales, total, comp, avg = total'·inv_count)."""
+    ring, scales, total and comp are written IN PLACE, SLOT_CHUNK
+    elements at a time (whole scale blocks, so the bits are those of one
+    pass; the f64 temporaries of the fp8 path stay a chunk's). Returns
+    (ring, scales, total, comp, avg = total'·inv_count)."""
     row = idx.reshape(1).long()
-    slot, s_new = encode_slot(new.float(), ring.dtype)
     # the row moves as integer bits: index_copy_ has no fp8 version
     bits = ring.view(torch.uint8 if ring.element_size() == 1
                      else torch.int16)
-    old = decode_slot(bits.index_select(0, row)[0].view(ring.dtype),
-                      None if scales is None else
-                      scales.index_select(0, row)[0])
-    if s_new is None:
-        delta = decode_slot(slot) - old * full_flag
-    else:
-        blocks = (-1, SCALE_BLOCK)
-        delta = fma_f32(slot.float().reshape(blocks), s_new[:, None],
-                        -(old * full_flag).reshape(blocks)).reshape(-1)
-    t, c = kahan_add(total, comp, delta)
-    bits.index_copy_(0, row, slot.view(bits.dtype)[None])
-    if scales is not None:
-        scales.index_copy_(0, row, s_new[None])
-    total.copy_(t)
-    comp.copy_(c)
+    for c in range(0, new.shape[-1], SLOT_CHUNK):
+        n = min(SLOT_CHUNK, new.shape[-1] - c)
+        part = bits.narrow(1, c, n)
+        blk = None if scales is None else \
+            scales.narrow(1, c // SCALE_BLOCK, -(-n // SCALE_BLOCK))
+        slot, s_new = encode_slot(new[c:c + n].float(), ring.dtype)
+        old = decode_slot(part.index_select(0, row)[0].view(ring.dtype),
+                          None if blk is None else
+                          blk.index_select(0, row)[0])
+        if s_new is None:
+            delta = decode_slot(slot) - old * full_flag
+        else:
+            blocks = (-1, SCALE_BLOCK)
+            delta = fma_f32(slot.float().reshape(blocks), s_new[:, None],
+                            -(old * full_flag).reshape(blocks)).reshape(-1)
+        t, k = kahan_add(total[c:c + n], comp[c:c + n], delta)
+        part.index_copy_(0, row, slot.view(bits.dtype)[None])
+        if blk is not None:
+            blk.index_copy_(0, row, s_new[None])
+        total[c:c + n].copy_(t)
+        comp[c:c + n].copy_(k)
     return ring, scales, total, comp, total * inv_count
 
 

@@ -11,24 +11,48 @@ smoke config of an architecture, with preemption-safe checkpoints.
       [--max-param-rms 10]
 
 Runs on the card unless ``--device cpu``. Mirrors the JAX package's
-single-device launcher (``repro.launch.train``), whose checkpoint
-directories it reads and writes. ``--resilient`` and ``--max-param-rms``
-select the alive-masked sync (``HWAConfig.resilient``). Its mesh-native
-flags (``--wa-dtype`` and ``--comms-dtype`` among them: there they
-compress the mesh-native window state), the sync-tree flags and
-``--inject-nan`` (offered there only with ``--mesh-native``) wait for
-the multi-replica sync across processes (ROADMAP.md Queue A 13). A
-caller that builds its own ``TrainConfig`` passes any ``HWAConfig``
-window (stride, streaming, kernels) through the Trainer unchanged. The
-vlm and audio archs are refused, as the JAX launcher refuses them: their
-batches carry vision embeddings or codebook streams, which the Trainer's
-(tokens, targets) pipeline does not; ``core.hwa``'s functions take them.
+launcher (``repro.launch.train``), whose checkpoint directories it reads
+and writes. ``--resilient`` and ``--max-param-rms`` select the
+alive-masked sync (``HWAConfig.resilient``). A caller that builds its own
+``TrainConfig`` passes any ``HWAConfig`` window (stride, streaming,
+kernels) through the Trainer unchanged. The vlm and audio archs are
+refused, as the JAX launcher refuses them: their batches carry vision
+embeddings or codebook streams, which the Trainer's (tokens, targets)
+pipeline does not; ``core.hwa``'s functions take them.
+
+``--mesh-native`` runs :func:`run_mesh_native` instead: K processes, one
+replica each, on ``torch.distributed`` (``launch.mesh``), one sync
+every ``--sync-period`` steps and no collective in between:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --mesh-native --k 2 --steps 8 --sync-period 2 --window 3 \
+      --batch-size 4 --seq-len 16
+  ... --mesh-native --sync-tree two-level --k 4 --outer-every 2 \
+      [--wa-dtype bf16|fp8 --comms-dtype bf16|fp8]
+
+The launcher spawns the K ranks itself (the counterpart of the
+reference's forced host devices); on the card it builds the kernels
+first. ``--sync-tree two-level`` carves the ranks into ``--pods``
+contiguous pods that average internally every H steps; only every
+``--outer-every``-th sync crosses pods and pushes the window.
+``--wa-dtype`` compresses the ring, ``--comms-dtype`` the cross-pod
+payload, ``--inject-nan STEP:REPLICA`` poisons a replica (with
+``--resilient`` it is quarantined). The command line trains the smoke
+config; a caller of :func:`run_mesh_native` passes any model config
+(``chip_smoke.py`` passes the published width cut in depth). A data axis
+inside a replica (``--fsdp``, ``--tp > 1``) waits for ROADMAP.md Queue
+A 16.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
+import time
+
+import numpy as np
+import torch
 
 from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.core.hwa import HWAConfig
@@ -38,8 +62,14 @@ from repro_torch.models.registry import build_model
 from repro_torch.train.trainer import METHODS, PARALLEL, TrainConfig, \
     Trainer, lm_task
 
+#: what a data or model axis inside a replica waits for
+MESH_REST = "ROADMAP.md Queue A 16"
+#: seconds before a mesh-native process group gives up on a collective (a
+#: rank waits at a barrier while rank 0 writes a checkpoint)
+COLLECTIVE_TIMEOUT = 300.0
 
-def main(argv=None):
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-2b", choices=ARCH_IDS)
     ap.add_argument("--method", default="hwa", choices=list(METHODS))
@@ -75,9 +105,592 @@ def main(argv=None):
                     help="resume from the newest INTACT checkpoint in "
                          "--checkpoint-dir (bit-exact: torn or corrupted "
                          "saves are skipped)")
+    ap.add_argument("--mesh-native", action="store_true",
+                    help="K processes, one replica each, on "
+                         "torch.distributed: one sync every H steps and "
+                         "no collective in between")
+    ap.add_argument("--sync-tree", default="flat",
+                    choices=["flat", "two-level"],
+                    help="sync topology (mesh-native only): flat = one "
+                         "global reduction per sync; two-level = pods "
+                         "average internally every sync, the cross-pod "
+                         "reduction + window push every --outer-every "
+                         "syncs")
+    ap.add_argument("--outer-every", type=int, default=2,
+                    help="H₂: outer (cross-pod) sync period of the "
+                         "two-level tree, in syncs")
+    ap.add_argument("--pods", type=int, default=0,
+                    help="pod count for --sync-tree two-level "
+                         "(0 = auto: 2)")
+    ap.add_argument("--wa-dtype", default="f32",
+                    choices=["f32", "bf16", "fp8"],
+                    help="mesh-native only: WA ring storage dtype (bf16, "
+                         "or fp8 with per-block f32 scales; the running "
+                         "total stays f32 with Kahan compensation). f32 "
+                         "is bit-equal to the uncompressed path")
+    ap.add_argument("--comms-dtype", default="f32",
+                    choices=["f32", "bf16", "fp8"],
+                    help="mesh-native only: cross-pod sync payload dtype "
+                         "(needs --sync-tree two-level; incompatible "
+                         "with --resilient)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help=f"mesh-native only: FSDP inside a replica "
+                         f"(waits for {MESH_REST})")
+    ap.add_argument("--tp", type=int, default=1,
+                    help=f"mesh-native only: tensor parallelism inside a "
+                         f"replica (> 1 waits for {MESH_REST})")
+    ap.add_argument("--inject-nan", default="",
+                    help="fault injection (mesh-native only): STEP:REPLICA "
+                         "— poison that replica's weights with NaN before "
+                         "that step")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def mesh_args(**kw) -> argparse.Namespace:
+    """The launcher's defaults as a Namespace for :func:`run_mesh_native`,
+    with ``kw`` (underscored flag names) replacing them."""
+    ns = _parser().parse_args([])
+    for k, v in kw.items():
+        if not hasattr(ns, k):
+            raise AttributeError(f"no launcher flag {k!r}")
+        setattr(ns, k, v)
+    return ns
+
+
+def mesh_config(args):
+    """The model config of a mesh-native run from the command line: the
+    smoke config with the ``--attn-impl`` override."""
+    cfg = get_smoke_config(args.arch)
+    if args.attn_impl:
+        cfg = cfg.with_(attn_impl=args.attn_impl)
+    return cfg
+
+
+def mesh_batch(seed: int, step: int, K: int, batch_size: int, seq_len: int,
+               vocab: int) -> dict:
+    """Step ``step``'s (K, B, S) tokens and targets, drawn with numpy from
+    (seed, step): the port's own stream (the reference draws them with
+    ``jax.random`` from 1000 + step). Every rank draws the whole batch
+    and takes its own row."""
+    rng = np.random.default_rng([seed, step])
+    shape = (K, batch_size, seq_len)
+    return {"tokens": rng.integers(0, vocab, shape, dtype=np.int64),
+            "targets": rng.integers(0, vocab, shape, dtype=np.int64)}
+
+
+def _mesh_shape(args) -> dict[str, int]:
+    K = args.k
+    if args.sync_tree != "two-level":
+        return {"replica": K}
+    pods = args.pods or 2
+    if K % pods or K // pods < 1:
+        raise SystemExit(f"--sync-tree two-level needs K divisible by "
+                         f"--pods (K={K}, pods={pods})")
+    return {"pod": pods, "replica": K // pods}
+
+
+def _mesh_plan(args, K: int):
+    from repro_torch.launch.sync import SyncPlan, TwoLevel
+    tree = args.sync_tree == "two-level"
+    topo = (TwoLevel("replica", "pod", outer_every=args.outer_every)
+            if tree else None)
+    hwa_cfg = HWAConfig(n_replicas=K, window=args.window,
+                        outer_every=args.outer_every if tree else 1,
+                        resilient=args.resilient,
+                        max_param_rms=args.max_param_rms or None,
+                        use_kernels=True)
+    try:
+        return SyncPlan(hwa=hwa_cfg, topology=topo, wa_dtype=args.wa_dtype,
+                        comms_dtype=args.comms_dtype, optimizer="sgd",
+                        lr=args.lr)
+    except ValueError as e:
+        raise SystemExit(f"invalid --wa-dtype/--comms-dtype combination: "
+                         f"{e}") from None
+
+
+def _parse_inject(args, K: int):
+    if not args.inject_nan:
+        return None
+    s, _, r = args.inject_nan.partition(":")
+    inject = (int(s), int(r))
+    if not 0 <= inject[1] < K:
+        raise SystemExit(f"--inject-nan replica {inject[1]} out of range "
+                         f"[0, {K})")
+    return inject
+
+
+def _check_mesh_args(args) -> None:
+    """The launcher's refusals of a mesh-native run, before any spawn."""
+    if args.fsdp or args.tp > 1:
+        raise NotImplementedError(
+            f"--fsdp and --tp > 1 put a data or model axis inside a "
+            f"replica, with the grouped and sharded packed layouts they "
+            f"need: {MESH_REST}")
+    _mesh_shape(args)
+    _mesh_plan(args, args.k)
+    _parse_inject(args, args.k)
+    if args.resume and not (args.checkpoint_dir and args.checkpoint_every):
+        raise SystemExit("--resume needs --checkpoint-dir and "
+                         "--checkpoint-every")
+
+
+def run_mesh_native(args, *, cfg=None, probe=False, with_state=True,
+                    digest: bool = False):
+    """Train with the mesh-native HWA steps: K spawned ranks
+    (``launch.mesh.spawn_ranks``), one replica each, on a replica mesh of
+    ``{"replica": K}`` or, with ``--sync-tree two-level``, ``{"pod": G,
+    "replica": K // G}``. Inter-replica traffic happens only inside the
+    syncs: the paper's H-fold communication amortization (×H₂ more across
+    pods under the tree), executed across processes.
+
+    ``args`` is the launcher's Namespace, or a list of them over one mesh
+    (K, tree and device): one spawn then runs them in turn, the ranks'
+    start-up paid once, and a list of results comes back. ``cfg`` (a
+    ``ModelConfig``) replaces the smoke config of ``--arch``.
+
+    Returns rank 0's result with the reference's keys (``history`` with
+    ``"sync": "inner"|"outer"``, ``cycles``, ``syncs``, ``wa_finite``,
+    ``k_alive_min``, and ``_state``: the final stacked replicas, W̿, ring
+    and total on the CPU, or only the keys in ``with_state`` when it is a
+    tuple, none when it is false), and the port's: ``losses`` (per step,
+    per replica), ``backend``, ``resumed_from`` (the step, or None),
+    ``saves`` (rank 0's checkpoint seconds and GB), ``launches`` (every
+    rank's kernel launches summed) and ``ranks`` (per rank: its train
+    steps' collectives and their declared ones, each sync's kind, ms,
+    collectives and declared collectives, its launches and the launches
+    its bundles declare for the card, its peak device memory). ``probe``
+    gathers the replicas around every sync (``"outer"``: every outer sync)
+    and holds rank 0's W̄ against ``core.online``'s canonical, grouped or
+    pod mean of them on its device (``history[i]["probe"]``); a list gives
+    each run its own. ``digest`` adds ``digest``: the SHA-256 of
+    the final replicas, W̿, ring and total, key by key, without moving
+    them to this process. Process groups time out after
+    :data:`COLLECTIVE_TIMEOUT` seconds."""
+    from repro_torch.launch.mesh import backend_for, spawn_ranks
+    runs = list(args) if isinstance(args, (list, tuple)) else [args]
+    first = runs[0]
+    for a in runs:
+        _check_mesh_args(a)
+        if (_mesh_shape(a), a.sync_tree, a.device) != (
+                _mesh_shape(first), first.sync_tree, first.device):
+            raise ValueError("runs of one spawn share K, the sync tree and "
+                             "the device")
+    K = first.k
+    shape = _mesh_shape(first)
+    family = (cfg or mesh_config(first)).family
+    if family in ("vlm", "audio"):
+        raise SystemExit(f"{first.arch}: the mesh-native launcher supports "
+                         "LM families only")
+    dev = resolve_device(first.device)
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    backend = backend_for(dev.type, K, n_cards)
+    if dev.type == "cuda":
+        from repro_torch.kernels import build
+        build.build_all()          # once here, not in K ranks at once
+    where = (f"{n_cards} card(s)" if dev.type == "cuda" else "the CPU")
+    print(f"[mesh-native] {K} ranks {shape} on {where}: backend {backend}"
+          + (" (ranks share a card: CUDA tensors staged through host "
+             "memory)" if backend == "gloo" and dev.type == "cuda" else ""))
+    topo = _mesh_plan(first, K).resolved_topology
+    levels = topo.psum_groups() + (topo.inner_groups()
+                                   if first.sync_tree == "two-level" else ())
+    ranks = spawn_ranks(shape, "repro_torch.launch.train:mesh_rank",
+                        {"runs": [vars(a) for a in runs], "cfg": cfg,
+                         "probe": (list(probe) if isinstance(probe, list)
+                                   else [probe] * len(runs)),
+                         "with_state": with_state,
+                         "digest": digest},
+                        device=first.device, levels=levels,
+                        collective_timeout=COLLECTIVE_TIMEOUT)
+    outs = []
+    for i in range(len(runs)):
+        stats = [r["result"][i]["rank_stats"] for r in ranks]
+        out = ranks[0]["result"][i]
+        out.pop("rank_stats")
+        out["backend"] = backend
+        out["ranks"] = stats
+        out["launches"] = {k: sum(r["launches"][k] for r in out["ranks"])
+                           for k in out["ranks"][0]["launches"]}
+        print(f"[mesh-native] done: {out['cycles']} outer cycles / "
+              f"{out['syncs']} syncs, final loss {out['final_loss']:.4f}, "
+              f"wa_finite {out['wa_finite']}")
+        outs.append(out)
+    return outs if isinstance(args, (list, tuple)) else outs[0]
+
+
+def _gather_tree(mesh, tree, spec, level):
+    """The K ranks' trees, stacked, on rank 0's host (None elsewhere)."""
+    from repro_torch.common.packing import pack, unpack
+    buf = mesh.gather(pack(tree, spec), level, out_device="cpu")
+    return None if buf is None else unpack(buf, spec)
+
+
+#: elements of a packed buffer the probe moves or reads at a time
+PROBE_CHUNK = 1 << 22
+
+
+def _digest(buf) -> list[int]:
+    """Two sums of a packed buffer's bits as int64 (plain, and weighted
+    by position mod 127 + 1), a chunk at a time: equal digests mean equal
+    buffers but for a collision."""
+    s = w = 0
+    for c in range(0, buf.numel(), PROBE_CHUNK):
+        bits = buf[c:c + PROBE_CHUNK].view(torch.int32).to(torch.int64)
+        pos = torch.arange(c, c + bits.numel(), device=buf.device) % 127
+        s += int(bits.sum())
+        w += int((bits * (pos + 1)).sum())
+    return [s, w]
+
+
+def _probe(mesh, before, params, spec, mean, kind, pods, shadow, ws, tok):
+    """Rank 0's check of one sync against ``core.online``: W̄ (the packed
+    mean it restarted from) against the canonical (flat), grouped (outer)
+    or pod (inner) mean of the replicas gathered before the sync
+    (``before``, on the host), computed on rank 0's device a chunk of
+    columns at a time; every rank's restarted replica against its pod's
+    first rank's (digests); for a compressed ring or payload, W̄ and, after
+    an outer sync, W̿ against the exact f32 ``shadow`` window fed the
+    exact means (on the host), in ``tok``'s relative ULPs. Every rank
+    takes part in the digest gather; the others return None."""
+    from repro_torch.common.packing import pack
+    from repro_torch.common.quant import max_ulp, rel_ulp_error
+    from repro_torch.core.offline import (window_average_packed,
+                                          window_update_packed)
+    from repro_torch.core.online import (online_average_canonical,
+                                         online_average_grouped,
+                                         pod_mean_grouped)
+    dev = mesh.device
+    digest = torch.tensor(_digest(pack(params, spec)), device=dev)
+    digests = mesh.all_gather(digest, tuple(mesh.shape), level="probe")
+    if mesh.rank != 0:
+        return None
+    def oracle(t):
+        if kind == "inner":
+            return pod_mean_grouped(t, pods)["w"]
+        if pods == 1:
+            return online_average_canonical(t)["w"][None]
+        return online_average_grouped(t, pods)["w"][None]
+
+    P = before.shape[1]
+    want0 = torch.empty((P,), dtype=torch.float32)   # rank 0's row
+    ulps = 0
+    for c in range(0, P, PROBE_CHUNK):
+        w = oracle({"w": before[:, c:c + PROBE_CHUNK].to(dev)})[0]
+        ulps = max(ulps, max_ulp(mean[c:c + PROBE_CHUNK], w))
+        want0[c:c + PROBE_CHUNK] = w.cpu()
+    group = mesh.world // (pods if kind == "inner" else 1)
+    leads = [r - r % group for r in range(mesh.world)]
+    rec = {"mean_ulps": ulps,
+           "restarts_equal": all(bool(torch.equal(digests[r], digests[l]))
+                                 for r, l in enumerate(leads))}
+    if tok != "f32":
+        rec["mean_rel_ulps"] = rel_ulp_error(want0, mean.cpu(), tok)
+        if kind == "outer":
+            shadow[0], _ = window_update_packed(shadow[0], want0)
+            rec["wa_rel_ulps"] = rel_ulp_error(
+                window_average_packed(shadow[0]),
+                window_average_packed(ws).cpu(), tok)
+    return rec
+
+
+def _add(acc: dict, rows: dict, times: int = 1) -> None:
+    """``acc[level][op] += times * rows[level][op]``."""
+    for lvl, row in rows.items():
+        into = acc.setdefault(lvl, {})
+        for k, v in row.items():
+            into[k] = into.get(k, 0) + times * v
+
+
+def _sha256(tree) -> str:
+    """SHA-256 of a tree's leaf bytes, in leaf order."""
+    from repro_torch.common.pytree import tree_leaves
+    h = hashlib.sha256()
+    for x in tree_leaves(tree):
+        h.update(x.detach().contiguous().cpu().reshape(-1)
+                 .view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def mesh_rank(mesh, payload) -> list[dict]:
+    """One rank of :func:`run_mesh_native` (spawned by
+    ``launch.mesh.spawn_ranks``): each run of ``payload["runs"]`` in turn.
+    Returns a list with, per run, rank 0's result and every rank's
+    ``rank_stats``."""
+    out = []
+    for run, probe in zip(payload["runs"], payload["probe"]):
+        out.append(_mesh_rank_run(mesh, argparse.Namespace(**run), probe,
+                                  payload))
+        if mesh.device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_rank_run(mesh, args, probe, payload) -> dict:
+    """One run on one rank: the rank's replica stepped by the train bundle
+    with no collective, the sync or inner-sync bundle every H steps,
+    checkpoints gathered to rank 0 (on the host). The ledger and the
+    launch counts of every call are kept beside the call's contract."""
+    from repro_torch.common.packing import pack, pack_spec
+    from repro_torch.common.pytree import tree_leaves, tree_map
+    from repro_torch.common.quant import wa_token
+    from repro_torch.core.offline import window_init
+    from repro_torch.launch.mesh import (kernel_counts, ledger_delta,
+                                         ledger_snapshot)
+    from repro_torch.launch.sync import build_hwa_bundles, window_state_args
+    from repro_torch.launch.sync.bundles import _mk_optimizer
+
+    K, rank, dev = args.k, mesh.rank, mesh.device
+    lead = rank == 0
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    launched0 = kernel_counts()
+    cfg = payload["cfg"] or mesh_config(args)
+    lm = build_model(cfg)
+    plan = _mesh_plan(args, K)
+    topo = plan.resolved_topology
+    pods = topo.pods(mesh) if plan.is_tree else 1
+    all_axes = tuple(mesh.shape)
+    params = lm.init(torch.Generator(device=dev).manual_seed(args.seed),
+                     device=dev)
+    bundles = build_hwa_bundles(lm, mesh, plan, params)
+    train, sync, inner_sync = bundles.train, bundles.sync, bundles.inner_sync
+    spec = sync.pack_spec
+    opt = _mk_optimizer("sgd")  # the train bundle's optimizer
+    opt_state = opt.init(params)
+    opt_spec = pack_spec(opt_state)
+    ws, cycle = window_state_args(bundles, params)
+    wa = params
+    H = args.sync_period or 8
+    inject = _parse_inject(args, K)
+    tok = wa_token(plan.wa_dtype)
+
+    session = None
+    if args.checkpoint_dir and args.checkpoint_every > 0:
+        from repro_torch.resilience.session import CheckpointSession
+        session = CheckpointSession(args.checkpoint_dir, keep=args.keep)
+
+    def log(msg):
+        if lead:
+            print(f"[mesh-native] {msg}", flush=True)
+
+    loss = float("nan")
+    history, losses, pending, saves = [], [], [], []
+    sync_idx = start_step = 0
+    resumed_from = resume_gib = None
+    k_alive_min = K
+    if session is not None and args.resume:
+        latest = session.latest_intact()
+        if latest is not None:
+            # batches are a function of (seed, step): restoring the
+            # tensors and the step counter IS a bit-exact resume. The K
+            # rows load on the host; only this rank's row reaches the card
+            def row(name, like):
+                stacked = tree_map(lambda x: torch.empty(
+                    (), dtype=x.dtype).expand((K,) + tuple(x.shape)), like)
+                return tree_map(lambda x: x[rank].to(dev, copy=True),
+                                session.load(latest, name, stacked))
+            params = row("inner", params)
+            opt_state = row("inner_opt", opt_state)
+            wa = session.load(latest, "wa", wa)
+            ws = session.load_window(latest, ws)
+            meta = session.meta(latest)
+            start_step = resumed_from = int(meta["step"])
+            cycle = torch.tensor(meta["cycle"], dtype=torch.int32,
+                                 device=dev)
+            sync_idx = int(meta["sync_idx"])
+            loss = float(meta["loss"])
+            history = list(meta.get("history", []))
+            if cuda:
+                resume_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+            log(f"resumed from step {start_step} "
+                f"({session.step_dir(latest)})")
+
+    # the exact f32 window of the same pushes, for a compressed W̿'s
+    # error, on the host
+    shadow = ([window_init(tree_map(lambda x: x.cpu(), params),
+                           args.window, ws.kind)]
+              if probe and lead and tok != "f32" else None)
+
+    def flush_losses():
+        """The per-step losses since the last flush, every rank's, onto
+        rank 0 (a ``log`` all-gather, outside the train steps)."""
+        if not pending:
+            return
+        got = mesh.all_gather(torch.tensor(pending, dtype=torch.float64,
+                                           device=dev), all_axes,
+                              level="log")
+        losses.extend(got.T.cpu().tolist())
+        pending.clear()
+
+    def wait():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    declared = {}                    # kernel -> launches the contracts say
+
+    def declare(bundle):
+        nonlocal declared
+        if declared is not None and bundle.contract["launches"] is None:
+            declared = None
+        if declared is not None:
+            for k, v in bundle.contract["launches"].items():
+                declared[k] = declared.get(k, 0) + v
+
+    train_colls, train_declared = {}, {}
+    sync_colls = []
+    for step in range(start_step, args.steps):
+        if inject is not None and step == inject[0] and rank == inject[1]:
+            for x in tree_leaves(params):
+                if x.is_floating_point():
+                    x.fill_(float("nan"))
+            print(f"[mesh-native] step {step}: injected NaN into replica "
+                  f"{rank}", flush=True)
+        b = mesh_batch(args.seed, step, K, args.batch_size, args.seq_len,
+                       cfg.vocab_size)
+        batch = {k: torch.from_numpy(v[rank]).to(dev) for k, v in b.items()}
+        before = ledger_snapshot()
+        params, opt_state, step_loss = train(params, opt_state, batch)
+        _add(train_colls, ledger_delta(before, ledger_snapshot()))
+        _add(train_declared, train.contract["collectives"])
+        declare(train)
+        pending.append(float(step_loss))
+        if (step + 1) % H == 0:
+            flush_losses()
+            loss = float(np.mean(losses[-1]))
+            inner = inner_sync is not None and not topo.is_outer(sync_idx)
+            probing = probe is True or (probe == "outer" and not inner)
+            if probing:
+                gathered = mesh.gather(pack(params, spec), "probe",
+                                       out_device="cpu")
+            wait()
+            t0 = time.perf_counter()
+            before = ledger_snapshot()
+            bundle = inner_sync if inner else sync
+            if inner:
+                mean = inner_sync(params)
+            else:
+                ws, wa, cycle, alive, k_alive_t, mean = sync(params, ws,
+                                                             cycle)
+            wait()
+            ms = (time.perf_counter() - t0) * 1e3
+            declare(bundle)
+            sync_colls.append({
+                "sync": "inner" if inner else "outer", "ms": ms,
+                "collectives": ledger_delta(before, ledger_snapshot()),
+                "declared": bundle.contract["collectives"]})
+            entry = {"step": step + 1, "loss": loss,
+                     "sync": "inner" if inner else "outer"}
+            if not inner:
+                entry["cycle"] = int(cycle)
+                if args.resilient:
+                    ka = int(k_alive_t)
+                    k_alive = K if ka == 0 else ka
+                    k_alive_min = min(k_alive_min, k_alive)
+                    if k_alive < K and not bool(alive[0]):
+                        # the sync restarted this replica from W̄; its
+                        # stale momentum goes too
+                        for o in tree_leaves(opt_state):
+                            o.zero_()
+                    entry["k_alive"] = k_alive
+            if probing:
+                rec = _probe(mesh, gathered, params, spec, mean,
+                             entry["sync"], pods, shadow, ws, tok)
+                del gathered
+                if lead:
+                    entry["probe"] = rec
+            del mean
+            if cuda:
+                # ranks may share the card: hand the sync's buffers back
+                torch.cuda.empty_cache()
+            history.append(entry)
+            if inner:
+                log(f"step {step + 1} loss {loss:.4f} inner sync (pods "
+                    f"avg internally)")
+            elif args.resilient:
+                log(f"step {step + 1} loss {loss:.4f} cycle {int(cycle)} "
+                    f"k_alive {entry['k_alive']}/{K}")
+            else:
+                log(f"step {step + 1} loss {loss:.4f} cycle {int(cycle)} "
+                    f"(K={K}, mesh={mesh.shape})")
+            sync_idx += 1
+        if session is not None and (step + 1) % args.checkpoint_every == 0:
+            flush_losses()
+            t0 = time.perf_counter()
+            inner_all = _gather_tree(mesh, params, spec, "checkpoint")
+            opt_all = _gather_tree(mesh, opt_state, opt_spec, "checkpoint")
+            if lead:
+                session.save(step + 1, {"inner": inner_all,
+                                        "inner_opt": opt_all, "wa": wa},
+                             window=ws,
+                             meta={"step": step + 1, "cycle": int(cycle),
+                                   "sync_idx": sync_idx, "loss": loss,
+                                   "history": history})
+                saves.append({"step": step + 1,
+                              "s": time.perf_counter() - t0,
+                              "gb": sum(f["size"] for f in session.manifest(
+                                  step + 1)["files"].values()) / 1e9})
+            del inner_all, opt_all
+            mesh.barrier("checkpoint")
+    flush_losses()
+    launched = kernel_counts()
+    stats = {"rank": rank, "train_collectives": train_colls,
+             "train_declared": train_declared, "syncs": sync_colls,
+             "launches": {k: v - launched0[k] for k, v in launched.items()},
+             "declared_launches": declared,
+             "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                          if cuda else None),
+             "resume_gib": resume_gib}
+    keys = payload["with_state"]
+    keys = (("inner", "wa", "ring", "total") if keys is True
+            else tuple(keys or ()))
+    inner_all = (_gather_tree(mesh, params, spec, "state")
+                 if "inner" in keys or payload["digest"] else None)
+    if not lead:
+        return {"rank_stats": stats}
+    if losses:
+        loss = float(np.mean(losses[-1]))
+    wa_finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(wa)
+                    if x.is_floating_point())
+    out = {"final_loss": loss, "cycles": int(cycle), "syncs": sync_idx,
+           "history": history, "sync_tree": args.sync_tree,
+           "wa_dtype": plan.wa_dtype, "comms_dtype": plan.comms_dtype,
+           "wa_finite": wa_finite, "k_alive_min": k_alive_min,
+           "mesh": dict(mesh.shape), "losses": losses,
+           "resumed_from": resumed_from, "saves": saves,
+           "rank_stats": stats}
+    full = {"inner": inner_all, "wa": wa, "ring": ws.ring, "total": ws.total}
+    if payload["digest"]:
+        out["digest"] = {k: _sha256(v) for k, v in full.items()
+                         if v is not None}
+    if keys:
+        out["_state"] = tree_map(lambda x: x.cpu(),
+                                 {k: full[k] for k in keys})
+    return out
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    if args.inject_nan and not args.mesh_native:
+        raise SystemExit("--inject-nan needs --mesh-native (the fault "
+                         "check's in-process legs cover the rest)")
+    if (args.wa_dtype != "f32" or args.comms_dtype != "f32") \
+            and not args.mesh_native:
+        raise SystemExit("--wa-dtype/--comms-dtype compress the "
+                         "mesh-native packed window state; add "
+                         "--mesh-native")
+    if args.mesh_native:
+        out = run_mesh_native(args)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as f:
+                # "_"-prefixed keys carry tensors for in-process callers
+                json.dump({k: v for k, v in out.items()
+                           if not k.startswith("_")}, f, indent=2)
+        return
 
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch)

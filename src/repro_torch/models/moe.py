@@ -23,8 +23,8 @@ as the reference's scatter-add meets them.
 The capacity dispatch (:func:`moe_forward_capacity`) is the reference's
 single-device at-scale variant. The shard_map paths
 (:func:`moe_forward_sharded`, :func:`moe_forward_ep`,
-``cfg.expert_parallel``) raise: they wait for the multi-process sync
-(ROADMAP.md Queue A 13).
+``cfg.expert_parallel``) raise: they need experts sharded across
+processes inside a replica (ROADMAP.md Queue A 16).
 """
 from __future__ import annotations
 
@@ -33,8 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import activation, normal_init
 
-_UNPORTED = ("the sharded and expert-parallel MoE paths need a device mesh; "
-             "they wait for ROADMAP.md Queue A 13")
+_UNPORTED = ("the sharded and expert-parallel MoE paths shard experts "
+             "inside a replica; they wait for ROADMAP.md Queue A 16")
 
 
 def init_moe(cfg, n: int, gen: torch.Generator, dtype, device):

@@ -60,8 +60,8 @@ def check_family(cfg: ModelConfig) -> None:
             f"are models.convnet)")
     if cfg.expert_parallel:
         raise NotImplementedError(
-            "expert_parallel=True (the all-to-all MoE path) needs a device "
-            "mesh; it waits for ROADMAP.md Queue A 13")
+            "expert_parallel=True (the all-to-all MoE path) shards experts "
+            "inside a replica; it waits for ROADMAP.md Queue A 16")
 
 
 def block_pattern(cfg: ModelConfig) -> list[LayerSpec]:

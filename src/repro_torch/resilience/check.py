@@ -1,6 +1,5 @@
 """fault-check: deterministic fault-injection harness over the resilience
-stack (counterpart of ``repro.resilience.check``, the legs that need no
-mesh).
+stack (counterpart of ``repro.resilience.check``, all eight legs).
 
     PYTHONPATH=src python -m repro_torch.resilience.check [--smoke] \
         [--device cpu] [--only SUBSTR] [--json PATH] [--list]
@@ -9,9 +8,16 @@ Every leg is a deterministic scenario with a hard pass/fail verdict:
 
   masked-parity    the all-healthy alive-masked mean is BITWISE equal to
                    the plain K-mean (tree level and packed-buffer level)
+  nan-replica      a NaN-poisoned replica is quarantined at sync; the
+                   run reaches the final step with finite W̿
+  resume-exact     checkpoint at N/2, rerun with --resume: final state
+                   bit-equal to the uninterrupted run
   kill-mid-save    a simulated preemption truncating the manifest
                    mid-write leaves a torn, skipped checkpoint; the
                    session falls back to the previous intact one
+  corrupt-fallback bit-flip the newest checkpoint: CRC verification
+                   rejects it and --resume recomputes from the previous
+                   intact save, bit-exactly matching the clean run
   transient-io     injected OSErrors during a save are retried with
                    capped backoff; exhaustion surfaces the error
   store-partial    a truncated outer_*.npz is skipped (with a warning) by
@@ -19,9 +25,13 @@ Every leg is a deterministic scenario with a hard pass/fail verdict:
   session-gc       the checkpoint session retains ``keep`` newest steps
                    and the newest survivor always verifies
 
-The reference's three other legs (``nan-replica``, ``resume-exact`` and
-``corrupt-fallback``) drive its mesh-native launcher; they arrive with
-the multi-replica sync across processes (ROADMAP.md Queue A 13).
+The three mesh legs (``nan-replica``, ``resume-exact`` and
+``corrupt-fallback``) drive the mesh-native launcher
+(``launch.train.run_mesh_native``: two spawned ranks) with the
+reference's ``_mesh_args`` defaults, the smoke granite-3-2b; a caller
+passes ``run`` (launcher flags and a model config) to run them at
+another size, as ``chip_smoke.py`` does at the published width. Runs are
+compared by the SHA-256 of their final replicas, W̿, ring and total.
 ``REPRO_FAULT_SMOKE=1`` (or ``--smoke``) runs the smoke subset. The
 legs' tensors live on ``--device`` (the card unless ``cpu``).
 """
@@ -93,6 +103,45 @@ def _demo_tree(seed: int, device):
                                   .astype(np.float32)).to(device)}
 
 
+def _mesh_args(device, **kw):
+    """Launcher arguments for ``run_mesh_native``: the reference's
+    defaults (tiny smoke config, K 2, H 2, I 3, 8 steps) on ``device``."""
+    from repro_torch.launch.train import mesh_args
+    base = dict(arch="granite-3-2b", k=2, tp=1, fsdp=False, sync_tree="flat",
+                pods=0, outer_every=2, window=3, seq_len=16, batch_size=4,
+                lr=0.3, seed=0, steps=8, sync_period=2, attn_impl="",
+                resilient=False, max_param_rms=0.0, inject_nan="",
+                wa_dtype="f32", comms_dtype="f32", checkpoint_dir="",
+                checkpoint_every=0, keep=3, resume=False,
+                device=str(device))
+    base.update(kw)
+    return mesh_args(**base)
+
+
+def _mesh_run(device, run, **kw):
+    """``run_mesh_native`` over ``_mesh_args(device, **kw)`` with ``run``
+    on top (launcher flags, and ``cfg``: the model config), returning
+    rank 0's result with the final state's digest."""
+    from repro_torch.launch.train import run_mesh_native
+    run = dict(run or {})
+    cfg = run.pop("cfg", None)
+    return run_mesh_native(_mesh_args(device, **dict(kw, **run)), cfg=cfg,
+                           with_state=False, digest=True)
+
+
+def _memory(out) -> str:
+    """A run's device memory per rank on the card (GiB): after a resume's
+    load, and at the peak; empty on the CPU."""
+    ranks = out["ranks"]
+    if ranks[0]["peak_gib"] is None:
+        return ""
+    text = "; device memory per rank"
+    if ranks[0]["resume_gib"] is not None:
+        text += (f" after the resume's load "
+                 f"{[round(r['resume_gib'], 2) for r in ranks]} GiB,")
+    return text + f" peak {[round(r['peak_gib'], 2) for r in ranks]} GiB"
+
+
 # ---------------------------------------------------------------- legs
 
 
@@ -144,6 +193,36 @@ def leg_masked_parity(device) -> str:
     return "all-alive masked mean bitwise == plain mean (tree + packed)"
 
 
+def leg_nan_replica(device, run=None) -> str:
+    out = _mesh_run(device, run, steps=8, resilient=True, inject_nan="2:1")
+    _check(out["wa_finite"], "W̿ went non-finite despite the alive mask")
+    _check(out["k_alive_min"] == 1,
+           f"expected the poisoned sync to see k_alive=1, got "
+           f"{out['k_alive_min']}")
+    final = [h for h in out["history"] if h.get("sync") == "outer"][-1]
+    _check(final["k_alive"] == 2,
+           f"re-seeded replica did not recover (final k_alive "
+           f"{final['k_alive']})")
+    return (f"poisoned replica quarantined (k_alive dipped to "
+            f"{out['k_alive_min']}, recovered to {final['k_alive']}), "
+            f"W̿ finite at step {out['history'][-1]['step']}"
+            + _memory(out))
+
+
+def leg_resume_exact(device, run=None) -> str:
+    clean = _mesh_run(device, run, steps=8)
+    with tempfile.TemporaryDirectory() as d:
+        _mesh_run(device, run, steps=4, checkpoint_dir=d, checkpoint_every=4)
+        resumed = _mesh_run(device, run, steps=8, checkpoint_dir=d,
+                            checkpoint_every=4, resume=True)
+    _check(resumed["resumed_from"] == 4,
+           f"resumed from {resumed['resumed_from']}, not step 4")
+    _check(clean["digest"] == resumed["digest"],
+           "resumed final state differs from the uninterrupted run")
+    return ("checkpoint@4 + --resume reproduces the 8-step run bit-exactly"
+            + _memory(resumed))
+
+
 def leg_kill_mid_save(device) -> str:
     t4, t8 = _demo_tree(4, device), _demo_tree(8, device)
     with tempfile.TemporaryDirectory() as d:
@@ -169,6 +248,38 @@ def leg_kill_mid_save(device) -> str:
         _check(fresh.latest_intact() == 8, "healed step 8 not intact")
     return ("preemption mid-manifest leaves a torn dir; session falls "
             "back to step 4 and heals on the next save")
+
+
+def leg_corrupt_fallback(device, run=None, saved=None) -> str:
+    """``saved`` = (an 8-step run's result, the session it checkpointed
+    into every 4 steps) stands for the clean and the saving run: that run
+    is uninterrupted, and its saves are this leg's (each returned from a
+    complete save, so step 8 is not checked again before the flip). The
+    resumed run saves nothing. The ranks' own scan must reject the
+    flipped step 8."""
+    from repro_torch.resilience.faults import flip_bit
+
+    with tempfile.TemporaryDirectory() as d:
+        if saved is None:
+            clean = _mesh_run(device, run, steps=8)
+            _mesh_run(device, run, steps=8, checkpoint_dir=d,
+                      checkpoint_every=4)
+            _check(CheckpointSession(d).verify(8)[0],
+                   "expected intact step 8")
+        else:
+            clean, d = saved
+        sess = CheckpointSession(d)
+        _check(sess.steps() == [4, 8], f"checkpoints at {sess.steps()}")
+        flip_bit(os.path.join(sess.step_dir(8), "inner.npz"))
+        resumed = _mesh_run(device, run, steps=8, checkpoint_dir=d,
+                            checkpoint_every=9, resume=True)
+    _check(resumed["resumed_from"] == 4,
+           f"the bit-flipped step 8 was not rejected: resumed from "
+           f"{resumed['resumed_from']}")
+    _check(clean["digest"] == resumed["digest"],
+           "resume-from-fallback differs from the uninterrupted run")
+    return ("bit-flipped newest checkpoint rejected by CRC; resume "
+            "recomputed from step 4 bit-exactly" + _memory(resumed))
 
 
 def leg_transient_io(device) -> str:
@@ -245,7 +356,10 @@ def leg_session_gc(device) -> str:
 def default_legs() -> list[Leg]:
     return [
         Leg("masked-parity", leg_masked_parity, smoke=True),
+        Leg("nan-replica", leg_nan_replica),
+        Leg("resume-exact", leg_resume_exact, smoke=True),
         Leg("kill-mid-save", leg_kill_mid_save, smoke=True),
+        Leg("corrupt-fallback", leg_corrupt_fallback),
         Leg("transient-io", leg_transient_io, smoke=True),
         Leg("store-partial", leg_store_partial),
         Leg("session-gc", leg_session_gc),
@@ -285,7 +399,8 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="repro_torch.resilience.check",
         description="Deterministic fault-injection harness: the alive "
-                    "mask, kill-mid-save, transient IO, torn outer "
+                    "mask, NaN poisoning across processes, exact resume, "
+                    "kill-mid-save, bit flips, transient IO, torn outer "
                     "checkpoints, retention — each leg a hard pass/fail "
                     "scenario.")
     ap.add_argument("--smoke", action="store_true",

@@ -4,7 +4,7 @@
 - :func:`packed_health_stats` / :func:`alive_from_stats` /
   :func:`renormalized_inv`: the probe and the multiplier over a packed
   f32 ``(k, P)`` sync buffer, the formulation the reference's mesh sync
-  runs (ported for it, with Queue A 13).
+  runs (``launch.sync.packed._local_packed_sync``'s resilient branch).
 - :func:`replica_alive_mask` / :func:`masked_mean_axis0` /
   :func:`quarantine_opt_state`: the stacked form ``core.hwa.hwa_sync``
   runs with ``HWAConfig.resilient``.

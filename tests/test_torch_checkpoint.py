@@ -313,11 +313,11 @@ def test_spec_json_interop():
 def test_sharded_layout_raises_naming_a13(tmp_path):
     spec_s = jax_pack_spec(_params(0), align=16, shards=2,
                            shard_dims=[None, None, 0], axes=("model",))
-    with pytest.raises(NotImplementedError, match="Queue A 13"):
+    with pytest.raises(NotImplementedError, match="Queue A 16"):
         spec_from_json(jax_spec_to_json(spec_s))
     from repro_torch.common.packing import merge_groups, split_groups
     for fn in (merge_groups, split_groups):
-        with pytest.raises(NotImplementedError, match="Queue A 13"):
+        with pytest.raises(NotImplementedError, match="Queue A 16"):
             fn(torch.zeros(4), _port_template("f32").spec)
 
 

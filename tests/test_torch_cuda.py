@@ -584,3 +584,136 @@ def test_slstm_graphs_equal_eager_loops(smoke):
         got = ssm._run(ssm._slstm_backward, r, hs, cs, ns, ms, *gates, *cot)
         assert all(torch.equal(a, b) for a, b in zip(want, got))
     assert all(bool(torch.isfinite(g).all()) for g in want)
+
+
+# --------------------------------------- mesh-native HWA (phase 15's sites)
+
+
+def _mesh_cases(K, tree, seed):
+    """One sync case per ring dtype on numpy-made replicas (a shared
+    normal plus 1% per replica) over an empty window."""
+    import numpy as np
+    from repro_torch.core.hwa import HWAConfig
+    from repro_torch.core.offline import window_init
+    from repro_torch.launch.sync import SyncPlan, TwoLevel
+    rng = np.random.default_rng(seed)
+    base = {"w": rng.standard_normal((64, 129)),
+            "b": rng.standard_normal((300,))}
+    stacked = {k: torch.from_numpy((v[None] + 0.01 * rng.standard_normal(
+        (K,) + v.shape)).astype(np.float32)) for k, v in base.items()}
+    one = {k: v[0] for k, v in stacked.items()}
+    cases = []
+    for tok in ("f32", "bf16", "fp8"):
+        plan = SyncPlan(
+            hwa=HWAConfig(n_replicas=K, window=3, use_kernels=True,
+                          outer_every=2 if tree else 1),
+            topology=TwoLevel(outer_every=2) if tree else None,
+            wa_dtype=tok, comms_dtype=tok if tree else "f32")
+        cases.append({"plan": plan, "stacked": stacked,
+                      "window": window_init(one, 3, ring_dtype=tok),
+                      "cycle": torch.tensor(0, dtype=torch.int32)})
+    return cases
+
+
+@pytest.mark.parametrize("shape", [{"replica": 2},
+                                   {"pod": 2, "replica": 2}])
+def test_mesh_sync_on_card_equals_cpu(smoke, shape):
+    """The window-update kernels at their new call site, after a
+    collective: the same syncs across ranks on the card (``gloo`` staged
+    through the host on one card, ``nccl`` on a card a rank) and on the
+    CPU (the plain versions),
+    bit for bit; one window-update launch a rank for the f32 and bf16
+    rings, none for fp8; no fused sync, no online mean."""
+    from repro_torch.launch.mesh import backend_for, spawn_ranks
+    tree = "pod" in shape
+    K = 4 if tree else 2
+    # ranks sharing a card take gloo, staged through the host; a card
+    # a rank takes nccl, staged nowhere
+    staging = backend_for("cuda", K, torch.cuda.device_count()) == "gloo"
+    levels = [("replica",), ("pod",)] if tree else [("replica",)]
+    job = "repro_torch.launch.sync.bundles:sync_cases"
+    cases = _mesh_cases(K, tree, seed=K)
+    card = spawn_ranks(shape, job, cases, device="cuda", levels=levels,
+                       timeout=300)
+    cpu = spawn_ranks(shape, job, cases, device="cpu", levels=levels,
+                      timeout=300)
+
+    def bits(t):
+        return t.reshape(-1).view(torch.uint8)
+    for a, b in zip(card, cpu):
+        for ca, cb in zip(a["result"], b["result"]):
+            for x, y in zip(smoke.tree_leaves({k: ca[k] for k in (
+                    "params", "wa", "mean")}), smoke.tree_leaves(
+                    {k: cb[k] for k in ("params", "wa", "mean")})):
+                assert torch.equal(bits(x), bits(y))
+            for f in ("ring", "total", "comp", "scales"):
+                x, y = getattr(ca["window"], f), getattr(cb["window"], f)
+                assert (x is None) == (y is None)
+                assert x is None or torch.equal(bits(x), bits(y)), f
+        launched = a["launches"]
+        assert launched["wa_window_update"] == 1
+        assert launched["wa_window_update_c"] == 1
+        assert launched["wa_sync_fused"] == launched["online_mean"] == 0
+        rep = a["ledger"]["replica"]
+        assert rep["bytes"] > 0
+        assert rep["staged_bytes"] == (2 * rep["bytes"] if staging else 0)
+
+
+def test_mesh_native_smoke_run_on_card(smoke):
+    """A 2-rank flat run of the smoke granite-3-2b with the flash kernels
+    and remat off: every W̄ 0 ULP from the canonical mean of the gathered
+    replicas, the flash forward and both sweeps once a layer a step a
+    rank, the window update once a rank a sync, no collective in a train
+    step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import mesh_args, run_mesh_native
+    cfg = get_smoke_config("granite-3-2b").with_(attn_impl="flash_pallas",
+                                                 remat="none")
+    out = run_mesh_native(mesh_args(
+        k=2, steps=4, sync_period=2, window=3, batch_size=2, seq_len=64,
+        device="cuda"), cfg=cfg, probe=True, with_state=False)
+    L, steps, K = 2, 4, 2
+    assert out["launches"] == dict(
+        smoke._want(flash_fwd=K * steps * L, flash_bwd_dq=K * steps * L,
+                    flash_bwd_dkv=K * steps * L, wa_window_update=K * 2))
+    for rank in out["ranks"]:      # what the bundles declare, per rank
+        assert rank["declared_launches"] == {
+            "flash_fwd": steps * L, "flash_bwd_dq": steps * L,
+            "flash_bwd_dkv": steps * L, "wa_window_update": 2}
+    assert all(h["probe"]["mean_ulps"] == 0 and
+               h["probe"]["restarts_equal"] for h in out["history"])
+    assert all(r["train_collectives"] == {} for r in out["ranks"])
+
+
+def test_mesh_native_nccl_route(smoke, tmp_path):
+    """A card a rank (two or more cards) takes ``nccl``: the unstaged
+    two-way all-reduce, the probe's all-gather and gather, the
+    checkpoint's gather to rank 0 and a resume, on the smoke granite-3-2b.
+    Every W̄ 0 ULP from its oracle, nothing staged through the host, the
+    run resumed from step 4 bit-equal (SHA-256) to the uninterrupted
+    one."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: nccl runs a card a rank")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import mesh_args, run_mesh_native
+    cfg = get_smoke_config("granite-3-2b").with_(attn_impl="flash_pallas",
+                                                 remat="none")
+    run = dict(k=2, steps=8, sync_period=2, window=3, batch_size=2,
+               seq_len=64, device="cuda", checkpoint_dir=str(tmp_path),
+               checkpoint_every=4)
+    kw = dict(cfg=cfg, with_state=False, digest=True)
+    out = run_mesh_native(mesh_args(**run), probe=True, **kw)
+    assert out["backend"] == "nccl"
+    assert all(h["probe"]["mean_ulps"] == 0 and
+               h["probe"]["restarts_equal"] for h in out["history"])
+    for rank in out["ranks"]:
+        for s in rank["syncs"]:
+            assert all(r["staged_bytes"] == 0
+                       for r in s["collectives"].values())
+    # a resume from step 4 of a session holding only that save
+    import shutil
+    shutil.rmtree(tmp_path / "step_00000008")
+    resumed = run_mesh_native(mesh_args(**dict(run, checkpoint_every=9,
+                                               resume=True)), **kw)
+    assert resumed["resumed_from"] == 4
+    assert resumed["digest"] == out["digest"]

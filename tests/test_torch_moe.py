@@ -199,14 +199,14 @@ def test_moe_launchers_on_cpu(capsys):
 
 def test_moe_sharded_paths_raise():
     """The shard_map paths and ``expert_parallel`` need a device mesh
-    (ROADMAP.md Queue A 13): they raise, naming it."""
+    inside a replica (ROADMAP.md Queue A 16): they raise, naming it."""
     cfg = get_smoke_config(ARCHS[0])
-    with pytest.raises(NotImplementedError, match="Queue A 13"):
+    with pytest.raises(NotImplementedError, match="Queue A 16"):
         build_model(cfg.with_(expert_parallel=True))
     x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="Queue A 13"):
+    with pytest.raises(NotImplementedError, match="Queue A 16"):
         moe.moe_forward(cfg.with_(expert_parallel=True), {}, x)
-    with pytest.raises(NotImplementedError, match="Queue A 13"):
+    with pytest.raises(NotImplementedError, match="Queue A 16"):
         moe.moe_forward_sharded(cfg, {}, x, rules=None)
-    with pytest.raises(NotImplementedError, match="Queue A 13"):
+    with pytest.raises(NotImplementedError, match="Queue A 16"):
         moe.moe_forward_ep(cfg, {}, x, mesh=None)

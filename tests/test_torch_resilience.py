@@ -4,7 +4,8 @@ dead, all dead, an integer leaf, the RMS probe), the resilient
 ``hwa_sync`` over four syncs of bridged state with a replica poisoned
 before the second, on both ``use_kernels`` settings (the window-update
 kernel's plain version here, interpret-mode Pallas there), the fault
-check's five mesh-free legs, and the launcher's ``--resilient``.
+check's eight legs (the three mesh legs over two spawned ``gloo`` ranks),
+and the launcher's ``--resilient``.
 
 Tolerances: bit for bit everywhere but one place. The sum of squares of
 ``packed_health_stats`` is an f32 sum over a row, which XLA's CPU build
@@ -278,19 +279,22 @@ def test_resilient_sync_healthy_equals_plain_route(avg_opt):
 
 
 @pytest.mark.parametrize("leg", [leg.name for leg in check.default_legs()])
-def test_fault_check_leg(leg):
+def test_fault_check_leg(leg, monkeypatch):
+    # a hang of a mesh leg fails within a minute
+    monkeypatch.setattr(launch_train, "COLLECTIVE_TIMEOUT", 60.0)
     (found,) = [x for x in check.default_legs() if x.name == leg]
     report = check.run_fault_check([found], log=lambda s: None,
                                    device="cpu")
     assert report["ok"], report["legs"][leg]
 
 
-def test_fault_check_cli_smoke():
+def test_fault_check_cli_smoke(monkeypatch):
+    monkeypatch.setattr(launch_train, "COLLECTIVE_TIMEOUT", 60.0)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = check.main(["--smoke", "--device", "cpu"])
     assert rc == 0
-    assert "fault-check: ALL_OK (3 legs)" in buf.getvalue()
+    assert "fault-check: ALL_OK (4 legs)" in buf.getvalue()
     assert check.main(["--list"]) == 0
 
 

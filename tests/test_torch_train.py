@@ -152,9 +152,10 @@ def test_lm_loss_and_grads_match_jax(impl, S, arch):
 
 
 def test_unported_training_options_raise():
-    """What is still unported raises with a pointer to its ROADMAP item:
-    the two-level sync tree (A13). ``remat="dots"``,
-    ``attn_impl="flash_jnp"`` (A5) and a resilient HWA (A12) run."""
+    """Every training option of the reference runs: ``remat="dots"``,
+    ``attn_impl="flash_jnp"`` (A5), a resilient HWA (A12) and, since the
+    two-level tree is ported (A13), ``outer_every``, which the stacked
+    Trainer carries without effect, as the reference's does."""
     cfg = get_smoke_config("granite-3-2b")
     tok = torch.zeros((1, 8), dtype=torch.int32)
     for ok in (cfg.with_(remat="dots"), cfg.with_(attn_impl="flash_jnp")):
@@ -172,10 +173,11 @@ def test_unported_training_options_raise():
                                             max_param_rms=1e3),
                               total_steps=2)).run()
     assert np.isfinite(out["final"]["test_loss"])
-    with pytest.raises(NotImplementedError, match="Queue A 13"):
-        Trainer(lm_task(lm, pipe, device="cpu"),
-                TrainConfig(hwa=HWAConfig(outer_every=2),
-                            total_steps=2)).run()
+    runs = [Trainer(lm_task(lm, pipe, device="cpu"),
+                    TrainConfig(hwa=HWAConfig(outer_every=h2, window=2),
+                                total_steps=2)).run()["final"]
+            for h2 in (1, 2)]
+    assert runs[0] == runs[1] and np.isfinite(runs[1]["test_loss"])
 
 
 # ------------------------------------------------------------- data

@@ -222,9 +222,29 @@ def test_hwa_sync_matches_jax_bitwise(use_kernels, K, dtype, avg_opt):
 
 
 def test_unported_hwa_options_raise():
-    """The two-level sync tree (Queue A 13) raises before touching the
-    state; ``resilient`` is ported (tests/test_torch_resilience.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hwa_sync(HWAConfig(outer_every=2), None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hwa_sync(HWAConfig(resilient=True, outer_every=2), None)
+    """``outer_every`` (H₂ of the two-level tree) is ported: the stacked
+    path carries it and changes nothing, as the reference's does (the tree
+    is the mesh-native path's, tests/test_torch_sync.py), so one sync with
+    H₂ 2 is bit-equal to the reference's; the mesh-native builders refuse
+    a value their topology disagrees with."""
+    from repro_torch.launch.sync.bundles import _check_outer_every
+    from repro_torch.launch.sync.topology import Flat, TwoLevel
+    jparams = _jax_params("granite-3-2b", "float32")
+    for resilient in (False, True):
+        jcfg = JaxHWAConfig(n_replicas=2, window=3, outer_every=2,
+                            resilient=resilient)
+        jstate = jax_hwa_init(jcfg, jparams, jax_sgd(momentum=0.9))
+        jstate.inner = jax.tree.map(
+            lambda x: x + jnp.arange(2, dtype=x.dtype).reshape(
+                (2,) + (1,) * (x.ndim - 1)), jstate.inner)
+        state = hwa_state_from_numpy(jax.device_get(jstate), device="cpu")
+        jstate, _ = jax.jit(lambda s: jax_hwa_sync(jcfg, s))(jstate)
+        state, _ = hwa_sync(HWAConfig(n_replicas=2, window=3, outer_every=2,
+                                      resilient=resilient), state)
+        for g, w in zip(tree_leaves((state.inner, state.wa)),
+                        jax.tree.leaves((jstate.inner, jstate.wa))):
+            np.testing.assert_array_equal(_np(g), _bits(w))
+    with pytest.raises(ValueError, match="silently ignored"):
+        _check_outer_every(HWAConfig(outer_every=2), Flat())
+    with pytest.raises(ValueError, match="disagrees"):
+        _check_outer_every(HWAConfig(outer_every=3), TwoLevel(outer_every=2))
