@@ -115,16 +115,16 @@ raising on any failure:
                and a SAM step launching twice each attention kernel of a
                ca step; median step and update, peak memory.
                9b: HWA (K=2, H=2, I=3, fused sync) on the model cut to 1
-               layer, 8 steps, checkpointed every 4 into a temporary
-               session (keep 2): both manifests verify, each save loads
-               back bit for bit, a flipped bit in the newest save falls
-               back to step 4, and the run resumed there (saving nothing
-               more) ends bit for bit as the uninterrupted run did (W̿
-               and history); then the
+               layer, 8 steps, checkpointed once (step 6) into a
+               temporary session: the run resumed from it (its scan
+               verifies every CRC and finds step 6, which it loads;
+               saving nothing more) ends bit for bit as the
+               uninterrupted run did (W̿ and history); then the
                window state saved with save_window_state and published
                through publish_checkpoint into a 2-layer engine equals
                publish_window_state's params to the bit. GB a save,
-               seconds to save, verify and load.
+               seconds to save, and the resume's seconds to scan and
+               load. (The bit flip and the fallback run in 15d.)
                9c: phase 7's W̿ published (publish_window_state) into an
                engine on its 8-layer model serves phase 4's 12 requests:
                params bit-equal to window_average cast to bf16, tokens
@@ -221,8 +221,9 @@ raising on any failure:
                one spawned rank a replica, ``gloo`` on this card with
                CUDA tensors staged through host memory) on full-width
                granite-3-2b, flash kernels, remat off, right after phase
-               14, on a card this process holds under 4 GiB of. 15a: flat, K 2,
-               4 layers, 8 steps, H 2, I 3: every W̄ 0 ULP from
+               14, on a card this process holds under 4 GiB of, cut to
+               1 layer (phase 16 takes the time of a second). 15a:
+               flat, K 2, 8 steps, H 2, I 2: every W̄ 0 ULP from
                ``online_average_canonical`` of the replicas gathered
                before it (computed on the card), every rank restarted
                from it, exact launches (the window update once a rank a
@@ -230,8 +231,8 @@ raising on any failure:
                step a rank), no collective in a train step, one two-way
                all-reduce a sync; W̿, replicas and losses against the
                one-process stacked run (phase 7's path) on the same
-               batches. 15b: the two-level tree, K 4 as 2 pods of 2, 2
-               layers, H₂ 2, f32, 4 steps: inner syncs cross no pod and push no
+               batches. 15b: the two-level tree, K 4 as 2 pods of 2,
+               H₂ 2, f32, 4 steps: inner syncs cross no pod and push no
                window, every W̄ 0 ULP from the grouped or pod mean. 15c:
                the bf16 ring with bf16 comms and the fp8 ring with fp8
                comms on that tree: W̿ within the reference's 4 rel-ULP
@@ -241,6 +242,28 @@ raising on any failure:
                corrupt-fallback legs on the card. ``[mesh15]`` lines give
                each sync's ms, its collectives and bytes a level, the
                host-staged bytes and the launches.
+16. parallel — a data and a model axis inside a replica, right after
+               phase 15, the same model at 4 steps and a window of 2
+               (``--world-size``, ``--tp``, ``--fsdp``;
+               ``phase_mesh_parallel``). 16c first, alone: K 2 × data 2
+               × model 2 with FSDP, the grouped packed layout, the window
+               update once a group a sync, and in its spawn a
+               smoke-width bf16 run held 0 ULP against the stacked
+               per-leaf ``hwa_sync`` on the host (the replicas widened
+               to f32), saving a checkpoint; then side
+               by side 16a (K 2 × data 2, the flash kernels, gradients
+               averaged over data), 16b (K 2 × model 2, ``flash_jnp``,
+               tensor-parallel layers) and the checkpoint resumed
+               bit-exactly under one rank a replica. Every W̄ 0 ULP from
+               its oracle, the train steps exactly the data- and
+               model-level collectives they declare (counted from the
+               leaves' places and the layers), the syncs one
+               replica-level all-reduce. 15a's and 15b-c's times, and
+               16a's and 16b's, are taken side by side, under each
+               other's load; 16c's alone.
+               ``[mesh16]`` lines give the layouts, rank 0's set-up,
+               steps and probes, each sync's ms and bytes a level, and
+               each rank's peak device memory.
 6. yardstick — each kernel timed at its main path's shapes (CUDA-graph
                replay between CUDA events: device time, cold L2), beside
                its plain version, a library call where one exists, and
@@ -1338,14 +1361,9 @@ def _profile(fn, device):
         fn()
         _sync(device)
         wall = (time.perf_counter() - t0) * 1e3
-    # device-side entries only: a CPU op's row repeats its kernels' time
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type != torch.autograd.DeviceType.CPU
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
-    launches = sum(r[2] for r in rows)
+    # the device's events only (a CPU op's time repeats its kernels'),
+    # read raw: ``key_averages`` spends seconds building its event tree
+    busy, launches, rows, _ = _trace_stats(prof)
     return wall, busy, launches, rows
 
 
@@ -2078,10 +2096,6 @@ BASELINES = dict(methods=("ca", "swa", "ema", "lookahead", "sam"), steps=8,
 CKPT = dict(layers=1, steps=8, every=6, keep=2)
 
 
-def _host_copy(tree):
-    return tree_map(lambda x: x.detach().to("cpu", copy=True), tree)
-
-
 def _bits_equal(a, b) -> bool:
     """Two tensors equal to the bit (dtype, shape, bytes)."""
     if a.dtype != b.dtype or a.shape != b.shape:
@@ -2235,8 +2249,8 @@ def phase_baselines(device, cfg=None):
 def phase_checkpoint(device, cfg=None):
     """9b: HWA on the training model cut to ``CKPT["layers"]`` (K 2, H 2, I
     3, the fused sync) checkpointing once (step 6 of 8) into a temporary
-    session directory: the save loads back bit for bit, and the run
-    resumed from it (its scan verifies the manifest) ends bit for bit
+    session directory: the run resumed from it (its scan verifies every
+    array's CRC, and it loads that step: both timed) ends bit for bit
     where the uninterrupted run ended. Then the run's window state goes through
     save_window_state and publish_checkpoint into a 2-layer engine, whose
     params must equal publish_window_state's of the same state to the
@@ -2253,15 +2267,19 @@ def phase_checkpoint(device, cfg=None):
     c = CKPT
     cfg = cfg or train_config(c["layers"])
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    saves, kept = [], {}
-    real_save = CheckpointSession.save
+    saves, scans, loads, kept = [], [], [], {}
+    real = {k: getattr(CheckpointSession, k)
+            for k in ("save", "latest_intact", "load")}
 
-    def timed_save(self, step, trees, **kw):
-        _sync(dev)
-        t0 = time.perf_counter()
-        out = real_save(self, step, trees, **kw)
-        saves.append(time.perf_counter() - t0)
-        return out
+    def timed(name, into):
+        def call(self, *args, **kw):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = real[name](self, *args, **kw)
+            _sync(dev)
+            into.append((time.perf_counter() - t0, args, out))
+            return out
+        return call
 
     def trainer_for(resume):
         # the resumed run saves nothing (its save was checked by nothing)
@@ -2271,18 +2289,14 @@ def phase_checkpoint(device, cfg=None):
                             checkpoint_keep=c["keep"], resume=resume)
 
     try:
-        CheckpointSession.save = timed_save
+        CheckpointSession.save = timed("save", saves)
         trainer = trainer_for(False)
         sync = trainer._sync_step
 
         def kept_sync(state):
             state, m = sync(state)
-            step = int(state.step)
-            if step % c["every"] == 0:
-                # the state the session saves right after this sync
-                kept[step] = _host_copy(state)
-            if step == c["steps"]:
-                kept[step] = state
+            if int(state.step) == c["steps"]:
+                kept["final"] = state
             return state, m
 
         trainer._sync_step = kept_sync
@@ -2303,26 +2317,21 @@ def phase_checkpoint(device, cfg=None):
             fails.append(f"launch counts {launches} != {want}")
         if steps != [c["every"]]:
             fails.append(f"checkpoints at {steps}")
-        load_s, gb = [], []
-        template = kept[c["every"]]
-        for step in steps:
-            gb.append(sum(f["size"] for f in
-                          session.manifest(step)["files"].values()) / 1e9)
-            t0 = time.perf_counter()
-            loaded = session.load(step, "hwa", template)
-            load_s.append(time.perf_counter() - t0)
-            if not _trees_bits_equal(loaded, kept[step]):
-                fails.append(f"step {step} loads other bits than it saved")
-            del loaded
-        final = kept.pop(c["steps"])
-        del template, kept
+        gb = [sum(f["size"] for f in session.manifest(step)["files"]
+                  .values()) / 1e9 for step in steps]
+        final = kept.pop("final")
         gc.collect()
-        t0 = time.perf_counter()
-        if session.latest_intact() != c["every"]:
-            fails.append(f"step {c['every']} does not verify")
-        verify_s = time.perf_counter() - t0
+        CheckpointSession.latest_intact = timed("latest_intact", scans)
+        CheckpointSession.load = timed("load", loads)
         resumed = trainer_for(True).run()
         _sync(dev)
+        for k, f in real.items():
+            setattr(CheckpointSession, k, f)
+        found = [o for *_, o in scans]
+        loaded = [a[0] for _, a, _ in loads]
+        if found != [c["every"]] or loaded != [c["every"]]:
+            fails.append(f"the resume scanned to {found} and loaded "
+                         f"{loaded}, not step {c['every']}")
         if not _trees_bits_equal(resumed["params"], out["params"]):
             fails.append("the resumed run's W̿ differs from the "
                          "uninterrupted run's")
@@ -2353,10 +2362,13 @@ def phase_checkpoint(device, cfg=None):
         wgb = os.path.getsize(wpath) / 1e9
         del eng, pub, from_file, live, final
     finally:
-        CheckpointSession.save = real_save
+        for k, f in real.items():
+            setattr(CheckpointSession, k, f)
         shutil.rmtree(root, ignore_errors=True)
     res = {"params": train_param_count(cfg), "gb_per_save": gb,
-           "save_s": saves, "verify_s": verify_s, "load_s": load_s,
+           "save_s": [t for t, *_ in saves],
+           "verify_s": sum(t for t, *_ in scans),
+           "load_s": [t for t, *_ in loads],
            "window_gb": wgb,
            "window_save_s": wsave_s, "window_publish_s": wpub_s,
            "launches": launches,
@@ -2365,9 +2377,9 @@ def phase_checkpoint(device, cfg=None):
           f"({res['params'] / 1e6:.1f}M params), HWA K{TRAIN['K']} "
           f"H{TRAIN['H']} I{TRAIN['I']} fused sync, {c['steps']} steps, "
           f"saves at {steps}: {[round(x, 3) for x in gb]} GB a save, save "
-          f"{[round(x, 2) for x in saves]} s, "
-          f"verify {verify_s:.2f} s, load "
-          f"{[round(x, 2) for x in load_s]} s; resumed from step "
+          f"{[round(x, 2) for x in res['save_s']]} s; the resume's scan "
+          f"(every CRC) {res['verify_s']:.2f} s, its load "
+          f"{[round(x, 2) for x in res['load_s']]} s; resumed from step "
           f"{c['every']}: W̿ and history "
           f"bit-equal; window state {wgb:.3f} GB saved in {wsave_s:.2f} s, "
           f"published from the file in {wpub_s:.2f} s, bit-equal to the live "
@@ -4001,15 +4013,17 @@ def phase_large(device, serve_over=None, reference=None, decode=None):
 #: phase 15: HWA across processes (``launch.train.run_mesh_native``: one
 #: spawned rank a replica, ``gloo`` on this one card, CUDA tensors staged
 #: through host memory) on granite-3-2b at its published width cut to
-#: MESH_LAYERS layers, with the flash kernels and remat off, H 2, I 3, SGD
+#: MESH_LAYERS layers, with the flash kernels and remat off, H 2, I 2
+#: (a slot less in each of 15a's two saves than I 3 would write), SGD
 #: lr 0.1, 4 x 512 tokens a replica a step. Depth: each rank holds its
 #: replica (bf16), f32 momentum, the f32 ring of I slots and total, and
-#: the packed f32 sync buffers, ~36 bytes a parameter: 322.8M at 2 layers,
-#: ~12 GB a rank, ~50 GB for K = 4 (15b-c) and for 15d's two runs side by
-#: side. Checkpoints (15a, 15d) are gathered to rank 0's host.
-MESH_LAYERS = 2
+#: the packed f32 sync buffers, ~36 bytes a parameter: 262.2M at 1 layer
+#: (phase 16 takes the time a second layer would: 322.8M, ~12 GB a
+#: rank), ~40 GB for K = 4 (15b-c) and for 15d's two runs side by side.
+#: Checkpoints (15a, 15d) are gathered to rank 0's host.
+MESH_LAYERS = 1
 MESH_FULL = True
-MESH_RUN = dict(arch="granite-3-2b", steps=8, sync_period=2, window=3,
+MESH_RUN = dict(arch="granite-3-2b", steps=8, sync_period=2, window=2,
                 batch_size=4, seq_len=512, lr=0.1, seed=0, device="cuda")
 #: 15a's comparison with the one-process stacked run: the reference's
 #: bf16 budget (rel-ULPs) on W̿ and the replicas, 1e-3 on the losses
@@ -4020,13 +4034,14 @@ MESH_LOSS_TOL = 1e-3
 MESH_ULP_BUDGET = {"bf16": 4.0, "fp8": 4.0}
 
 
-def _mesh_cfg():
+def _mesh_cfg(n_layers=None):
     """Phase 15's model: granite-3-2b at its published width cut to
-    MESH_LAYERS (the smoke config when MESH_FULL is off, as the CPU
-    rehearsal runs it), the flash kernels, remat off."""
+    MESH_LAYERS, or ``n_layers`` (the smoke config when MESH_FULL is off,
+    as the CPU rehearsal runs it), the flash kernels, remat off."""
     from repro_torch.configs import get_smoke_config
-    cfg = (get_config("granite-3-2b").with_(n_layers=MESH_LAYERS)
-           if MESH_FULL else get_smoke_config("granite-3-2b"))
+    cfg = (get_config("granite-3-2b").with_(
+        n_layers=n_layers or MESH_LAYERS)
+        if MESH_FULL else get_smoke_config("granite-3-2b"))
     return cfg.with_(attn_impl="flash_pallas", remat="none")
 
 
@@ -4035,9 +4050,11 @@ def _mesh_args(K, **kw):
     return mesh_args(**dict(MESH_RUN, k=K, **kw))
 
 
-def _mesh_report(label, out, cfg):
+def _mesh_report(label, out, cfg, tag="mesh15", beside=None):
     """Print a run's syncs (rank 0's ms, each level's collectives and
-    bytes a rank, host-staged bytes) and its launches; return them."""
+    bytes a rank, host-staged bytes) and its launches; return them.
+    ``beside`` names the runs that shared the card and the host with it
+    (its times are taken under their load)."""
     K = out["mesh"].get("pod", 1) * out["mesh"]["replica"]
     syncs = out["ranks"][0]["syncs"]
     for h, s in zip(out["history"], syncs):
@@ -4048,10 +4065,10 @@ def _mesh_report(label, out, cfg):
             for name, r in s["collectives"].items())
         p = h.get("probe")
         if p is None:
-            print(f"[mesh15] {label} step {h['step']} {h['sync']} sync "
+            print(f"[{tag}] {label} step {h['step']} {h['sync']} sync "
                   f"{s['ms']:.1f} ms | {lv} | not probed")
             continue
-        print(f"[mesh15] {label} step {h['step']} {h['sync']} sync "
+        print(f"[{tag}] {label} step {h['step']} {h['sync']} sync "
               f"{s['ms']:.1f} ms | {lv} | W̄ {p['mean_ulps']} ULP"
               + (f" ({p['mean_rel_ulps']:.3f} rel-ULP of the ring dtype)"
                  if "mean_rel_ulps" in p else "")
@@ -4063,10 +4080,11 @@ def _mesh_report(label, out, cfg):
         by_kind.setdefault(s["sync"], []).append(s["ms"])
     med = {k: round(float(np.median(v)), 1) for k, v in by_kind.items()}
     peaks = [r["peak_gib"] for r in out["ranks"]]
-    print(f"[mesh15] {label}: {cfg.name} L{cfg.n_layers} d{cfg.d_model} K{K} "
+    print(f"[{tag}] {label}: {cfg.name} L{cfg.n_layers} d{cfg.d_model} K{K} "
           f"{out['mesh']} backend {out['backend']}, {out['syncs']} syncs, "
-          f"median sync ms {med}, "
-          f"losses first {np.mean(out['losses'][0]):.4f} last "
+          f"median sync ms {med}"
+          + (f" (under the load of {beside}, beside it)" if beside else "")
+          + f", losses first {np.mean(out['losses'][0]):.4f} last "
           f"{np.mean(out['losses'][-1]):.4f}, launches "
           f"{ {k: v for k, v in out['launches'].items() if v} }, peak "
           f"device memory per rank "
@@ -4074,7 +4092,7 @@ def _mesh_report(label, out, cfg):
           f"{CARD['line']}")
     return {"sync_ms": by_kind, "syncs": syncs, "history": out["history"],
             "launches": out["launches"], "losses": out["losses"],
-            "peak_gib": peaks}
+            "peak_gib": peaks, "beside": beside}
 
 
 def _nonzero(rows):
@@ -4086,21 +4104,17 @@ def _nonzero(rows):
 
 def _mesh_checks(label, out, *, exact=True, cuda=True):
     """Every rank's train steps and syncs issue exactly the collectives
-    their bundles declare (none in a train step), and on the card launch
-    exactly the kernels the bundles declare; every rank restarted from
-    the same W̄; with ``exact`` every W̄ 0 ULP from its core.online
-    oracle."""
+    their bundles declare (``launch.train.contract_violations``: a train
+    step never crosses a replica axis; with one rank a replica it issues
+    none), and on the card launch exactly the kernels the bundles
+    declare; every rank restarted from the same W̄; with ``exact`` every
+    W̄ 0 ULP from its core.online oracle."""
+    from repro_torch.launch.train import contract_violations
+    bad = contract_violations(out)
+    if bad:
+        raise AssertionError(f"{label}: collectives off their contracts: "
+                             f"{bad}")
     for rank in out["ranks"]:
-        if rank["train_collectives"] or rank["train_declared"]:
-            raise AssertionError(f"{label}: rank {rank['rank']}'s train "
-                                 f"steps issued {rank['train_collectives']} "
-                                 f"(declared {rank['train_declared']})")
-        for s in rank["syncs"]:
-            if _nonzero(s["collectives"]) != s["declared"]:
-                raise AssertionError(f"{label}: rank {rank['rank']} "
-                                     f"{s['sync']} sync issued "
-                                     f"{s['collectives']}, declared "
-                                     f"{s['declared']}")
         want = rank["declared_launches"]
         got = {k: v for k, v in rank["launches"].items() if v}
         if cuda and (want is None
@@ -4120,6 +4134,7 @@ def _stacked_mesh_run(dev, cfg, K):
     with K stacked replicas in this process, the fused sync kernel.
     Returns the losses, W̿ and replicas on the host."""
     from repro_torch.launch.train import mesh_batch
+    t0 = time.perf_counter()
     lm = build_model(cfg)
     params = lm.init(torch.Generator(device=dev).manual_seed(
         MESH_RUN["seed"]), device=dev)
@@ -4142,10 +4157,11 @@ def _stacked_mesh_run(dev, cfg, K):
            "inner": tree_map(lambda x: x.cpu(), state.inner)}
     del state
     _free(dev)
+    out["s"] = time.perf_counter() - t0
     return out
 
 
-def phase_mesh_flat(device, ckpt_dir):
+def phase_mesh_flat(device, ckpt_dir, ref):
     """15a: flat sync, K = 2 ranks, f32 ring, 8 steps, a checkpoint every
     4 steps into ``ckpt_dir`` (15d's saves): every W̄ 0 ULP from
     ``online_average_canonical`` of the replicas gathered before it (on
@@ -4153,22 +4169,21 @@ def phase_mesh_flat(device, ckpt_dir):
     (the window update once a rank a sync; the flash forward and both
     sweeps once a layer a step a rank; no collective in a train step and
     one two-way all-reduce a sync); the run held against phase 7's
-    stacked path on the same batches. Returns the report and the run (its
-    final state's digest is 15d's uninterrupted run)."""
+    stacked path on the same batches (``ref``, ``_stacked_mesh_run``'s,
+    run first). Returns the report and the run (its final state's digest
+    is 15d's uninterrupted run)."""
     from repro_torch.launch.train import run_mesh_native
     dev = torch.device(device)
     K = 2
     cfg = _mesh_cfg()
     args = _mesh_args(K, device=dev.type, checkpoint_dir=ckpt_dir,
                       checkpoint_every=4)
-    t0 = time.perf_counter()
-    ref = _stacked_mesh_run(dev, cfg, K)
     t1 = time.perf_counter()
     _reset_counts()
     out = run_mesh_native(args, cfg=cfg, probe=True,
                           with_state=("inner", "wa"), digest=True)
     parent = _counts()
-    print(f"[mesh15] 15a: the stacked run {t1 - t0:.1f} s, the mesh-native "
+    print(f"[mesh15] 15a: the stacked run {ref['s']:.1f} s, the mesh-native "
           f"run {time.perf_counter() - t1:.1f} s, its checkpoints "
           + ", ".join(f"step {c['step']} {c['gb']:.3f} GB in {c['s']:.1f} s"
                       for c in out["saves"]))
@@ -4195,7 +4210,7 @@ def phase_mesh_flat(device, ckpt_dir):
             and loss_err <= MESH_LOSS_TOL):
         raise AssertionError("15a: the mesh-native run left the stacked "
                              "run's tolerance")
-    res = _mesh_report("15a flat", out, cfg)
+    res = _mesh_report("15a flat", out, cfg, beside="15b-c")
     res.update(wa_rel_ulps=wa_err, inner_rel_ulps=inner_err,
                loss_err=loss_err, bitwise=bitwise, saves=out["saves"])
     return res, out
@@ -4249,7 +4264,7 @@ def phase_mesh_tree(device):
                     h["probe"]["wa_rel_ulps"] <= MESH_ULP_BUDGET[tok]):
                 raise AssertionError(f"{label}: W̿ {h['probe']} past the "
                                      f"{tok} budget")
-        res[tok] = _mesh_report(label, out, cfg)
+        res[tok] = _mesh_report(label, out, cfg, beside="15a")
         res[tok]["packed"] = P
     return res
 
@@ -4307,22 +4322,212 @@ def phase_mesh(device):
     if held > 4.0:
         raise AssertionError(f"phase 15 needs the card: {held:.2f} GiB "
                              f"held")
+    from concurrent.futures import ThreadPoolExecutor
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     try:
         t0 = time.perf_counter()
         out = {}
-        out["flat"], flat_run = phase_mesh_flat(dev, ckpt_dir)
+        # 15a's one-process reference first: it launches kernels here
+        ref = _stacked_mesh_run(dev, _mesh_cfg(), 2)
+        # 15a and 15b-c side by side (their 6 ranks fit the card at once;
+        # their sync times are taken under each other's load)
+        with ThreadPoolExecutor(2) as pool:
+            flat = pool.submit(phase_mesh_flat, dev, ckpt_dir, ref)
+            tree = pool.submit(phase_mesh_tree, dev)
+            out["flat"], flat_run = flat.result()
+            out["tree"] = tree.result()
         _free(dev)
-        t1 = time.perf_counter()
-        out["tree"] = phase_mesh_tree(dev)
         t2 = time.perf_counter()
         out["faults"] = phase_mesh_faults(device, flat_run, ckpt_dir)
         t3 = time.perf_counter()
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    print(f"[mesh15] phase 15 in {t3 - t0:.1f} s (15a {t1 - t0:.1f} s, "
-          f"15b-c {t2 - t1:.1f} s, 15d {t3 - t2:.1f} s) | {CARD['line']}")
+    print(f"[mesh15] phase 15 in {t3 - t0:.1f} s (15a with 15b-c beside "
+          f"it {t2 - t0:.1f} s, 15d {t3 - t2:.1f} s) | {CARD['line']}")
     return out
+
+
+# ------------------------------------- 16. data and model axes inside
+#: phase 16: the K 2 replicas of phase 15's model split over a data axis
+#: (16a), a model axis (16b) and both with FSDP (16c), 4 steps, H 2, I 2
+#: (16c's 8 ranks share the card: each holds the whole embedding and head,
+#: as the vocab of 49,155 splits over no axis; 16a and 16b run side by
+#: side)
+PAR_RUN = dict(MESH_RUN, steps=4)
+#: 16c's checkpoint, at smoke width: saved at step 4, resumed elsewhere
+PAR_CKPT_EVERY = 4
+
+
+
+def _par_report(label, out, cfg, beside=None):
+    """A phase-16 run's report (``_mesh_report``) with its layout and each
+    rank's peak device memory."""
+    lay = out["layout"]
+    t = out["ranks"][0]["times"]
+    print(f"[mesh16] {label}: layout "
+          f"{'grouped' if lay['grouped'] else 'one range'}, "
+          f"{lay['n_groups']} group(s) of {lay['shards']} segment(s), "
+          f"{lay['padded']} elements, {lay['local_padded']} a rank; rank "
+          f"0: set-up {t['init_s']:.1f} s, train steps "
+          f"{[round(x, 1) for x in t['step_ms']]} ms, probes "
+          f"{t['probe_s']:.1f} s")
+    res = _mesh_report(label, out, cfg, tag="mesh16", beside=beside)
+    res["layout"] = {k: v for k, v in lay.items() if k != "json"}
+    res["times"] = t
+    return res
+
+
+def _par_probes(label, out, host: bool):
+    """Every W̄ 0 ULP from its oracle, the restarts equal, and with
+    ``host`` rank 0's W̿ 0 ULP from the stacked per-leaf ``hwa_sync`` run
+    on the host over the K replicas' blocks of rank 0's part."""
+    for h in out["history"]:
+        p = h["probe"]
+        if p["mean_ulps"] or not p["restarts_equal"] or (
+                host and p.get("wa_host_ulps", 1)):
+            raise AssertionError(f"{label}: sync off its oracle: {h}")
+
+
+def phase_mesh_parallel(device):
+    """Phase 16: a data and a model axis inside a replica
+    (``--mesh-native`` with ``--world-size``, ``--tp``, ``--fsdp``), phase
+    15's model (full width, 1 layer) on ``gloo`` on the one card, K 2, 4
+    steps, H 2.
+
+    16c first, alone on the card, FSDP with TP: K 2 × data 2 × model 2 (8
+    ranks), ``flash_jnp``: the grouped layout (n_groups ≥ 2), the window
+    update once a group a sync on each rank's segment, every W̄ 0 ULP; in
+    the same spawn a smoke-width bf16 run whose W̿ is held 0 ULP against
+    the stacked per-leaf ``hwa_sync`` on the host at every sync and which
+    saves its checkpoint at step 4.
+    Then three spawns side by side (their 10 ranks fit the card at once;
+    their times are taken under each other's load):
+    16a, the data axis: K 2 × data 2 (4 ranks), the flash kernels: each
+    rank steps 2 of its replica's 4 rows, gradients and loss averaged over
+    ``data`` (one all-reduce a dtype a step); every W̄ 0 ULP from the
+    canonical mean of the replicas gathered before it; the flash kernels
+    launched exactly once a layer a step a rank; the train steps
+    data-level collectives only, the syncs replica-level only;
+    16b, the model axis: K 2 × model 2 (4 ranks), ``flash_jnp``: the
+    head-parallel attention and the column-then-row MLP, the embedding
+    and head whole (the vocab of 49,155 does not divide by 2); W̄ 0 ULP;
+    16c's checkpoint resumed under K 2 × data 1 × model 1: replicas and
+    W̿ bit-equal, the window bit-equal after the repack into that
+    layout."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.common.packing import merge_groups, repack, \
+        spec_from_json
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import mesh_args, run_mesh_native
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    _free(dev)
+    # eight ranks on one card: their allocators grow segments in place
+    # rather than holding a reserved block per size
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    base = dict(PAR_RUN, device=dev.type)
+    cfg_a = _mesh_cfg()
+    cfg_b = _mesh_cfg().with_(attn_impl="flash_jnp")
+    # the smoke-width run in bf16, as the full-width runs: the host's
+    # per-leaf reference widens the replicas to f32, as the packed sync
+    # means them
+    smoke = get_smoke_config("granite-3-2b").with_(attn_impl="flash_jnp",
+                                                   dtype="bfloat16")
+    res = {}
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_mesh16_")
+    try:
+        t0 = time.perf_counter()
+        # 16c, with the smoke-width run in the same spawn
+        grouped = dict(base, k=2, tp=2, fsdp=True, world_size=8)
+        out, small = run_mesh_native(
+            [mesh_args(**grouped), mesh_args(**dict(
+                grouped, seq_len=16, checkpoint_dir=ckpt,
+                checkpoint_every=PAR_CKPT_EVERY))],
+            cfg=[cfg_b, smoke], probe=[True, "host"],
+            with_state=[False, True])
+        t1 = time.perf_counter()
+        _reset_counts()
+        jobs = [
+            lambda: run_mesh_native(mesh_args(**dict(
+                base, k=2, world_size=4)), cfg=cfg_a, probe=True,
+                with_state=False),
+            lambda: run_mesh_native(mesh_args(**dict(base, k=2, tp=2)),
+                                    cfg=cfg_b, probe=True, with_state=False),
+            lambda: run_mesh_native(mesh_args(**dict(
+                base, k=2, seq_len=16, checkpoint_dir=ckpt,
+                checkpoint_every=PAR_CKPT_EVERY, resume=True)), cfg=smoke)]
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            out_a, out_b, back = [f.result() for f in
+                                  [pool.submit(j) for j in jobs]]
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if any(_counts().values()):
+        raise AssertionError(f"16a-b: this process launched {_counts()}")
+    # 16a
+    if out_a["mesh"] != {"replica": 2, "data": 2}:
+        raise AssertionError(f"16a: mesh {out_a['mesh']}")
+    _mesh_checks("16a", out_a, cuda=cuda)
+    _par_probes("16a", out_a, host=False)
+    for rank in out_a["ranks"]:
+        if set(rank["train_collectives"]) != {"data"}:
+            raise AssertionError(f"16a: train collectives "
+                                 f"{rank['train_collectives']}")
+    res["dp"] = _par_report("16a data", out_a, cfg_a,
+                            beside="16b and the resume")
+    # 16b
+    if out_b["mesh"] != {"replica": 2, "model": 2}:
+        raise AssertionError(f"16b: mesh {out_b['mesh']}")
+    _mesh_checks("16b", out_b, cuda=cuda)
+    _par_probes("16b", out_b, host=False)
+    res["tp"] = _par_report("16b model", out_b, cfg_b,
+                            beside="16a and the resume")
+    # 16c
+    lay = out["layout"]
+    if not lay["grouped"] or lay["n_groups"] < 2:
+        raise AssertionError(f"16c: layout {lay}")
+    _mesh_checks("16c", out, cuda=cuda)
+    _mesh_checks("16c smoke", small, cuda=cuda)
+    _par_probes("16c", out, host=False)
+    _par_probes("16c smoke", small, host=True)
+    for rank in out["ranks"]:
+        for s in rank["syncs"]:
+            if s["declared"] != {"replica": {"all_reduce": 1}}:
+                raise AssertionError(f"16c: sync declares {s['declared']}")
+        if cuda and not 1 <= rank["launches"]["wa_window_update"] / len(
+                rank["syncs"]) <= lay["n_groups"]:
+            raise AssertionError(f"16c: rank {rank['rank']} launched "
+                                 f"{rank['launches']}")
+    res["fsdp"] = _par_report("16c fsdp+tp", out, cfg_b)
+    res["fsdp"]["smoke_launches"] = small["launches"]
+    print(f"[mesh16] 16c smoke ({smoke.dtype}): W̿ against the host's "
+          f"per-leaf hwa_sync (the replicas widened to f32) "
+          f"{[h['probe']['wa_host_ulps'] for h in small['history']]} ULP "
+          f"at its {len(small['history'])} syncs, layout "
+          f"{small['layout']['n_groups']} groups")
+    a, b = small["_state"], back["_state"]
+    src = spec_from_json(small["layout"]["json"])
+    dst = spec_from_json(back["layout"]["json"])
+    same = (back["resumed_from"] == PAR_CKPT_EVERY
+            and _trees_bits_equal(a["inner"], b["inner"])
+            and _trees_bits_equal(a["wa"], b["wa"])
+            and all(_bits_equal(repack(merge_groups(a[k], src), src, dst),
+                                b[k]) for k in ("ring", "total")))
+    print(f"[mesh16] 16c checkpoint: saved under {small['mesh']} "
+          f"({small['layout']['n_groups']} groups) at step "
+          f"{PAR_CKPT_EVERY}, resumed under {back['mesh']}: bit-equal "
+          f"{same}")
+    if not same:
+        raise AssertionError("16c: the checkpoint did not resume "
+                             "bit-exactly under K 2 x data 1 x model 1")
+    print(f"[mesh16] phase 16 in {t2 - t0:.1f} s (16c {t1 - t0:.1f} s, "
+          f"16a, 16b and the resume side by side {t2 - t1:.1f} s) | "
+          f"{CARD['line']}")
+    return res
 
 
 # --------------------------------------------------------- 6. yardstick
@@ -5071,6 +5276,8 @@ def main() -> int:
     # phase 15 next: its ranks need the card to themselves
     mesh = phase_mesh(device)
     stamp("phase 15")
+    par = phase_mesh_parallel(device)
+    stamp("phase 16")
     serve, eng = phase_serve(device)
     phase_trace(device, eng, serve)
     del eng                  # its timing wrappers hold it in a cycle: collect
@@ -5171,6 +5378,12 @@ def main() -> int:
              "mesh_flat": mesh["flat"]["launches"],
              "mesh_tree": {k: sum(r["launches"][k] for r in
                                   mesh["tree"].values())
+                           for k in _counts()},
+             # phase 16: every rank's launches, summed over the ranks
+             "mesh_dp": par["dp"]["launches"],
+             "mesh_tp": par["tp"]["launches"],
+             "mesh_fsdp": {k: par["fsdp"]["launches"][k]
+                           + par["fsdp"]["smoke_launches"][k]
                            for k in _counts()}}
     for e in entries:
         by_path = e.setdefault("launches_by_path", {"train": e["launches"]})

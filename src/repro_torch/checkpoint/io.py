@@ -25,20 +25,24 @@ loads in three cases, each bit-exact (packing never touches values):
 
 A template whose ring dtype differs from the stored one migrates the
 precision (decode, repack, re-encode; see :func:`load_window_state`).
-Sharded and grouped layouts raise (``common.packing``).
+A grouped layout's window state holds per-group buffer tuples at run
+time; on disk it is always the one logical buffer (the groups' ranges
+end to end), merged on save and split on load, as the reference does.
 """
 from __future__ import annotations
 
 import json
 import os
 import uuid
+import zlib
 from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch.common.packing import (pack_leaves, repack, spec_from_json,
-                                        spec_to_json)
+from repro_torch.common.packing import (pack_leaves, repack,
+                                        spec_from_json, spec_to_json,
+                                        split_groups)
 from repro_torch.common.pytree import (sum_axis0_f32,
                                        tree_flatten_with_path,
                                        tree_unflatten)
@@ -69,7 +73,25 @@ def _to_stored(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def save_pytree(path: str, tree: Any) -> None:
+def crc_records(keys, dtypes, arrays) -> dict[str, dict]:
+    """Per-array integrity records of stored arrays, keyed ``"i:key"``:
+    the CRC32 of the logical bytes (a bf16 leaf's bits whether read as
+    bf16 or as uint16), the logical dtype name and the shape, what both
+    packages' checkpoint manifests record."""
+    out: dict[str, dict] = {}
+    for i, (key, name, arr) in enumerate(zip(keys, dtypes, arrays)):
+        a = np.ascontiguousarray(arr)
+        out[f"{i}:{key}"] = {
+            "crc32": zlib.crc32(a.reshape(-1).view(np.uint8)) & 0xFFFFFFFF,
+            "dtype": name,
+            "shape": list(a.shape),
+        }
+    return out
+
+
+def save_pytree(path: str, tree: Any) -> dict[str, dict]:
+    """Write ``tree`` to ``path`` atomically; returns the
+    :func:`crc_records` of the arrays written."""
     flat, treedef = tree_flatten_with_path(tree)
     arrays, keys, dtypes = {}, [], []
     for i, (kpath, leaf) in enumerate(flat):
@@ -97,6 +119,7 @@ def save_pytree(path: str, tree: Any) -> None:
                 os.remove(tmp)
             except OSError:
                 pass
+    return crc_records(keys, dtypes, arrays.values())
 
 
 def _fsync_dir(dirname: str) -> None:
@@ -172,19 +195,28 @@ def load_pytree(path: str, like: Any) -> Any:
 # ------------------------------------------------- packed WA window state
 
 
-def save_window_state(path: str, state: Any) -> None:
+def save_window_state(path: str, state: Any) -> dict[str, dict]:
     """Save a packed WindowState: ring/total buffers (and a compressed
     ring's ``comp`` and ``scales``), the counters, and the packed layout
     (so that a different layout can repack on load)."""
-    tree = {"ring": state.ring, "total": state.total,
+    ring, total, comp, scales = (state.ring, state.total, state.comp,
+                                 state.scales)
+    if state.spec is not None:
+        # a grouped window's per-group tuples as the one logical buffer;
+        # the groups' scale blocks line up with it (ALIGN multiples)
+        ring, total, comp, scales = (
+            None if x is None else
+            x if not isinstance(x, tuple) else torch.cat(x, dim=-1)
+            for x in (ring, total, comp, scales))
+    tree = {"ring": ring, "total": total,
             "count": state.count, "next_idx": state.next_idx}
-    if state.comp is not None:
-        tree["comp"] = state.comp
-    if state.scales is not None:
-        tree["scales"] = state.scales
+    if comp is not None:
+        tree["comp"] = comp
+    if scales is not None:
+        tree["scales"] = scales
     if state.spec is not None:
         tree["spec_json"] = np.asarray(spec_to_json(state.spec))
-    save_pytree(path, tree)
+    return save_pytree(path, tree)
 
 
 def load_wa_snapshot(path: str):
@@ -208,12 +240,21 @@ def load_wa_snapshot(path: str):
     return total, spec
 
 
+def _split_scale_groups(scales, spec):
+    """Per-group views of an fp8 scale buffer ``(..., padded // align)``:
+    group ranges are ALIGN multiples, so their blocks line up."""
+    return tuple(scales[..., g.offset // spec.align:
+                        (g.offset + g.padded) // spec.align]
+                 for g in spec.group_table())
+
+
 def load_window_state(path: str, like: Any) -> Any:
     """Load a WindowState saved by :func:`save_window_state` (in either
     package) into the packed layout of ``like``, a WindowState template
     whose ``spec`` fixes offsets and treedef and whose buffers fix the
     device: repacking across layout changes, or migrating an old per-leaf
-    checkpoint.
+    checkpoint. A template holding per-group tuples (a grouped layout)
+    gets per-group tuples back.
 
     **Precision migration.** The template's ring dtype wins. When it
     matches the stored ring (and, for fp8, the stored layout), the load
@@ -228,7 +269,8 @@ def load_window_state(path: str, like: Any) -> Any:
 
     keys, leaves = _read_raw(path)
     spec = like.spec
-    dev = like.total.device
+    grouped = isinstance(like.total, tuple)
+    dev = (like.total[0] if grouped else like.total).device
     by_group: dict[str, list] = {}
     for key, leaf in zip(keys, leaves):
         group, _, subkey = key.partition(_SEP)
@@ -281,15 +323,19 @@ def load_window_state(path: str, like: Any) -> Any:
             parts.append(arr.to(dev, torch.float32))
         return pack_leaves(parts, spec, n_lead=len(lead)).to(dtype)
 
+    def split(x):
+        return split_groups(x, spec) if grouped and x is not None else x
+
     count = grab("count")[0][1].to(dev, torch.int32)
     next_idx = grab("next_idx")[0][1].to(dev, torch.int32)
     if like.ring is None:                                      # streaming
         return WindowState(ring=None,
-                           total=restore(grab("total"), (), torch.float32),
+                           total=split(restore(grab("total"), (),
+                                               torch.float32)),
                            count=count, next_idx=next_idx,
                            window=like.window, kind=like.kind, spec=spec)
 
-    rd = like.ring.dtype
+    rd = (like.ring[0] if grouped else like.ring).dtype
     items = grab("ring")
     # per-leaf (pre-packing) checkpoints only ever stored f32
     stored_rd = items[0][1].dtype if len(items) == 1 else torch.float32
@@ -308,12 +354,19 @@ def load_window_state(path: str, like: Any) -> Any:
                 raise ValueError("fp8 window template but the checkpoint "
                                  "stores no 'scales'")
             scales = stored_scales[0][1].to(dev, torch.float32)
-        return WindowState(ring=ring, total=total, count=count,
-                           next_idx=next_idx, window=like.window,
-                           kind=like.kind, spec=spec, comp=comp,
-                           scales=scales)
+            if grouped:
+                scales = _split_scale_groups(scales, spec)
+        return WindowState(ring=split(ring), total=split(total),
+                           count=count, next_idx=next_idx,
+                           window=like.window, kind=like.kind, spec=spec,
+                           comp=split(comp), scales=scales)
 
     # ---- precision migration: decode -> repack (f32) -> re-encode
+    if grouped:
+        raise ValueError("precision migration into a GROUPED window "
+                         "layout is unsupported: load under the stored "
+                         "ring dtype (or f32) and let the next syncs "
+                         "refill the window")
     if len(items) == 1 and stored_scales is not None:
         # an fp8 checkpoint: decode under the STORED layout first (its
         # scales describe the stored blocks), then repack

@@ -2,8 +2,9 @@
 
 24L d_model=1024 16H (GQA kv=8) d_ff=512 vocab=49155, MoE 32e top-8.
 The reference also runs its expert-parallel all-to-all variant
-(``expert_parallel=True``) on device meshes; the port raises on it
-(ROADMAP.md Queue A 16).
+(``expert_parallel=True``) in its GSPMD builders; its mesh-native path,
+and the port, ignore the flag (the all-to-all path is ROADMAP.md Queue
+A 17).
 """
 from repro_torch.models.types import ModelConfig
 

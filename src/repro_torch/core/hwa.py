@@ -148,24 +148,44 @@ def hwa_inner_step(cfg: HWAConfig, state: HWAState, batches: PyTree,
 
 
 def hwa_local_inner_step(params: PyTree, opt_state: PyTree, batch: PyTree,
-                         loss_fn: Callable, optimizer: Optimizer, lr
+                         loss_fn: Callable, optimizer: Optimizer, lr,
+                         grad_hook: Callable | None = None
                          ) -> tuple[PyTree, PyTree, torch.Tensor, dict]:
     """One replica's step (Algorithm 1 lines 5-7) with no leading K axis:
     the mesh-native train step of a rank. The same arithmetic as one
-    replica of :func:`hwa_inner_step`. It issues no collective:
-    inter-replica traffic happens only in the sync, every H steps.
+    replica of :func:`hwa_inner_step`. It issues no collective across
+    replicas: inter-replica traffic happens only in the sync, every H
+    steps. ``grad_hook(grads, loss) -> (grads, loss)`` sees the flat
+    gradients before the optimizer (a data axis inside the replica takes
+    its mean there). The optimizer steps one leaf at a time and writes
+    the parameters and its parameter-shaped state in place (ranks may
+    share a card: one leaf's temporaries are alive, not the whole
+    tree's); an entry of the state shaped otherwise (AdamW's step count)
+    is read whole by every leaf's update and replaced once. The
+    optimizers are elementwise, so the bits are the whole tree's update's.
     Returns (new params, new optimizer state, loss, metrics)."""
     leaves, treedef = tree_flatten(params)
     live = [x.detach().requires_grad_(True) for x in leaves]
     loss, metrics = loss_fn(tree_unflatten(treedef, live), batch)
     grads = torch.autograd.grad(loss, live, allow_unused=True,
                                 materialize_grads=True)
+    if grad_hook is not None:
+        grads, loss = grad_hook(list(grads), loss)
     with torch.no_grad():
-        plain = tree_unflatten(treedef, [x.detach() for x in live])
-        updates, opt2 = optimizer.update(
-            tree_unflatten(treedef, list(grads)), opt_state, plain, lr)
-        new = apply_updates(plain, updates)
-    return new, opt2, loss.detach(), metrics
+        plain = [x.detach() for x in live]
+        flat = {k: tree_flatten(v) for k, v in opt_state.items()}
+        per_leaf = {k: f for k, (f, d) in flat.items() if d == treedef}
+        whole = {k: v for k, v in opt_state.items() if k not in per_leaf}
+        st = whole
+        for i, (p, g) in enumerate(zip(plain, grads)):
+            u, st = optimizer.update(
+                [g], {**whole, **{k: [v[i]] for k, v in per_leaf.items()}},
+                [p], lr)
+            for k, v in per_leaf.items():
+                v[i].copy_(st[k][0])
+            p.copy_(apply_updates([p], u)[0])
+    opt_state = {**opt_state, **{k: st[k] for k in whole}}
+    return tree_unflatten(treedef, plain), opt_state, loss.detach(), metrics
 
 
 def window_push_packed(cfg: HWAConfig, new_buf: torch.Tensor,

@@ -1,12 +1,17 @@
-"""The port's replica mesh: K processes, one HWA replica each, on
-``torch.distributed`` (counterpart of ``repro.launch.mesh``, whose mesh
-is a grid of devices in one process).
+"""The port's rank mesh: HWA replicas on ``torch.distributed``
+processes (counterpart of ``repro.launch.mesh``, whose mesh is a grid of
+devices in one process).
 
-A :class:`ReplicaMesh` names the replica axes (``{"replica": K}``, or
-``{"pod": G, "replica": K // G}`` for the two-level sync tree), lays the
-ranks out row-major over them (so pods are contiguous rank blocks) and
-builds its process groups once, at start. A reduction over a set of axes
-(a *level*) reduces within the ranks that differ only along those axes:
+A :class:`ReplicaMesh` names its axes: the replica axes (``{"replica":
+K}``, or ``{"pod": G, "replica": K // G}`` for the two-level sync tree),
+then, where a replica spans several ranks, the reference's ``data`` and
+``model`` axes inside it (``launch.sync.bundles.replica_layout``). It
+lays the ranks out row-major over them (so pods are contiguous rank
+blocks, and a replica's ranks too) and builds its process groups once,
+at start: one set a level, for the replica levels of the sync, for
+``data`` and ``model`` (the train step's collectives) and for both (the
+resilient sync's health stats). A reduction over a set of axes (a
+*level*) reduces within the ranks that differ only along those axes:
 
 - a level of 2^m ranks is m two-way ``all_reduce``s over the hypercube
   pairs of the level (rank positions i and i XOR 2^j in round j). A
@@ -25,7 +30,9 @@ process group gets an explicit timeout, so a hang fails instead of
 waiting forever.
 
 **Ledger.** Each collective wrapper adds to :data:`LEDGER`, per level
-name (the level's axes joined by ``+``) and op: its count and the bytes
+name (the level's axes joined by ``+``: ``replica``, ``pod``, ``data``,
+``model``, ``data+model``, or a label such as ``probe`` or
+``checkpoint``) and op: its count and the bytes
 this rank put in (an all-reduce's tensor, an all-gather's or a gather's
 one contribution), and ``staged_bytes``, the bytes copied to the host
 and back for ``gloo``. Nothing else touches it, as nothing but a
@@ -282,17 +289,24 @@ class ReplicaMesh:
         return self._collective("all_gather", name, x, gather)
 
     def gather(self, x: torch.Tensor, level: str, dst: int = 0,
-               out_device=None) -> torch.Tensor | None:
+               out_device=None, axes=None) -> torch.Tensor | None:
         """``(world, *x.shape)`` of every rank's ``x`` on rank ``dst``, on
         ``out_device`` (``x``'s device unless given), None on the other
-        ranks: checkpoints, the final state, probes."""
-        if self.world == 1:
+        ranks: checkpoints, the final state, probes. With ``axes``, over
+        that level's group holding this rank only (``(n, *x.shape)`` in
+        rank order on its first rank)."""
+        lv = self.level(axes) if axes is not None else None
+        ranks = lv.ranks if lv is not None else list(range(self.world))
+        if len(ranks) == 1:
             return x[None].clone().to(out_device or x.device)
+        if lv is not None:
+            dst = ranks[0]
 
         def gather(t):
-            outs = ([torch.empty_like(t) for _ in range(self.world)]
+            outs = ([torch.empty_like(t) for _ in ranks]
                     if self.rank == dst else None)
-            dist.gather(t, outs, dst=dst)
+            dist.gather(t, outs, dst=dst,
+                        group=None if lv is None else lv.group)
             return torch.stack(outs) if outs is not None else None
         return self._collective("gather", level, x, gather, out_device)
 

@@ -3,9 +3,9 @@
 
 - ``topology``: WHERE and WHEN the replica mean reduces, ``Flat`` or
   ``TwoLevel``;
-- ``packed``: the per-rank sync bodies over the replica mesh
-  (``launch.mesh``);
-- ``bundles``: the mesh-native step builders;
+- ``packed``: the packed-layout chooser and the per-rank sync bodies
+  over the rank mesh (``launch.mesh``);
+- ``bundles``: the replica's layout and the mesh-native step builders;
 - ``plan``: ``SyncPlan`` and ``build_hwa_bundles``, the one constructor.
 
 The reference's GSPMD builders and ``legacy.py`` have no counterpart:

@@ -5,17 +5,31 @@
 Each builder returns a :class:`StepBundle`: a plain callable on one
 rank's tensors, the packed layout its window state lives in, and its
 declared contract (kernel launches on the card and collectives a call).
-There are no shardings: one process holds one replica (``launch.mesh``). The GSPMD
-builders (``make_train_step``, ``make_prefill_step``,
+The GSPMD builders (``make_train_step``, ``make_prefill_step``,
 ``make_decode_step``) and ``legacy.py`` are not ported: they exist for
 XLA's partitioner.
 
-- the train step is the rank's one replica stepped by
-  ``core.hwa.hwa_local_inner_step``: it issues NO collective;
-- the sync step is ``packed._local_packed_sync`` over the topology's
-  composition: W̄, the window push, the restart;
-- the inner-sync step (two-level tree only) is
-  ``packed._local_inner_sync``: the pod mean, nothing else.
+A replica spans ``data × model`` ranks (1 × 1: one rank holds it whole).
+:func:`replica_layout` resolves the reference's rules
+(``sharding.rules.make_tp_rules``) over the rank mesh into each leaf's
+place and the packed layout of the sync (``packed.choose_resident_spec``).
+The train step has the reference's two forms:
+
+- ``flash_pallas`` (the reference's fully manual step): the replica's
+  parameters whole on each of its ranks, each rank stepping ``B / data``
+  rows, the gradients and the loss averaged over ``data`` (one sum);
+- every other ``attn_impl`` (the reference's GSPMD step): each rank holds
+  its blocks of the leaves and runs the model with a ``par``
+  (``models.parallel``): tensor parallelism over ``model``, FSDP's
+  gathers over ``data``, the data mean of the other leaves' gradients.
+
+Neither crosses a replica axis. The sync step is
+``packed._local_packed_sync`` over the topology's composition, on the
+rank's segment of the layout; the inner-sync step (two-level tree only)
+is ``packed._local_inner_sync``. Where the parameters rest whole but the
+layout splits them (``flash_pallas`` with ``--fsdp``), the rank syncs its
+block in place and the rest step all-gathers the replica's blocks back,
+outside the sync.
 
 :func:`sync_collective_budget` declares what a sync issues, per level
 (``launch.mesh.LEDGER``'s names). ``launch.train.mesh_rank`` records
@@ -32,10 +46,12 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.common.packing import pack_spec
+from repro_torch.common.pytree import tree_leaves
 from repro_torch.core.hwa import HWAConfig, hwa_local_inner_step
 from repro_torch.launch.mesh import _is_pow2, level_name
 from repro_torch.launch.sync.packed import (_local_inner_sync,
                                             _local_packed_sync,
+                                            choose_resident_spec,
                                             packed_sync_launch_budget)
 from repro_torch.launch.sync.topology import Flat, SyncTopology, TwoLevel
 from repro_torch.optim import adamw, sgd
@@ -82,6 +98,73 @@ def _check_outer_every(hwa_cfg: HWAConfig, topology: SyncTopology) -> None:
             "topology for the H·H₂ hierarchy, or leave outer_every at 1")
 
 
+#: the axes inside a replica, in the reference's mesh order
+INNER_AXES = ("data", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplicaLayout:
+    """How a replica splits over its ranks: the rule table, each leaf's
+    place (``models.parallel.LeafPlace`` tree), the packed layout of the
+    sync (global; a rank holds ``spec.local_spec()``) and whether the
+    parameters rest whole on each rank (the ``flash_pallas`` step)."""
+    rules: Any
+    places: Any
+    spec: Any
+    whole: bool = False
+
+    @property
+    def split(self) -> bool:
+        """Whether a rank's sync holds only part of the replica."""
+        return self.spec.is_sharded
+
+
+def _level_cost(n: int, times: int = 1) -> dict:
+    """One ``ReplicaMesh.psum`` over a level of ``n`` ranks, ``times``
+    times: its two-way all-reduce chain, or an all-gather."""
+    if _is_pow2(n):
+        return {"all_reduce": times * (n.bit_length() - 1)}
+    return {"all_gather": times}
+
+
+def inner_axes(mesh) -> tuple[str, ...]:
+    """The replica's inner axes of size > 1, in mesh order."""
+    return tuple(a for a in mesh.shape if a in INNER_AXES
+                 and mesh.shape[a] > 1)
+
+
+def replica_layout(lm, mesh, topology: SyncTopology, *, fsdp=False,
+                   params=None) -> ReplicaLayout:
+    """The reference's sharding of a replica over the rank mesh
+    (``make_tp_rules(mesh, replica_axis=..., fsdp=...)``, no
+    ``expert_parallel``), each leaf's place and the layout the chooser
+    picks, from ``lm.abstract()``. With no ``lm`` (a sync on its own) the
+    replica is whole on each rank: the layout of ``params``."""
+    from repro_torch.common.pytree import tree_flatten
+    from repro_torch.models.parallel import places_tree
+    from repro_torch.sharding.rules import flatten_dims, make_tp_rules
+    rules = make_tp_rules(mesh.shape, replica_axis=topology.replica_axes,
+                          fsdp=fsdp)
+    if lm is None:
+        flat, _ = tree_flatten(params)
+        return ReplicaLayout(rules=rules, places=places_tree(
+            params, [()] * len(flat), [(None,) * x.dim() for x in flat]),
+            spec=pack_spec(params))
+    params_abs, dims = lm.abstract()
+    flat, _ = tree_flatten(params_abs)
+    shapes = [tuple(x.shape) for x in flat]
+    flat_specs = rules.flat_specs(shapes, dims)
+    spec = choose_resident_spec(mesh.shape, params_abs, flat_specs, shapes,
+                                exclude=topology.replica_axes)
+    if spec is None:
+        raise ValueError("no packed layout aligns this model's tilings "
+                         "(a zero-size leaf split over a rank axis)")
+    return ReplicaLayout(
+        rules=rules, places=places_tree(params_abs, flat_specs,
+                                        flatten_dims(dims)),
+        spec=spec, whole=lm.cfg.attn_impl == "flash_pallas")
+
+
 def sync_collective_budget(mesh, topology: SyncTopology, *,
                            comms_dtype: str = "f32", resilient=False,
                            inner_only: bool = False) -> dict:
@@ -90,7 +173,8 @@ def sync_collective_budget(mesh, topology: SyncTopology, *,
     alive count, then the weights), another size one all-gather (two
     resilient); the compressed outer level of the tree one all-gather
     (bf16) or two (fp8: payload and scales). A level of one rank costs
-    nothing."""
+    nothing. A resilient full sync of a replica split over inner axes
+    adds one psum of the health stats over them."""
     groups = (topology.inner_groups() if inner_only
               else topology.psum_groups())
     non_empty = [i for i, axes in enumerate(groups) if axes]
@@ -103,23 +187,104 @@ def sync_collective_budget(mesh, topology: SyncTopology, *,
             continue
         if comms_dtype != "f32" and i == last:
             row = {"all_gather": 2 if comms_dtype == "fp8" else 1}
-        elif _is_pow2(n):
-            row = {"all_reduce": per * (n.bit_length() - 1)}
         else:
-            row = {"all_gather": per}
+            row = _level_cost(n, per)
         out[level_name(tuple(a for a in mesh.shape if a in axes))] = row
+    health = inner_axes(mesh)
+    if resilient and not inner_only and health:
+        out[level_name(health)] = _level_cost(mesh.size(health))
+    return out
+
+
+def par_step_collectives(par, dtypes, skip) -> dict:
+    """The collectives one train step of ``lm_loss`` with ``par``
+    (``models.parallel.Par``) issues a level, counted from the leaves'
+    places and the model's layers as the model code issues them: each
+    sum one ``ReplicaMesh.psum`` (:func:`_level_cost`), each gather one
+    all-gather.
+
+    - ``Par.prepare``, a layer's leaves before the layer and the others
+      once: a dim split over ``data`` a gather and, in the backward, a
+      sum; a ``head_dim`` split over ``model`` a gather, and a backward
+      sum where the heads are split;
+    - with a model axis, a layer: the head-parallel attention's sums
+      (its input's gradient, ``wo``'s output) and those of the split MLP,
+      experts or shared experts, two each; the forward's sums twice under
+      remat (the backward runs the layer's forward again);
+    - with the vocab split: the embedding's sum, the cross-entropy's
+      three sums (the input's gradient, the exponentials, the target's
+      logit) and its gather of the maxima;
+    - ``Par.data_mean``: one sum a dtype of the leaves it averages."""
+    from repro_torch.models.transformer import block_pattern
+    mesh, cfg = par.mesh, par.cfg
+    sums, gathers = {}, {}
+
+    def add(into, axes, n=1):
+        lvl = level_name(tuple(a for a in mesh.shape if a in axes))
+        into[lvl] = into.get(lvl, 0) + n
+
+    def prepared(places, times):
+        for p in tree_leaves(places):
+            for i in range(len(p.spec)):
+                axes = p.axes(i)
+                if not axes or mesh.size(axes) == 1:
+                    continue
+                if set(axes) <= set(par.data_axes):
+                    add(gathers, axes, times)
+                    add(sums, axes, times)
+                elif p.dims[i] == "head_dim":
+                    add(gathers, axes, times)
+                    if par.heads_split:
+                        add(sums, axes, times)
+
+    pattern = block_pattern(cfg)
+    n_blocks = cfg.n_layers // len(pattern)
+    prepared({k: v for k, v in par.places.items() if k != "stack"}, 1)
+    for pl in par.places["stack"]:
+        prepared([p.unstacked() for p in tree_leaves(pl)], n_blocks)
+    if par.tp > 1:
+        model = par.model_axes
+        fwd = 1 if cfg.remat == "none" else 2
+        hidden = cfg.expert_d_ff or cfg.d_ff
+        for spec in pattern:
+            split = [par.heads_split]
+            if spec.use_moe:
+                split += [par.splits(hidden), bool(cfg.n_shared_experts)
+                          and par.splits(cfg.n_shared_experts * hidden)]
+            else:
+                split.append(par.splits(cfg.d_ff))
+            add(sums, model, n_blocks * (1 + fwd) * sum(split))
+        if par.splits(cfg.vocab_size):
+            add(sums, model, 4)
+            add(gathers, model)
+    if par.dp > 1:
+        add(sums, par.data_axes, par.data_mean_groups(dtypes, skip))
+    out = {}
+    for lvl in sorted(set(sums) | set(gathers)):
+        n = mesh.size(tuple(lvl.split("+")))
+        row = _level_cost(n, sums[lvl]) if sums.get(lvl) else {}
+        if gathers.get(lvl):
+            row["all_gather"] = row.get("all_gather", 0) + gathers[lvl]
+        out[lvl] = row
     return out
 
 
 def _make_mesh_hwa_train_step(lm, mesh, hwa_cfg: HWAConfig,
                               optimizer: str = "sgd", lr: float = 3e-4,
-                              replica_axis="replica") -> StepBundle:
-    """The mesh-native inner step: the rank's one replica, one optimizer
-    step, ``fn(params, opt_state, batch) -> (params, opt_state, loss)``.
-    Collective-free by construction. With ``flash_pallas`` and remat off
-    it launches the flash forward once and each backward sweep once a
-    layer."""
+                              replica_axis="replica",
+                              layout: ReplicaLayout | None = None
+                              ) -> StepBundle:
+    """The mesh-native inner step: ``fn(params, opt_state, batch) ->
+    (params, opt_state, loss)``, ``batch`` the replica's whole batch
+    (the rank takes its rows). With the replica whole on one rank it is
+    the collective-free step. With a data axis the ``flash_pallas``
+    form steps the whole replica on the rank's rows and averages
+    gradients and loss over ``data``; the other form runs the model on
+    the rank's blocks with a ``models.parallel.Par``. Neither crosses a
+    replica axis. With ``flash_pallas`` and remat off it launches the
+    flash forward once and each backward sweep once a layer."""
     from repro_torch.launch.sync.topology import _norm_axes
+    from repro_torch.models.parallel import Par, batch_rows
     rep_axes = _norm_axes(replica_axis)
     K = hwa_cfg.n_replicas
     rep_size = math.prod(mesh.shape[a] for a in rep_axes)
@@ -127,39 +292,73 @@ def _make_mesh_hwa_train_step(lm, mesh, hwa_cfg: HWAConfig,
         raise ValueError(f"mesh-native path needs K == replica-axes size "
                          f"({K} != {rep_size} over {rep_axes})")
     opt = _mk_optimizer(optimizer)
-
-    def step(params, opt_state, batch):
-        params, opt_state, loss, _ = hwa_local_inner_step(
-            params, opt_state, batch, lm.loss, opt, lr)
-        return params, opt_state, loss
-
     cfg = lm.cfg
+    inner = inner_axes(mesh)
+    par = Par(mesh, cfg, layout.places) if inner else None
+    dtypes = [x.dtype for x in tree_leaves(lm.abstract()[0])]
+    colls = {}
+    if par is None:
+        def step(params, opt_state, batch):
+            params, opt_state, loss, _ = hwa_local_inner_step(
+                params, opt_state, batch, lm.loss, opt, lr)
+            return params, opt_state, loss
+    elif layout.whole:
+        if par.tp > 1:
+            raise ValueError("the flash_pallas step splits no model axis "
+                             "(--tp must stay 1)")
+        def step(params, opt_state, batch):
+            params, opt_state, loss, _ = hwa_local_inner_step(
+                params, opt_state, batch_rows(batch, par), lm.loss, opt,
+                lr, grad_hook=par.data_mean)
+            return params, opt_state, loss
+        if par.dp > 1:
+            colls[level_name(par.data_axes)] = _level_cost(
+                par.dp, par.data_mean_groups(dtypes, [False] * len(dtypes)))
+    else:
+        skip = par.data_sharded()
+
+        def step(params, opt_state, batch):
+            params, opt_state, loss, _ = hwa_local_inner_step(
+                params, opt_state, batch_rows(batch, par),
+                functools.partial(lm.loss, par=par), opt, lr,
+                grad_hook=functools.partial(par.data_mean, skip=skip))
+            return params, opt_state, loss
+        colls = par_step_collectives(par, dtypes, skip)
+
     exact = (cfg.attn_impl == "flash_pallas" and cfg.remat == "none"
              and cfg.family in ("dense", "moe"))    # every layer attends
     launches = (dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
-                              cfg.n_layers) if exact else None)
+                              cfg.n_layers) if exact
+                else {} if cfg.attn_impl != "flash_pallas" else None)
     return StepBundle(fn=step, contract={"launches": launches,
-                                         "collectives": {}})
+                                         "collectives": colls})
 
 
 def _make_mesh_hwa_sync_step(lm, mesh, hwa_cfg: HWAConfig, params,
                              ring_dtype=torch.float32,
                              replica_axis: str = "replica",
                              topology: SyncTopology | None = None,
-                             comms_dtype: str = "f32") -> StepBundle:
+                             comms_dtype: str = "f32",
+                             layout: ReplicaLayout | None = None
+                             ) -> StepBundle:
     """The mesh-native sync, the once-per-H-steps collective(s):
     ``fn(params, window_state, cycle) -> (window_state, wa, cycle, alive,
-    k_alive, mean)``, the replica restarted in place
+    k_alive, mean)``, the rank's leaves restarted in place
     (``packed._local_packed_sync``). ``topology`` selects where the mean
     reduces: ``Flat`` (default, over ``replica_axis``) or ``TwoLevel``,
-    for which this is the OUTER sync. ``params`` (the rank's replica)
-    fixes the packed layout; allocate the window from ``pack_spec``.
+    for which this is the OUTER sync. ``layout`` (:func:`replica_layout`;
+    by default the whole-replica layout of ``params``) fixes the packed
+    layout, ``pack_spec`` (global: the rank's window state holds
+    ``pack_spec.local_spec()``, per group); W̿ and W̄ come back in the
+    rank's local layout. Where the parameters rest whole but the layout
+    splits them, the rank syncs its block of them in place.
 
     ``comms_dtype`` compresses the tree's cross-pod hop only; it needs a
     TwoLevel topology and is refused with ``resilient`` (the alive-masked
     mean renormalizes by k_alive after the reduction, so the quantized
     payload would be scaled before the mask is known)."""
     from repro_torch.common.quant import is_compressed, wa_dtype, wa_token
+    from repro_torch.models.parallel import blocks_of
     K = hwa_cfg.n_replicas
     ring_dtype = wa_dtype(ring_dtype)
     tok = wa_token(ring_dtype)
@@ -181,17 +380,29 @@ def _make_mesh_hwa_sync_step(lm, mesh, hwa_cfg: HWAConfig, params,
                 "psum, so the quantized payload would be scaled before "
                 "the mask is known")
     _check_outer_every(hwa_cfg, topology)
+    layout = layout or replica_layout(None, mesh, topology, params=params)
     psum_groups = topology.psum_groups()
-    spec = pack_spec(params)
+    spec = layout.spec
     if is_compressed(tok):
         spec = spec.with_ring_dtype(ring_dtype)
-    fn = functools.partial(_local_packed_sync, hwa_cfg, spec, K, psum_groups,
-                           mesh=mesh, comms_dtype=comms_tok)
+    lspec = spec.local_spec()
+    health = inner_axes(mesh)
+    body = functools.partial(
+        _local_packed_sync, hwa_cfg, lspec, K, psum_groups, mesh=mesh,
+        comms_dtype=comms_tok, health_axes=health,
+        health_scale=mesh.size(health))
+    if layout.whole and layout.split:
+        def fn(params, window_state, cycle):
+            return body(blocks_of(params, layout.places, mesh),
+                        window_state, cycle)
+    else:
+        fn = body
     budget = packed_sync_launch_budget(
-        hwa_cfg, use_kernel=hwa_cfg.use_kernels, n_groups=1, k_local=1,
-        collective=any(psum_groups), with_stride=True, ring_dtype=tok)
-    # the push is the one kernel a rank's sync launches (K = 1 included:
-    # the fused sync never runs here)
+        hwa_cfg, use_kernel=hwa_cfg.use_kernels, n_groups=spec.n_groups,
+        k_local=1, collective=any(psum_groups), with_stride=True,
+        ring_dtype=tok)
+    # the pushes are the kernels a rank's sync launches, once a group (K =
+    # 1 included: the fused sync never runs here)
     kernel = {"f32": "wa_window_update", "bf16": "wa_window_update_c"}
     colls = sync_collective_budget(mesh, topology, comms_dtype=comms_tok,
                                    resilient=hwa_cfg.resilient)
@@ -201,25 +412,74 @@ def _make_mesh_hwa_sync_step(lm, mesh, hwa_cfg: HWAConfig, params,
 
 
 def _make_mesh_hwa_inner_sync_step(lm, mesh, hwa_cfg: HWAConfig, params,
-                                   topology: TwoLevel) -> StepBundle:
+                                   topology: TwoLevel,
+                                   layout: ReplicaLayout | None = None
+                                   ) -> StepBundle:
     """The two-level tree's INNER sync, run on the ``outer_every - 1`` of
     every ``outer_every`` syncs that are not outer: each pod averages its
-    own members, ``fn(params) -> pod mean`` (the replica restarted in
-    place). Zero cross-pod traffic, no window traffic, no kernel."""
+    own members, ``fn(params) -> pod mean`` (the rank's leaves restarted
+    in place, the pod mean in its local layout). Zero cross-pod traffic,
+    no window traffic, no kernel."""
+    from repro_torch.models.parallel import blocks_of
     K = hwa_cfg.n_replicas
     if not isinstance(topology, TwoLevel):
         raise ValueError("inner-only sync exists only for the TwoLevel "
                          f"topology, got {topology!r}")
     topology.validate(mesh, K)
     _check_outer_every(hwa_cfg, topology)
-    spec = pack_spec(params)
+    layout = layout or replica_layout(None, mesh, topology, params=params)
     pod_size = K // topology.pods(mesh)
-    fn = functools.partial(_local_inner_sync, spec, pod_size,
-                           topology.inner_groups(), mesh=mesh)
-    return StepBundle(fn=fn, pack_spec=spec, contract={
+    body = functools.partial(_local_inner_sync, layout.spec.local_spec(),
+                             pod_size, topology.inner_groups(), mesh=mesh)
+    if layout.whole and layout.split:
+        def fn(params):
+            return body(blocks_of(params, layout.places, mesh))
+    else:
+        fn = body
+    return StepBundle(fn=fn, pack_spec=layout.spec, contract={
         "launches": {},
         "collectives": sync_collective_budget(mesh, topology,
                                               inner_only=True)})
+
+
+def _make_rest_step(mesh, layout: ReplicaLayout) -> StepBundle:
+    """After a sync of a replica that rests whole on each rank but whose
+    layout splits it (``flash_pallas`` with ``--fsdp``): ``fn(params,
+    mean)`` writes the other ranks' synced blocks into the rank's whole
+    leaves (its own were restarted in place), from one all-gather of the
+    packed W̄ over the replica's inner axes: the reference's reshard at
+    the next step's boundary."""
+    from repro_torch.common.packing import unpack
+    from repro_torch.models.parallel import blocks_of
+    axes = inner_axes(mesh)
+    lspec = layout.spec.local_spec()
+
+    def fn(params, mean):
+        got = mesh.all_gather(mean, axes)
+        with torch.no_grad():
+            for r, buf in zip(mesh.level(axes).ranks, got):
+                if r == mesh.rank:
+                    continue
+                for x, b in zip(tree_leaves(blocks_of(
+                        params, layout.places, mesh, r)),
+                        tree_leaves(unpack(buf, lspec))):
+                    x.copy_(b)
+        return params
+    return StepBundle(fn=fn, contract={"launches": {}, "collectives": {
+        level_name(axes): {"all_gather": 1}}})
+
+
+#: what the reference's HLO collective audit waits for
+AUDIT_ITEM = "ROADMAP.md Queue A 14 (the collective audit's verdicts)"
+
+
+def sync_collective_audit(*args, **kwargs):
+    """The reference's ``launch.hlo.sync_collective_audit`` reads a
+    sync's lowered HLO. The port's counterpart, verdicts over the
+    ledger and the bundles' declared collectives, is not written yet
+    (``launch.train.contract_violations`` holds every call to its
+    contract meanwhile)."""
+    raise NotImplementedError(f"sync_collective_audit: {AUDIT_ITEM}")
 
 
 def sync_cases(mesh, cases) -> list[dict]:

@@ -77,52 +77,82 @@ class HWABundles:
     """The bundles a :class:`SyncPlan` assembles. ``train`` is None when
     :func:`build_hwa_bundles` was asked for sync bundles only;
     ``inner_sync`` exists only for a TwoLevel topology
-    (``plan.resolved_topology.is_outer`` schedules which sync is which)."""
+    (``plan.resolved_topology.is_outer`` schedules which sync is which);
+    ``rest`` only where the parameters rest whole but the layout splits
+    them (it follows every sync); ``layout`` is the replica's
+    (``bundles.ReplicaLayout``)."""
     plan: SyncPlan
     sync: Any
     train: Any = None
     inner_sync: Any = None
+    rest: Any = None
+    layout: Any = None
 
     @property
     def pack_spec(self):
-        """The packed window-state layout callers allocate from."""
+        """The packed window-state layout (global: a rank holds its
+        ``local_spec()``), the layout the chooser picked."""
         return self.sync.pack_spec
 
 
 def build_hwa_bundles(lm, mesh, plan: SyncPlan, params,
-                      train: bool = True) -> HWABundles:
-    """Assemble the mesh-native train / sync / inner-sync bundles a plan
-    describes, validated against ``mesh`` (``launch.mesh.ReplicaMesh``)
-    once. ``params`` is the rank's replica, which fixes the packed
-    layout; ``train=False`` builds the syncs only."""
+                      train: bool = True, fsdp: bool = False) -> HWABundles:
+    """Assemble the mesh-native train / sync / inner-sync (/ rest)
+    bundles a plan describes, validated against ``mesh``
+    (``launch.mesh.ReplicaMesh``) once. The replica's layout comes from
+    the reference's rules over ``mesh`` with ``fsdp``
+    (``bundles.replica_layout``); with no ``lm`` (``train=False`` only)
+    it is the whole-replica layout of ``params``, the rank's replica."""
     from repro_torch.launch.sync.bundles import (
         _make_mesh_hwa_inner_sync_step, _make_mesh_hwa_sync_step,
-        _make_mesh_hwa_train_step)
+        _make_mesh_hwa_train_step, _make_rest_step, replica_layout)
     if not plan.mesh_native:
         raise ValueError("the stacked path has no bundles in the port: "
                          "call core.hwa.hwa_inner_step and hwa_sync")
     topology = plan.resolved_topology
+    layout = replica_layout(lm, mesh, topology, fsdp=fsdp, params=params)
     train_b = (_make_mesh_hwa_train_step(
         lm, mesh, plan.hwa, optimizer=plan.optimizer, lr=plan.lr,
-        replica_axis=topology.replica_axes) if train else None)
+        replica_axis=topology.replica_axes, layout=layout)
+        if train else None)
     sync = _make_mesh_hwa_sync_step(
         lm, mesh, plan.hwa, params, ring_dtype=plan.wa_dtype,
         replica_axis=plan.replica_axis, topology=plan.topology,
-        comms_dtype=plan.comms_dtype)
+        comms_dtype=plan.comms_dtype, layout=layout)
     inner_sync = (_make_mesh_hwa_inner_sync_step(
-        lm, mesh, plan.hwa, params, topology) if plan.is_tree else None)
+        lm, mesh, plan.hwa, params, topology, layout=layout)
+        if plan.is_tree else None)
+    rest = (_make_rest_step(mesh, layout)
+            if layout.whole and layout.split else None)
     return HWABundles(plan=plan, sync=sync, train=train_b,
-                      inner_sync=inner_sync)
+                      inner_sync=inner_sync, rest=rest, layout=layout)
 
 
-def window_state_args(bundles: HWABundles, params):
-    """A fresh window state for the plan's sync, allocated from its
-    packed layout on ``params``' device: ``(window_state, cycle)``.
-    Zeroed buffers, except the fp8 ring's per-block scales, which start
-    at ONES (the scale of an all-zero block): ``core.offline.window_init``."""
-    from repro_torch.core.offline import window_init
+def window_state_args(bundles: HWABundles, params=None, device=None):
+    """A fresh window state for the plan's sync: the rank's segment of
+    its packed layout (``pack_spec.local_spec()``) on ``device`` (or
+    ``params``' device), bare buffers for one range and per-group tuples
+    for a grouped layout (the reference's ``window_state_args``):
+    ``(window_state, cycle)``. Zeroed buffers, except the fp8 ring's
+    per-block scales, which start at ONES (the scale of an all-zero
+    block)."""
+    from repro_torch.common.packing import window_aux_buffers, \
+        window_buffers
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.core.offline import WindowState
     hwa = bundles.plan.hwa
-    ws = window_init(params, hwa.window, hwa.window_kind,
-                     ring_dtype=bundles.plan.wa_dtype)
-    cycle = torch.zeros((), dtype=torch.int32, device=ws.total.device)
-    return ws, cycle
+    spec = bundles.pack_spec
+    if device is None:
+        device = tree_leaves(params)[0].device
+    if hwa.window_kind != "ring":
+        raise ValueError("the mesh-native sync keeps a ring window")
+    lspec = spec.local_spec()
+    ring, total = window_buffers(lspec, hwa.window, bundles.plan.wa_dtype,
+                                 device=device)
+    scales, comp = window_aux_buffers(lspec, hwa.window,
+                                      bundles.plan.wa_dtype, device=device)
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    ws = WindowState(ring=ring, total=total, count=zero,
+                     next_idx=zero.clone(), window=hwa.window, kind="ring",
+                     spec=spec, comp=comp, scales=scales)
+    return ws, zero.clone()

@@ -30,18 +30,32 @@ every ``--sync-period`` steps and no collective in between:
   ... --mesh-native --sync-tree two-level --k 4 --outer-every 2 \
       [--wa-dtype bf16|fp8 --comms-dtype bf16|fp8]
 
-The launcher spawns the K ranks itself (the counterpart of the
-reference's forced host devices); on the card it builds the kernels
-first. ``--sync-tree two-level`` carves the ranks into ``--pods``
-contiguous pods that average internally every H steps; only every
+The launcher spawns the ranks itself (the counterpart of the reference's
+forced host devices); on the card it builds the kernels first.
+``--sync-tree two-level`` carves the replicas into ``--pods`` contiguous
+pods that average internally every H steps; only every
 ``--outer-every``-th sync crosses pods and pushes the window.
 ``--wa-dtype`` compresses the ring, ``--comms-dtype`` the cross-pod
 payload, ``--inject-nan STEP:REPLICA`` poisons a replica (with
-``--resilient`` it is quarantined). The command line trains the smoke
-config; a caller of :func:`run_mesh_native` passes any model config
-(``chip_smoke.py`` passes the published width cut in depth). A data axis
-inside a replica (``--fsdp``, ``--tp > 1``) waits for ROADMAP.md Queue
-A 16.
+``--resilient`` it is quarantined).
+
+A replica may span several ranks, on the reference's ``(replica, data,
+model)`` mesh (``(pod, replica, data, model)`` under the tree):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --mesh-native --fsdp --tp 2 --k 2 --world-size 8 --steps 4 \
+      --sync-period 2 --window 3 --batch-size 4 --seq-len 16
+
+``--world-size`` is the number of ranks, the counterpart of the
+reference's device count (its default, K·tp, gives ``data`` 1); ``data =
+world / (K·tp)``. ``--tp`` splits each replica's layers over ``model``
+(tensor parallelism: the dense and MoE families), ``--fsdp`` its
+``embed`` weight dims over ``data``; the batch rows of a replica split
+over ``data``. ``--attn-impl flash_pallas`` runs the reference's manual
+step (parameters whole on each rank, gradients averaged over ``data``)
+and refuses ``--tp > 1``, as the reference does. The command line trains
+the smoke config; a caller of :func:`run_mesh_native` passes any model
+config (``chip_smoke.py`` passes the published width cut in depth).
 """
 from __future__ import annotations
 
@@ -62,8 +76,10 @@ from repro_torch.models.registry import build_model
 from repro_torch.train.trainer import METHODS, PARALLEL, TrainConfig, \
     Trainer, lm_task
 
-#: what a data or model axis inside a replica waits for
-MESH_REST = "ROADMAP.md Queue A 16"
+#: what the rest of the reference's mesh-native driver waits for: the
+#: recurrent families' model axis and the collective audit
+MESH_REST = ("ROADMAP.md Queue A 18 (the recurrent families' model axis) "
+             "and Queue A 14 (sync_collective_audit)")
 #: seconds before a mesh-native process group gives up on a collective (a
 #: rank waits at a barrier while rank 0 writes a checkpoint)
 COLLECTIVE_TIMEOUT = 300.0
@@ -106,9 +122,10 @@ def _parser() -> argparse.ArgumentParser:
                          "--checkpoint-dir (bit-exact: torn or corrupted "
                          "saves are skipped)")
     ap.add_argument("--mesh-native", action="store_true",
-                    help="K processes, one replica each, on "
-                         "torch.distributed: one sync every H steps and "
-                         "no collective in between")
+                    help="K replicas on spawned processes (each on "
+                         "data x model ranks) on torch.distributed: one "
+                         "sync every H steps and no collective across "
+                         "replicas in between")
     ap.add_argument("--sync-tree", default="flat",
                     choices=["flat", "two-level"],
                     help="sync topology (mesh-native only): flat = one "
@@ -134,11 +151,15 @@ def _parser() -> argparse.ArgumentParser:
                          "(needs --sync-tree two-level; incompatible "
                          "with --resilient)")
     ap.add_argument("--fsdp", action="store_true",
-                    help=f"mesh-native only: FSDP inside a replica "
-                         f"(waits for {MESH_REST})")
+                    help="mesh-native only: FSDP inside a replica (the "
+                         "embed weight dims split over the data axis)")
     ap.add_argument("--tp", type=int, default=1,
-                    help=f"mesh-native only: tensor parallelism inside a "
-                         f"replica (> 1 waits for {MESH_REST})")
+                    help="mesh-native only: tensor parallelism inside a "
+                         "replica (the model axis)")
+    ap.add_argument("--world-size", type=int, default=0,
+                    help="mesh-native only: ranks in all, the "
+                         "reference's device count (0 = K*tp); the data "
+                         "axis is world / (K*tp)")
     ap.add_argument("--inject-nan", default="",
                     help="fault injection (mesh-native only): STEP:REPLICA "
                          "— poison that replica's weights with NaN before "
@@ -181,14 +202,27 @@ def mesh_batch(seed: int, step: int, K: int, batch_size: int, seq_len: int,
 
 
 def _mesh_shape(args) -> dict[str, int]:
+    """The rank mesh: ``{"replica": K}`` or ``{"pod": G, "replica": K //
+    G}``, then ``data`` and ``model`` where larger than 1, row-major."""
     K = args.k
+    tp = max(args.tp, 1)
+    world = args.world_size or K * tp
+    if world % (K * tp) or world // (K * tp) < 1:
+        raise SystemExit(
+            f"--mesh-native needs a world size divisible by K×tp="
+            f"{K * tp} (have {world}; set --world-size)")
     if args.sync_tree != "two-level":
-        return {"replica": K}
-    pods = args.pods or 2
-    if K % pods or K // pods < 1:
-        raise SystemExit(f"--sync-tree two-level needs K divisible by "
-                         f"--pods (K={K}, pods={pods})")
-    return {"pod": pods, "replica": K // pods}
+        shape = {"replica": K}
+    else:
+        pods = args.pods or 2
+        if K % pods or K // pods < 1:
+            raise SystemExit(f"--sync-tree two-level needs K divisible by "
+                             f"--pods (K={K}, pods={pods})")
+        shape = {"pod": pods, "replica": K // pods}
+    for axis, n in (("data", world // (K * tp)), ("model", tp)):
+        if n > 1:
+            shape[axis] = n
+    return shape
 
 
 def _mesh_plan(args, K: int):
@@ -221,14 +255,27 @@ def _parse_inject(args, K: int):
     return inject
 
 
-def _check_mesh_args(args) -> None:
-    """The launcher's refusals of a mesh-native run, before any spawn."""
-    if args.fsdp or args.tp > 1:
+def _check_mesh_args(args, cfg=None) -> None:
+    """The launcher's refusals of a mesh-native run, before any spawn:
+    the reference's (``flash_pallas`` with ``--tp > 1``, the vlm and audio
+    families, the divisibility of the world size and of the batch over
+    ``data``) and the port's (``--tp > 1`` for the recurrent families)."""
+    shape = _mesh_shape(args)
+    cfg = cfg or mesh_config(args)
+    if cfg.attn_impl == "flash_pallas" and args.tp > 1:
+        raise SystemExit("--attn-impl flash_pallas runs the fully-manual "
+                         "DP-only train step; --tp must stay 1")
+    if cfg.family in ("vlm", "audio"):
+        raise SystemExit(f"{args.arch}: the mesh-native launcher supports "
+                         "LM families only")
+    if args.tp > 1 and cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"--fsdp and --tp > 1 put a data or model axis inside a "
-            f"replica, with the grouped and sharded packed layouts they "
-            f"need: {MESH_REST}")
-    _mesh_shape(args)
+            f"--tp > 1 for the {cfg.family} family (ssm_heads, conv_out "
+            f"over the model axis): {MESH_REST}")
+    data = shape.get("data", 1)
+    if args.batch_size % data:
+        raise SystemExit(f"the per-replica batch {args.batch_size} must "
+                         f"divide over the data axis (size {data})")
     _mesh_plan(args, args.k)
     _parse_inject(args, args.k)
     if args.resume and not (args.checkpoint_dir and args.checkpoint_every):
@@ -238,17 +285,19 @@ def _check_mesh_args(args) -> None:
 
 def run_mesh_native(args, *, cfg=None, probe=False, with_state=True,
                     digest: bool = False):
-    """Train with the mesh-native HWA steps: K spawned ranks
-    (``launch.mesh.spawn_ranks``), one replica each, on a replica mesh of
-    ``{"replica": K}`` or, with ``--sync-tree two-level``, ``{"pod": G,
-    "replica": K // G}``. Inter-replica traffic happens only inside the
-    syncs: the paper's H-fold communication amortization (×H₂ more across
-    pods under the tree), executed across processes.
+    """Train with the mesh-native HWA steps: spawned ranks
+    (``launch.mesh.spawn_ranks``) on a mesh of ``{"replica": K}`` or, with
+    ``--sync-tree two-level``, ``{"pod": G, "replica": K // G}``, then
+    ``data`` and ``model`` where a replica spans several ranks
+    (``--world-size``, ``--tp``). Inter-replica traffic happens only
+    inside the syncs: the paper's H-fold communication amortization (×H₂
+    more across pods under the tree), executed across processes.
 
     ``args`` is the launcher's Namespace, or a list of them over one mesh
-    (K, tree and device): one spawn then runs them in turn, the ranks'
-    start-up paid once, and a list of results comes back. ``cfg`` (a
-    ``ModelConfig``) replaces the smoke config of ``--arch``.
+    (its shape, tree and device): one spawn then runs them in turn, the
+    ranks' start-up paid once, and a list of results comes back. ``cfg``
+    (a ``ModelConfig``, or a list of them, one a run) replaces the smoke
+    config of ``--arch``; ``probe`` and ``with_state`` may be lists too.
 
     Returns rank 0's result with the reference's keys (``history`` with
     ``"sync": "inner"|"outer"``, ``cycles``, ``syncs``, ``wa_finite``,
@@ -257,50 +306,60 @@ def run_mesh_native(args, *, cfg=None, probe=False, with_state=True,
     tuple, none when it is false), and the port's: ``losses`` (per step,
     per replica), ``backend``, ``resumed_from`` (the step, or None),
     ``saves`` (rank 0's checkpoint seconds and GB), ``launches`` (every
-    rank's kernel launches summed) and ``ranks`` (per rank: its train
-    steps' collectives and their declared ones, each sync's kind, ms,
-    collectives and declared collectives, its launches and the launches
-    its bundles declare for the card, its peak device memory). ``probe``
-    gathers the replicas around every sync (``"outer"``: every outer sync)
-    and holds rank 0's W̄ against ``core.online``'s canonical, grouped or
-    pod mean of them on its device (``history[i]["probe"]``); a list gives
-    each run its own. ``digest`` adds ``digest``: the SHA-256 of
+    rank's kernel launches summed), ``layout`` (the sync's packed layout:
+    grouped or not, its groups' shards, its JSON) and ``ranks`` (per
+    rank: its train steps' collectives and their declared ones, each
+    sync's kind, ms, collectives and declared collectives, the rest
+    steps', its launches and the launches its bundles declare for the
+    card, its peak device memory). ``probe`` gathers the replicas around
+    every sync (``"outer"``: every outer sync) and holds rank 0's W̄
+    against ``core.online``'s canonical, grouped or pod mean of them on
+    its device (``history[i]["probe"]``); ``"host"`` also holds a split
+    replica's W̿ (rank 0's blocks) against the stacked per-leaf
+    ``hwa_sync`` of the K replicas' blocks on rank 0's host
+    (``wa_host_ulps``); a list gives each run its own. ``digest``
+    adds ``digest``: the SHA-256 of
     the final replicas, W̿, ring and total, key by key, without moving
     them to this process. Process groups time out after
     :data:`COLLECTIVE_TIMEOUT` seconds."""
     from repro_torch.launch.mesh import backend_for, spawn_ranks
+    from repro_torch.launch.sync.bundles import INNER_AXES
     runs = list(args) if isinstance(args, (list, tuple)) else [args]
+    cfgs = list(cfg) if isinstance(cfg, (list, tuple)) else [cfg] * len(runs)
     first = runs[0]
-    for a in runs:
-        _check_mesh_args(a)
+    for a, c in zip(runs, cfgs):
+        _check_mesh_args(a, c)
         if (_mesh_shape(a), a.sync_tree, a.device) != (
                 _mesh_shape(first), first.sync_tree, first.device):
-            raise ValueError("runs of one spawn share K, the sync tree and "
-                             "the device")
+            raise ValueError("runs of one spawn share the mesh, the sync "
+                             "tree and the device")
     K = first.k
     shape = _mesh_shape(first)
-    family = (cfg or mesh_config(first)).family
-    if family in ("vlm", "audio"):
-        raise SystemExit(f"{first.arch}: the mesh-native launcher supports "
-                         "LM families only")
+    world = int(np.prod(list(shape.values())))
     dev = resolve_device(first.device)
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
-    backend = backend_for(dev.type, K, n_cards)
+    backend = backend_for(dev.type, world, n_cards)
     if dev.type == "cuda":
         from repro_torch.kernels import build
         build.build_all()          # once here, not in K ranks at once
     where = (f"{n_cards} card(s)" if dev.type == "cuda" else "the CPU")
-    print(f"[mesh-native] {K} ranks {shape} on {where}: backend {backend}"
+    print(f"[mesh-native] {world} ranks {shape} on {where}: backend "
+          f"{backend}"
           + (" (ranks share a card: CUDA tensors staged through host "
              "memory)" if backend == "gloo" and dev.type == "cuda" else ""))
     topo = _mesh_plan(first, K).resolved_topology
-    levels = topo.psum_groups() + (topo.inner_groups()
-                                   if first.sync_tree == "two-level" else ())
+    inner = tuple(a for a in shape if a in INNER_AXES)
+    levels = (topo.psum_groups() + (topo.inner_groups()
+                                    if first.sync_tree == "two-level" else ())
+              + (topo.replica_axes,) + tuple((a,) for a in inner)
+              + ((inner,) if inner else ()))
     ranks = spawn_ranks(shape, "repro_torch.launch.train:mesh_rank",
-                        {"runs": [vars(a) for a in runs], "cfg": cfg,
+                        {"runs": [vars(a) for a in runs], "cfg": cfgs,
                          "probe": (list(probe) if isinstance(probe, list)
                                    else [probe] * len(runs)),
-                         "with_state": with_state,
+                         "with_state": (list(with_state)
+                                        if isinstance(with_state, list)
+                                        else [with_state] * len(runs)),
                          "digest": digest},
                         device=first.device, levels=levels,
                         collective_timeout=COLLECTIVE_TIMEOUT)
@@ -318,13 +377,6 @@ def run_mesh_native(args, *, cfg=None, probe=False, with_state=True,
               f"wa_finite {out['wa_finite']}")
         outs.append(out)
     return outs if isinstance(args, (list, tuple)) else outs[0]
-
-
-def _gather_tree(mesh, tree, spec, level):
-    """The K ranks' trees, stacked, on rank 0's host (None elsewhere)."""
-    from repro_torch.common.packing import pack, unpack
-    buf = mesh.gather(pack(tree, spec), level, out_device="cpu")
-    return None if buf is None else unpack(buf, spec)
 
 
 #: elements of a packed buffer the probe moves or reads at a time
@@ -346,21 +398,24 @@ def _digest(buf) -> list[int]:
 
 def _probe(mesh, before, params, spec, mean, kind, pods, shadow, ws, tok):
     """Rank 0's check of one sync against ``core.online``: W̄ (the packed
-    mean it restarted from) against the canonical (flat), grouped (outer)
-    or pod (inner) mean of the replicas gathered before the sync
-    (``before``, on the host), computed on rank 0's device a chunk of
-    columns at a time; every rank's restarted replica against its pod's
-    first rank's (digests); for a compressed ring or payload, W̄ and, after
-    an outer sync, W̿ against the exact f32 ``shadow`` window fed the
-    exact means (on the host), in ``tok``'s relative ULPs. Every rank
-    takes part in the digest gather; the others return None."""
+    mean it restarted from, in its local layout ``spec``) against the
+    canonical (flat), grouped (outer) or pod (inner) mean of the replicas'
+    blocks gathered before the sync (``before``, on the host: the K
+    replicas' blocks of rank 0's part), computed on
+    rank 0's device a chunk of columns at a time; every rank's restarted
+    blocks against those of the first rank holding the same blocks in its
+    pod (digests); for a compressed ring or payload, W̄ and, after an
+    outer sync, W̿ against the exact f32 ``shadow`` window fed the exact
+    means (on the host), in ``tok``'s relative ULPs. Every rank takes
+    part in the digest gather; the others return None."""
     from repro_torch.common.packing import pack
     from repro_torch.common.quant import max_ulp, rel_ulp_error
-    from repro_torch.core.offline import (window_average_packed,
-                                          window_update_packed)
+    from repro_torch.core.offline import window_update_packed
     from repro_torch.core.online import (online_average_canonical,
                                          online_average_grouped,
                                          pod_mean_grouped)
+    from repro_torch.launch.shards import inner_key, replica_index
+    from repro_torch.launch.sync.packed import window_average_local
     dev = mesh.device
     digest = torch.tensor(_digest(pack(params, spec)), device=dev)
     digests = mesh.all_gather(digest, tuple(mesh.shape), level="probe")
@@ -380,19 +435,95 @@ def _probe(mesh, before, params, spec, mean, kind, pods, shadow, ws, tok):
         w = oracle({"w": before[:, c:c + PROBE_CHUNK].to(dev)})[0]
         ulps = max(ulps, max_ulp(mean[c:c + PROBE_CHUNK], w))
         want0[c:c + PROBE_CHUNK] = w.cpu()
-    group = mesh.world // (pods if kind == "inner" else 1)
-    leads = [r - r % group for r in range(mesh.world)]
+    K = before.shape[0]
+    per_pod = K // (pods if kind == "inner" else 1)
+
+    def lead(r):
+        g = replica_index(mesh, r) // per_pod
+        return next(q for q in range(mesh.world)
+                    if inner_key(mesh, q) == inner_key(mesh, r)
+                    and replica_index(mesh, q) // per_pod == g)
     rec = {"mean_ulps": ulps,
-           "restarts_equal": all(bool(torch.equal(digests[r], digests[l]))
-                                 for r, l in enumerate(leads))}
+           "restarts_equal": all(bool(torch.equal(digests[r],
+                                                  digests[lead(r)]))
+                                 for r in range(mesh.world))}
     if tok != "f32":
         rec["mean_rel_ulps"] = rel_ulp_error(want0, mean.cpu(), tok)
         if kind == "outer":
             shadow[0], _ = window_update_packed(shadow[0], want0)
             rec["wa_rel_ulps"] = rel_ulp_error(
-                window_average_packed(shadow[0]),
-                window_average_packed(ws).cpu(), tok)
+                window_average_local(shadow[0]),
+                window_average_local(ws).cpu(), tok)
     return rec
+
+
+def _host_reference(mesh, state, before, lspec, window):
+    """The per-leaf check of a sync of a split replica (rank 0): the K
+    replicas' blocks of rank 0's part (``before``: their packed rows,
+    gathered before the sync) as leaf trees on the host, widened to f32,
+    stepped by the stacked ``core.hwa.hwa_sync`` (plain, no kernel) into
+    ``state`` (a host ``HWAState``, its window fed every outer sync).
+    Widened, a leaf's mean is the f32 W̄ the packed sync pushes (a bf16
+    model's stacked ``hwa_sync`` would round W̄ to bf16 before the
+    push). Returns the state; ``None`` elsewhere."""
+    from repro_torch.common.packing import pack_spec, unpack
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.core.hwa import HWAConfig as Cfg
+    from repro_torch.core.hwa import HWAState, hwa_sync
+    from repro_torch.core.offline import WindowState
+    if mesh.rank != 0:
+        return None
+    stacked = tree_map(lambda x: x.float(), unpack(before, lspec))
+    if state is None:
+        fspec = pack_spec(tree_map(lambda x: x[0], stacked))
+        zero = torch.zeros((), dtype=torch.int32)
+        ws = WindowState(ring=torch.zeros((window, fspec.padded)),
+                         total=torch.zeros((fspec.padded,)), count=zero,
+                         next_idx=zero.clone(), window=window, spec=fspec)
+        state = HWAState(inner=None, inner_opt={}, window_state=ws,
+                         wa=None, cycle=zero.clone(), step=zero.clone())
+    state.inner = stacked
+    state, _ = hwa_sync(Cfg(n_replicas=before.shape[0], window=window),
+                        state)
+    return state
+
+
+def _ops(row: dict) -> dict:
+    from repro_torch.launch.mesh import _OPS
+    return {op: n for op, n in row.items() if op in _OPS and n}
+
+
+def contract_violations(out) -> list[str]:
+    """Where a :func:`run_mesh_native` result's ledger leaves its bundles'
+    contracts, rank by rank: the train steps issue exactly the
+    collectives they declare, a step's count times the steps, and never
+    cross a replica axis; every sync and rest step issues exactly the
+    collectives it declares. An empty list: every call kept its
+    contract."""
+    from repro_torch.launch.sync.bundles import INNER_AXES
+    bad = []
+    for rank in out["ranks"]:
+        r = rank["rank"]
+        want = rank["train_declared"]
+        used = {lvl: _ops(row) for lvl, row in
+                rank["train_collectives"].items() if _ops(row)}
+        for lvl in sorted(set(used) | set(want)):
+            got = used.get(lvl, {})
+            if set(lvl.split("+")) - set(INNER_AXES):
+                bad.append(f"rank {r}: a train step crossed {lvl}: {got}")
+            elif got != {op: n * rank["train_steps"]
+                         for op, n in want.get(lvl, {}).items() if n}:
+                bad.append(f"rank {r}: train steps issued {lvl} {got}, "
+                           f"declared {want.get(lvl)} a step")
+        for kind, calls in (("sync", rank["syncs"]), ("rest",
+                                                      rank["rests"])):
+            for c in calls:
+                got = {lvl: _ops(row) for lvl, row in
+                       c["collectives"].items() if _ops(row)}
+                if got != c["declared"]:
+                    bad.append(f"rank {r}: a {c.get('sync', kind)} {kind} "
+                               f"issued {got}, declared {c['declared']}")
+    return bad
 
 
 def _add(acc: dict, rows: dict, times: int = 1) -> None:
@@ -419,29 +550,37 @@ def mesh_rank(mesh, payload) -> list[dict]:
     Returns a list with, per run, rank 0's result and every rank's
     ``rank_stats``."""
     out = []
-    for run, probe in zip(payload["runs"], payload["probe"]):
+    for run, probe, keep, cfg in zip(payload["runs"], payload["probe"],
+                                     payload["with_state"], payload["cfg"]):
         out.append(_mesh_rank_run(mesh, argparse.Namespace(**run), probe,
-                                  payload))
+                                  dict(payload, with_state=keep, cfg=cfg)))
         if mesh.device.type == "cuda":
             torch.cuda.empty_cache()
     return out
 
 
 def _mesh_rank_run(mesh, args, probe, payload) -> dict:
-    """One run on one rank: the rank's replica stepped by the train bundle
-    with no collective, the sync or inner-sync bundle every H steps,
-    checkpoints gathered to rank 0 (on the host). The ledger and the
-    launch counts of every call are kept beside the call's contract."""
-    from repro_torch.common.packing import pack, pack_spec
-    from repro_torch.common.pytree import tree_leaves, tree_map
+    """One run on one rank: the rank's part of its replica stepped by the
+    train bundle with no collective across replicas, the sync or
+    inner-sync bundle every H steps (and the rest bundle after a sync
+    where it exists), checkpoints gathered to rank 0 (on the host). The
+    ledger and the launch counts of every call are kept beside the
+    call's contract."""
+    from repro_torch.common.packing import pack, spec_to_json, unpack
+    from repro_torch.common.pytree import tree_flatten, tree_leaves, \
+        tree_map
     from repro_torch.common.quant import wa_token
-    from repro_torch.core.offline import window_init
+    from repro_torch.core.offline import WindowState
+    from repro_torch.launch import shards
     from repro_torch.launch.mesh import (kernel_counts, ledger_delta,
                                          ledger_snapshot)
     from repro_torch.launch.sync import build_hwa_bundles, window_state_args
     from repro_torch.launch.sync.bundles import _mk_optimizer
+    from repro_torch.models.parallel import blocks_of, places_tree
 
+    t_start = time.perf_counter()
     K, rank, dev = args.k, mesh.rank, mesh.device
+    rep = shards.replica_index(mesh)
     lead = rank == 0
     cuda = dev.type == "cuda"
     if cuda:
@@ -453,16 +592,47 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
     topo = plan.resolved_topology
     pods = topo.pods(mesh) if plan.is_tree else 1
     all_axes = tuple(mesh.shape)
-    params = lm.init(torch.Generator(device=dev).manual_seed(args.seed),
-                     device=dev)
-    bundles = build_hwa_bundles(lm, mesh, plan, params)
+    full = lm.init(torch.Generator(device=dev).manual_seed(args.seed),
+                   device=dev)
+    bundles = build_hwa_bundles(lm, mesh, plan, full, fsdp=args.fsdp)
     train, sync, inner_sync = bundles.train, bundles.sync, bundles.inner_sync
-    spec = sync.pack_spec
+    rest, layout = bundles.rest, bundles.layout
+    spec = sync.pack_spec                  # global; a rank holds lspec
+    lspec = spec.local_spec()
+    split = spec.is_sharded
+    abs_params = lm.abstract()[0]
+    flat_abs, _ = tree_flatten(abs_params)
+    # where the parameters rest: whole on each rank (the flash_pallas
+    # step, or an unsplit replica) or as the rank's blocks
+    whole = layout.whole or not layout.split
+    p_places = (places_tree(abs_params, [()] * len(flat_abs),
+                            [(None,) * x.dim() for x in flat_abs])
+                if whole else layout.places)
+    if whole:
+        params = full
+    else:
+        params = tree_map(lambda x: x.contiguous().clone(),
+                          blocks_of(full, p_places, mesh))
+        del full
+        if cuda:        # ranks may share the card: hand the replica back
+            torch.cuda.empty_cache()
+    del flat_abs
+
+    def view(tree):
+        """The blocks the sync packs: the rank's part of the layout."""
+        return blocks_of(tree, layout.places, mesh) if layout.split \
+            and whole else tree
     opt = _mk_optimizer("sgd")  # the train bundle's optimizer
     opt_state = opt.init(params)
-    opt_spec = pack_spec(opt_state)
-    ws, cycle = window_state_args(bundles, params)
-    wa = params
+    abs_opt = opt.init(abs_params)
+    o_places = {k: p_places for k in abs_opt}    # moments mirror params
+    p_layout = shards.tree_layout(abs_params, p_places, mesh)
+    o_layout = shards.tree_layout(abs_opt, o_places, mesh)
+    w_layout = shards.tree_layout(abs_params, layout.places, mesh)
+    ws, cycle = window_state_args(bundles, device=dev)
+    # W̿ before the first sync: the initial weights (the train step
+    # writes the parameters in place)
+    wa = tree_map(torch.clone, view(params))
     H = args.sync_period or 8
     inject = _parse_inject(args, K)
     tok = wa_token(plan.wa_dtype)
@@ -482,20 +652,34 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
     resumed_from = resume_gib = None
     k_alive_min = K
     if session is not None and args.resume:
-        latest = session.latest_intact()
+        # rank 0 reads the session's CRCs, the others take its answer
+        found = torch.tensor([(session.latest_intact() or -1) if lead
+                              else 0], dtype=torch.int64, device=dev)
+        latest = int(mesh.all_gather(found, all_axes,
+                                     level="checkpoint")[0, 0])
+        latest = None if latest < 0 else latest
         if latest is not None:
             # batches are a function of (seed, step): restoring the
             # tensors and the step counter IS a bit-exact resume. The K
-            # rows load on the host; only this rank's row reaches the card
-            def row(name, like):
+            # rows load on the host; only this rank's blocks reach the card
+            def row(name, like, places):
                 stacked = tree_map(lambda x: torch.empty(
                     (), dtype=x.dtype).expand((K,) + tuple(x.shape)), like)
-                return tree_map(lambda x: x[rank].to(dev, copy=True),
-                                session.load(latest, name, stacked))
-            params = row("inner", params)
-            opt_state = row("inner_opt", opt_state)
-            wa = session.load(latest, "wa", wa)
-            ws = session.load_window(latest, ws)
+                got = session.load(latest, name, stacked)
+                return tree_map(lambda x: x.to(dev), shards.local_rows(
+                    got, mesh, places))
+            params = row("inner", abs_params, p_places)
+            opt_state = row("inner_opt", abs_opt, o_places)
+            wa_full = session.load(latest, "wa", tree_map(
+                lambda x: torch.empty((), dtype=x.dtype).expand(x.shape),
+                abs_params))
+            wa = tree_map(lambda x: x.contiguous().to(dev),
+                          blocks_of(wa_full, layout.places, mesh))
+            if split:
+                ws = shards.local_window(session.load_window(
+                    latest, shards.global_window_template(ws)), mesh, dev)
+            else:
+                ws = session.load_window(latest, ws)
             meta = session.meta(latest)
             start_step = resumed_from = int(meta["step"])
             cycle = torch.tensor(meta["cycle"], dtype=torch.int32,
@@ -510,19 +694,29 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
 
     # the exact f32 window of the same pushes, for a compressed W̿'s
     # error, on the host
-    shadow = ([window_init(tree_map(lambda x: x.cpu(), params),
-                           args.window, ws.kind)]
-              if probe and lead and tok != "f32" else None)
+    shadow = None
+    if probe and lead and tok != "f32":
+        zero = torch.zeros((), dtype=torch.int32)
+        shadow = [WindowState(
+            ring=torch.zeros((args.window, lspec.padded)),
+            total=torch.zeros((lspec.padded,)), count=zero,
+            next_idx=zero.clone(), window=args.window, spec=lspec)]
+    # the stacked per-leaf reference of a split replica's syncs
+    host = {"state": None} if (
+        probe == "host" and layout.split and tok == "f32"
+        and not args.resilient) else None
+    leads = shards.replica_leads(mesh)
 
     def flush_losses():
-        """The per-step losses since the last flush, every rank's, onto
-        rank 0 (a ``log`` all-gather, outside the train steps)."""
+        """The per-step losses since the last flush, each replica's (its
+        first rank's), onto rank 0 (a ``log`` all-gather, outside the
+        train steps)."""
         if not pending:
             return
         got = mesh.all_gather(torch.tensor(pending, dtype=torch.float64,
                                            device=dev), all_axes,
                               level="log")
-        losses.extend(got.T.cpu().tolist())
+        losses.extend(got[leads].T.cpu().tolist())
         pending.clear()
 
     def wait():
@@ -539,32 +733,47 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
             for k, v in bundle.contract["launches"].items():
                 declared[k] = declared.get(k, 0) + v
 
-    train_colls, train_declared = {}, {}
-    sync_colls = []
+    train_colls, train_steps = {}, 0
+    sync_colls, rest_colls = [], []
+    wait()
+    times = {"init_s": time.perf_counter() - t_start, "step_ms": [],
+             "probe_s": 0.0}
     for step in range(start_step, args.steps):
-        if inject is not None and step == inject[0] and rank == inject[1]:
+        if inject is not None and step == inject[0] and rep == inject[1]:
             for x in tree_leaves(params):
                 if x.is_floating_point():
                     x.fill_(float("nan"))
             print(f"[mesh-native] step {step}: injected NaN into replica "
-                  f"{rank}", flush=True)
+                  f"{rep} (rank {rank})", flush=True)
         b = mesh_batch(args.seed, step, K, args.batch_size, args.seq_len,
                        cfg.vocab_size)
-        batch = {k: torch.from_numpy(v[rank]).to(dev) for k, v in b.items()}
+        batch = {k: torch.from_numpy(v[rep]).to(dev) for k, v in b.items()}
         before = ledger_snapshot()
+        t0 = time.perf_counter()
         params, opt_state, step_loss = train(params, opt_state, batch)
+        wait()
+        times["step_ms"].append((time.perf_counter() - t0) * 1e3)
         _add(train_colls, ledger_delta(before, ledger_snapshot()))
-        _add(train_declared, train.contract["collectives"])
+        train_steps += 1
         declare(train)
         pending.append(float(step_loss))
         if (step + 1) % H == 0:
             flush_losses()
             loss = float(np.mean(losses[-1]))
             inner = inner_sync is not None and not topo.is_outer(sync_idx)
-            probing = probe is True or (probe == "outer" and not inner)
+            probing = probe in (True, "host") or (probe == "outer"
+                                                  and not inner)
+            t_probe = time.perf_counter()
             if probing:
-                gathered = mesh.gather(pack(params, spec), "probe",
-                                       out_device="cpu")
+                # the K replicas' blocks of rank 0's part, to rank 0,
+                # among the ranks holding that part (the others skip it)
+                mine = pack(view(params), lspec)
+                gathered = None
+                if shards.inner_key(mesh) == shards.inner_key(mesh, 0):
+                    gathered = mesh.gather(mine, "probe", out_device="cpu",
+                                           axes=topo.replica_axes)
+                del mine
+            times["probe_s"] += time.perf_counter() - t_probe
             wait()
             t0 = time.perf_counter()
             before = ledger_snapshot()
@@ -581,6 +790,12 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
                 "sync": "inner" if inner else "outer", "ms": ms,
                 "collectives": ledger_delta(before, ledger_snapshot()),
                 "declared": bundle.contract["collectives"]})
+            if rest is not None:
+                before = ledger_snapshot()
+                rest(params, mean)
+                rest_colls.append({
+                    "collectives": ledger_delta(before, ledger_snapshot()),
+                    "declared": rest.contract["collectives"]})
             entry = {"step": step + 1, "loss": loss,
                      "sync": "inner" if inner else "outer"}
             if not inner:
@@ -595,12 +810,24 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
                         for o in tree_leaves(opt_state):
                             o.zero_()
                     entry["k_alive"] = k_alive
+            t_probe = time.perf_counter()
             if probing:
-                rec = _probe(mesh, gathered, params, spec, mean,
+                rec = _probe(mesh, gathered, view(params), lspec, mean,
                              entry["sync"], pods, shadow, ws, tok)
+                if host is not None and not inner:
+                    host["state"] = _host_reference(
+                        mesh, host["state"], gathered, lspec, args.window)
+                    if lead:
+                        from repro_torch.common.quant import max_ulp
+                        # W̿ in the leaves' dtypes, as the sync gives it
+                        rec["wa_host_ulps"] = max(
+                            max_ulp(a.float().cpu(), b.to(a.dtype).float())
+                            for a, b in zip(tree_leaves(wa), tree_leaves(
+                                host["state"].wa)))
                 del gathered
                 if lead:
                     entry["probe"] = rec
+            times["probe_s"] += time.perf_counter() - t_probe
             del mean
             if cuda:
                 # ranks may share the card: hand the sync's buffers back
@@ -619,12 +846,19 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
         if session is not None and (step + 1) % args.checkpoint_every == 0:
             flush_losses()
             t0 = time.perf_counter()
-            inner_all = _gather_tree(mesh, params, spec, "checkpoint")
-            opt_all = _gather_tree(mesh, opt_state, opt_spec, "checkpoint")
+            inner_all = shards.gather_full(mesh, params, p_layout,
+                                           "checkpoint")
+            opt_all = shards.gather_full(mesh, opt_state, o_layout,
+                                         "checkpoint")
+            wa_all = shards.gather_full(mesh, wa, w_layout, "checkpoint")
+            ws_all = (shards.gather_window(mesh, ws, "checkpoint")
+                      if split else ws)
             if lead:
                 session.save(step + 1, {"inner": inner_all,
-                                        "inner_opt": opt_all, "wa": wa},
-                             window=ws,
+                                        "inner_opt": opt_all,
+                                        "wa": tree_map(lambda x: x[0],
+                                                       wa_all)},
+                             window=ws_all,
                              meta={"step": step + 1, "cycle": int(cycle),
                                    "sync_idx": sync_idx, "loss": loss,
                                    "history": history})
@@ -632,42 +866,60 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
                               "s": time.perf_counter() - t0,
                               "gb": sum(f["size"] for f in session.manifest(
                                   step + 1)["files"].values()) / 1e9})
-            del inner_all, opt_all
+            del inner_all, opt_all, wa_all, ws_all
             mesh.barrier("checkpoint")
     flush_losses()
     launched = kernel_counts()
-    stats = {"rank": rank, "train_collectives": train_colls,
-             "train_declared": train_declared, "syncs": sync_colls,
+    stats = {"rank": rank, "replica": rep, "train_collectives": train_colls,
+             "train_declared": train.contract["collectives"],
+             "train_steps": train_steps, "syncs": sync_colls,
+             "rests": rest_colls,
              "launches": {k: v - launched0[k] for k, v in launched.items()},
              "declared_launches": declared,
              "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
                           if cuda else None),
-             "resume_gib": resume_gib}
+             "resume_gib": resume_gib, "times": times}
     keys = payload["with_state"]
     keys = (("inner", "wa", "ring", "total") if keys is True
             else tuple(keys or ()))
-    inner_all = (_gather_tree(mesh, params, spec, "state")
-                 if "inner" in keys or payload["digest"] else None)
+    gather_all = payload["digest"]
+    inner_all = (shards.gather_full(mesh, params, p_layout, "state")
+                 if "inner" in keys or gather_all else None)
+    wa_all = (shards.gather_full(mesh, wa, w_layout, "state")
+              if "wa" in keys or gather_all else None)
+    ws_all = ws if not split else (
+        shards.gather_window(mesh, ws, "state")
+        if {"ring", "total"} & set(keys) or gather_all else None)
+    wa_finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(wa)
+                    if x.is_floating_point())
+    finite = mesh.all_gather(torch.tensor([float(wa_finite)], device=dev),
+                             all_axes, level="log")
     if not lead:
         return {"rank_stats": stats}
     if losses:
         loss = float(np.mean(losses[-1]))
-    wa_finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(wa)
-                    if x.is_floating_point())
     out = {"final_loss": loss, "cycles": int(cycle), "syncs": sync_idx,
            "history": history, "sync_tree": args.sync_tree,
            "wa_dtype": plan.wa_dtype, "comms_dtype": plan.comms_dtype,
-           "wa_finite": wa_finite, "k_alive_min": k_alive_min,
+           "wa_finite": bool(finite.min() > 0), "k_alive_min": k_alive_min,
            "mesh": dict(mesh.shape), "losses": losses,
            "resumed_from": resumed_from, "saves": saves,
+           "layout": {"grouped": spec.is_grouped, "n_groups": spec.n_groups,
+                      "shards": [g.shards for g in spec.group_table()],
+                      "padded": spec.padded, "local_padded": lspec.padded,
+                      "json": spec_to_json(spec)},
            "rank_stats": stats}
-    full = {"inner": inner_all, "wa": wa, "ring": ws.ring, "total": ws.total}
+    state = {"inner": inner_all,
+             "wa": None if wa_all is None else tree_map(lambda x: x[0],
+                                                        wa_all),
+             "ring": None if ws_all is None else ws_all.ring,
+             "total": None if ws_all is None else ws_all.total}
     if payload["digest"]:
-        out["digest"] = {k: _sha256(v) for k, v in full.items()
+        out["digest"] = {k: _sha256(v) for k, v in state.items()
                          if v is not None}
     if keys:
         out["_state"] = tree_map(lambda x: x.cpu(),
-                                 {k: full[k] for k in keys})
+                                 {k: state[k] for k in keys})
     return out
 
 

@@ -264,3 +264,18 @@ def run_attention(impl: str, q, k, v, q_pos, k_pos, *, window=None,
         return flash_attention_jnp(q, k, v, q_pos, k_pos, window=window,
                                    logit_softcap=logit_softcap)
     raise ValueError(f"unknown attn_impl {impl!r}")
+
+
+def select_kv_heads(k, v, first_q: int, n_q: int, n_q_total: int):
+    """The K/V heads a block of ``n_q`` q heads starting at ``first_q``
+    attends to, out of all ``k``/``v`` heads (GQA: q head h reads kv head
+    h // G). A model rank whose q heads are split but whose kv heads are
+    not (their rule fell through to ``head_dim``) computes every kv head
+    and keeps these: one contiguous run when the block covers whole
+    groups, else one kv head per q head (its grouping is then 1)."""
+    G = n_q_total // k.shape[2]
+    if G == 1 or (first_q % G == 0 and n_q % G == 0):
+        lo, n = first_q // G, max(n_q // G, 1)
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    idx = torch.arange(first_q, first_q + n_q, device=k.device) // G
+    return k.index_select(2, idx), v.index_select(2, idx)

@@ -63,6 +63,14 @@ def init_norm(cfg, d=None, device=None):
     return params
 
 
+def norm_dims(cfg) -> dict:
+    """Logical dims of a norm's leaves (``sharding.rules``)."""
+    d = {"scale": ("embed",)}
+    if cfg.norm == "layernorm":
+        d["bias"] = ("embed",)
+    return d
+
+
 def apply_norm(cfg, p, x, eps: float = 1e-6):
     """RMS or layer norm computed in f32, returned in ``x``'s dtype."""
     xf = x.float()

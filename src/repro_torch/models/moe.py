@@ -21,10 +21,13 @@ token's k expert outputs are added in ascending expert order onto +0,
 as the reference's scatter-add meets them.
 
 The capacity dispatch (:func:`moe_forward_capacity`) is the reference's
-single-device at-scale variant. The shard_map paths
-(:func:`moe_forward_sharded`, :func:`moe_forward_ep`,
-``cfg.expert_parallel``) raise: they need experts sharded across
-processes inside a replica (ROADMAP.md Queue A 16).
+single-device at-scale variant. :func:`moe_forward_sharded` is the layer
+with a model axis inside a replica (``models.parallel``): the experts'
+hidden dim split over the model ranks, their outputs summed over them.
+``cfg.expert_parallel`` selects nothing where no sharding rules apply,
+as in the reference (which ignores it wherever ``rules is None``, its
+whole mesh-native path included); the expert-parallel all-to-all path
+(:func:`moe_forward_ep`) raises, naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -33,8 +36,9 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import activation, normal_init
 
-_UNPORTED = ("the sharded and expert-parallel MoE paths shard experts "
-             "inside a replica; they wait for ROADMAP.md Queue A 16")
+#: what the expert-parallel path waits for
+EP_ITEM = ("ROADMAP.md Queue A 17 (the expert-parallel all-to-all MoE; "
+           "only the reference's GSPMD builders reach it)")
 
 
 def init_moe(cfg, n: int, gen: torch.Generator, dtype, device):
@@ -56,6 +60,18 @@ def init_moe(cfg, n: int, gen: torch.Generator, dtype, device):
         p["sh_down"] = draw((Fs, D), dtype, Fs)
         p["sh_route"] = draw((D, 1), torch.float32, D)
     return p
+
+
+def moe_dims(cfg) -> dict:
+    """Logical dims of one MoE layer's leaves (``sharding.rules``)."""
+    d = {"router": ("embed", "experts"),
+         "w_gate": ("experts", "embed", "mlp"),
+         "w_up": ("experts", "embed", "mlp"),
+         "w_down": ("experts", "mlp", "embed")}
+    if cfg.n_shared_experts:
+        d.update(sh_gate=("embed", "mlp"), sh_up=("embed", "mlp"),
+                 sh_down=("mlp", "embed"), sh_route=("embed", None))
+    return d
 
 
 def _route(cfg, p, xf):
@@ -112,12 +128,21 @@ def expert_ffn(cfg, p, tokens, counts, impl: str | None = None):
     return mm(h, p["w_down"])
 
 
-def _shared(cfg, p, xf):
+def _shared(cfg, p, xf, par=None):
+    """The shared experts' output, gated by the f32 sigmoid router. With
+    a model axis their hidden dim is split (column then row) and the
+    output summed over ``model`` before the gate, which reads the whole
+    input on every rank."""
     act = activation(cfg.act)
-    h = (act((xf @ p["sh_gate"]).float())
-         * (xf @ p["sh_up"]).float()).to(xf.dtype)
-    shared = (h @ p["sh_down"]).float()
-    return torch.sigmoid(xf.float() @ p["sh_route"]) * shared
+    split = par is not None and par.splits(
+        cfg.n_shared_experts * (cfg.expert_d_ff or cfg.d_ff))
+    xm = par.copy_to_model(xf) if split else xf
+    h = (act((xm @ p["sh_gate"]).float())
+         * (xm @ p["sh_up"]).float()).to(xf.dtype)
+    shared = h @ p["sh_down"]
+    if split:
+        shared = par.reduce_from_model(shared)
+    return torch.sigmoid(xf.float() @ p["sh_route"]) * shared.float()
 
 
 def _combine(pairs):
@@ -128,15 +153,7 @@ def _combine(pairs):
     return out
 
 
-def _check(cfg):
-    if cfg.expert_parallel:
-        raise NotImplementedError(f"expert_parallel=True: {_UNPORTED}")
-
-
-def moe_forward(cfg, p, x, impl: str | None = None):
-    """x: (B, S, D) -> (out, aux_loss). The sort-based dispatch with no
-    capacity drops."""
-    _check(cfg)
+def _moe(cfg, p, x, impl, par):
     B, S, D = x.shape
     N, k = B * S, cfg.top_k
     xf = x.reshape(N, D)
@@ -148,17 +165,30 @@ def moe_forward(cfg, p, x, impl: str | None = None):
     w_sorted = top_p.gather(1, j).reshape(-1)
     flat_e = e_sorted.reshape(-1)                               # (N*k,)
     order = torch.argsort(flat_e, stable=True)
-    pairs = xf[:, None].expand(N, k, D).reshape(N * k, D)
+    split = par is not None and par.splits(cfg.expert_d_ff or cfg.d_ff)
+    xm = par.copy_to_model(xf) if split else xf
+    pairs = xm[:, None].expand(N, k, D).reshape(N * k, D)
     counts = torch.zeros(cfg.n_experts, dtype=torch.int64, device=x.device) \
         .scatter_add_(0, flat_e, torch.ones_like(flat_e))
     out_sorted = expert_ffn(cfg, p, pairs[order], counts, impl)
+    if split:
+        # each rank's experts hold a block of the hidden dim: the pairs'
+        # outputs are partial sums, summed over ``model`` before the
+        # routing weights (which every rank holds whole) scale them
+        out_sorted = par.reduce_from_model(out_sorted)
     out_sorted = out_sorted * w_sorted[order][:, None].to(out_sorted.dtype)
     inverse = torch.empty_like(order).scatter_(
         0, order, torch.arange(N * k, device=x.device))
     out = _combine(out_sorted.float()[inverse].reshape(N, k, D))
     if cfg.n_shared_experts:
-        out = out + _shared(cfg, p, xf)
+        out = out + _shared(cfg, p, xf, par)
     return out.reshape(B, S, D).to(x.dtype), aux
+
+
+def moe_forward(cfg, p, x, impl: str | None = None):
+    """x: (B, S, D) -> (out, aux_loss). The sort-based dispatch with no
+    capacity drops."""
+    return _moe(cfg, p, x, impl, None)
 
 
 def _capacity_ffn(cfg, p, xf, top_p, top_i, capacity_factor=1.25):
@@ -192,7 +222,6 @@ def _capacity_ffn(cfg, p, xf, top_p, top_i, capacity_factor=1.25):
 
 def moe_forward_capacity(cfg, p, x, capacity_factor=1.25):
     """:func:`moe_forward` with the capacity dispatch."""
-    _check(cfg)
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
     top_p, top_i, aux = _route(cfg, p, xf)
@@ -202,13 +231,20 @@ def moe_forward_capacity(cfg, p, x, capacity_factor=1.25):
     return out.reshape(B, S, D).to(x.dtype), aux
 
 
-def moe_forward_sharded(cfg, p, x, rules):
-    """The reference's shard_map path (local routing, psum over the model
-    axis): not ported."""
-    raise NotImplementedError(f"moe_forward_sharded: {_UNPORTED}")
+def moe_forward_sharded(cfg, p, x, par):
+    """The layer with a model axis inside the replica (``models.parallel``
+    ``Par``), the reference's ``moe_forward_sharded`` semantics: the
+    experts' hidden dim (``mlp``) split over the model ranks, their
+    output summed over ``model``, the router and its loss whole on every
+    rank. The dispatch is :func:`moe_forward`'s, with no capacity drops:
+    the reference's mesh-native step runs its model without sharding
+    rules, so its layer is the plain one. The router loss of a data rank
+    covers its rows; the train step's data mean (``Par.data_mean``) makes
+    it the mean over ``data``, the reference's ``pmean``."""
+    return _moe(cfg, p, x, None, par)
 
 
 def moe_forward_ep(cfg, p, x, *, mesh, axis: str = "model",
                    capacity_factor: float | None = None):
     """The reference's expert-parallel all-to-all path: not ported."""
-    raise NotImplementedError(f"moe_forward_ep: {_UNPORTED}")
+    raise NotImplementedError(f"moe_forward_ep: {EP_ITEM}")

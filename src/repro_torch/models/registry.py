@@ -28,8 +28,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.common import apply_norm, init_norm, normal_init, \
-    softcap
+from repro_torch.models.common import apply_norm, init_norm, norm_dims, \
+    normal_init, softcap
 from repro_torch.models.types import ModelConfig
 
 
@@ -60,6 +60,25 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None):
     params["stack"] = tfm.init_stack(cfg, generator, dtype, dev)
     params["ln_f"] = init_norm(cfg, device=dev)
     return params
+
+
+def param_dims(cfg: ModelConfig) -> dict:
+    """The logical dims of every leaf of :func:`init_lm`'s tree, the
+    reference's ``init_lm`` dims: ``embed`` and ``head`` split on
+    ``vocab`` only (never FSDP's ``embed``), the stack's leaves led by
+    ``layers``."""
+    tfm.check_family(cfg)
+    if cfg.family == "audio":
+        d = {"embed": (None, "vocab", None), "head": (None, None, "vocab")}
+    else:
+        d = {"embed": ("vocab", None), "head": (None, "vocab")}
+    if cfg.family == "vlm":
+        d["vis_proj"] = (None, "embed")
+    if cfg.n_meta_tokens:
+        d["meta"] = (None, "embed")
+    d["stack"] = tfm.stack_dims(cfg)
+    d["ln_f"] = norm_dims(cfg)
+    return d
 
 
 def _embed_tokens(cfg, params, tokens):
@@ -191,9 +210,87 @@ def _head_and_xent(cfg, params, x, targets):
     return loss_sum / n_tok, acc_sum / n_tok
 
 
-def lm_loss(cfg: ModelConfig, params, batch):
+def _embed_par(cfg, embed, tokens, par):
+    """The vocab-split embedding (the reference's ``_sharded_gather``):
+    each model rank looks up the tokens inside its block of rows, zero
+    elsewhere, and the rows are summed over ``model``; the backward
+    reaches only the rank's own rows."""
+    V_l = embed.shape[0]
+    lid = tokens.long() - par.tp_index * V_l
+    ok = (lid >= 0) & (lid < V_l)
+    rows = nn.functional.embedding(lid.clamp(0, V_l - 1), embed)
+    rows = torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                        device=rows.device))
+    return par.reduce_from_model(rows)
+
+
+def _xent_par(cfg, head, x, targets, par):
+    """Cross-entropy over a vocab-split head: each model rank's logits
+    cover its block of the vocab; the max and the sum of exponentials,
+    and the target's logit, are summed (the max gathered) over ``model``.
+    Returns (loss_mean, acc_mean); the accuracy takes the first index of
+    the global max, as ``argmax`` does."""
+    logits = softcap((par.copy_to_model(x) @ head).float(),
+                     cfg.final_softcap)                      # (B, S, V_l)
+    V_l = logits.shape[-1]
+    lo = par.tp_index * V_l
+    with torch.no_grad():
+        lmax, lidx = logits.max(-1)
+        both = par.gather_model(torch.stack([lmax, (lidx + lo).float()]))
+        gmax, win = both[:, 0].max(0)        # the first rank at the max
+        first = both[:, 1].gather(0, win[None])[0]
+    sumexp = par.reduce_from_model(torch.exp(logits - gmax[..., None])
+                                   .sum(-1))
+    t = targets.long() - lo
+    ok = (t >= 0) & (t < V_l)
+    gold = torch.gather(logits, -1, t.clamp(0, V_l - 1)[..., None])[..., 0]
+    gold = par.reduce_from_model(torch.where(ok, gold, torch.zeros(
+        (), dtype=gold.dtype, device=gold.device)))
+    loss = torch.mean(torch.log(sumexp) + gmax - gold)
+    acc = torch.mean((first.long() == targets.long()).float())
+    return loss, acc
+
+
+def _lm_loss_par(cfg: ModelConfig, params, batch, par):
+    """:func:`lm_loss` with a data or model axis inside the replica
+    (``models.parallel.Par``): ``params`` are the rank's blocks, ``batch``
+    its rows. The leaves outside the stack are prepared (FSDP's gathers)
+    once; the stack's a layer at a time. With a model axis the vocab is
+    split where it divides (the embedding's masked lookup, the
+    vocab-parallel cross-entropy) and whole elsewhere."""
+    if par.tp > 1 and cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"a model axis (--tp > 1) for the {cfg.family} family: "
+            f"{tfm.TP_REST}")
+    top = {k: v for k, v in params.items() if k != "stack"}
+    top = par.prepare(top, {k: v for k, v in par.places.items()
+                            if k != "stack"})
+    vocab_split = par.splits(cfg.vocab_size)
+    if vocab_split:
+        x = _embed_par(cfg, top["embed"], batch["tokens"], par)
+    else:
+        x = _embed_tokens(cfg, top, batch["tokens"])
+    parts = _prefix(cfg, top, x.shape[0], batch.get("vis_embeds"))
+    if parts:
+        x = torch.cat(parts + [x], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = tfm.apply_stack_train(cfg, params["stack"], x, positions,
+                                   par=par)
+    x = _drop_prefix(cfg, apply_norm(cfg, top["ln_f"], x))
+    if vocab_split:
+        loss, acc = _xent_par(cfg, top["head"], x, batch["targets"], par)
+    else:
+        loss, acc = _head_and_xent(cfg, top, x, batch["targets"])
+    total = loss + cfg.router_aux_coef * aux
+    return total, {"loss": loss, "aux": aux, "acc": acc}
+
+
+def lm_loss(cfg: ModelConfig, params, batch, par=None):
     """Returns (total, {"loss", "aux", "acc"}): total = mean token
-    cross-entropy + router_aux_coef * aux."""
+    cross-entropy + router_aux_coef * aux. ``par`` (``models.parallel``)
+    runs a rank's part of a replica split over data and model axes."""
+    if par is not None:
+        return _lm_loss_par(cfg, params, batch, par)
     x, positions = _assemble_input(cfg, params, batch)
     x, aux = tfm.apply_stack_train(cfg, params["stack"], x, positions)
     x = _drop_prefix(cfg, apply_norm(cfg, params["ln_f"], x))
@@ -334,11 +431,17 @@ class LM(nn.Module):
     def init(self, generator: torch.Generator, device=None):
         return init_lm(self.cfg, generator, device)
 
+    def abstract(self):
+        """(parameter tree on the ``meta`` device, logical dims): shapes
+        and dtypes without allocating, the reference's ``lm.abstract()``.
+        """
+        return init_lm(self.cfg, None, "meta"), param_dims(self.cfg)
+
     def apply(self, params, batch):
         return lm_apply(self.cfg, params, batch)
 
-    def loss(self, params, batch):
-        return lm_loss(self.cfg, params, batch)
+    def loss(self, params, batch, par=None):
+        return lm_loss(self.cfg, params, batch, par)
 
     def init_cache(self, batch_size, seq_len, dtype=None, device=None):
         return lm_init_cache(self.cfg, batch_size, seq_len, dtype, device)

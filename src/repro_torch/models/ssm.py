@@ -173,6 +173,13 @@ def _dot_last(a, b):
 # ===================================================================
 
 
+#: logical dims of an mLSTM cell's leaves (``sharding.rules``), one layer
+MLSTM_DIMS = {"w_up": ("embed", "mlp"), "conv": (None, "mlp"),
+              "w_q": ("mlp", None), "w_k": ("mlp", None),
+              "w_v": ("mlp", None), "w_if": ("mlp", None), "b_if": (None,),
+              "w_out": ("mlp", "embed")}
+
+
 def init_mlstm(cfg, n, gen, dtype, device):
     D, H = cfg.d_model, cfg.n_heads
     d_inner = 2 * D                       # proj_factor 2 (xLSTM default)
@@ -316,6 +323,12 @@ def mlstm_scan(cfg, p, x, state):
 # ===================================================================
 # sLSTM (scalar-memory LSTM with exponential gating + recurrence)
 # ===================================================================
+
+
+#: logical dims of an sLSTM cell's leaves, one layer
+SLSTM_DIMS = {"w_in": ("embed", "mlp"), "r": ("heads", None, None),
+              "b": (None,), "w_out": ("embed", "embed2"),
+              "ff_up": ("embed", "mlp"), "ff_down": ("mlp", "embed")}
 
 
 def init_slstm(cfg, n, gen, dtype, device):
@@ -507,6 +520,13 @@ def slstm_scan(cfg, p, x, state):
 # ===================================================================
 # Mamba2-style selective-SSM heads (Hymba's parallel branch)
 # ===================================================================
+
+
+#: logical dims of a Mamba branch's leaves, one layer
+MAMBA_DIMS = {"w_in": ("embed", "mlp"), "conv": (None, "mlp"),
+              "w_bc": ("mlp", None), "w_dt": ("mlp", "ssm_heads"),
+              "dt_bias": ("ssm_heads",), "A_log": ("ssm_heads",),
+              "D_skip": ("ssm_heads",), "w_out": ("mlp", "embed")}
 
 
 def init_mamba(cfg, n, gen, dtype, device):

@@ -30,19 +30,25 @@ import dataclasses
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
+                                    create_selective_checkpoint_contexts,
+                                    set_checkpoint_early_stop)
 
 from repro_torch.kernels.head_dim import pad_head_dim, padded_head_dim
 from repro_torch.models import ssm
-from repro_torch.models.attention import run_attention
+from repro_torch.models.attention import run_attention, select_kv_heads
 from repro_torch.models.cache import (TRASH_PAGE, attn_cache_len,
                                       cache_positions, init_attn_cache,
                                       init_paged_pool, paged_phys_pages,
                                       update_attn_cache)
 from repro_torch.models.common import (activation, apply_norm, apply_rope,
-                                       init_norm, normal_init)
-from repro_torch.models.moe import init_moe, moe_forward
+                                       init_norm, norm_dims, normal_init)
+from repro_torch.models.moe import (init_moe, moe_dims, moe_forward,
+                                    moe_forward_sharded)
 from repro_torch.models.types import ModelConfig
+
+
+#: what a model axis for the recurrent families waits for
+TP_REST = "ROADMAP.md Queue A 18 (the recurrent families' model axis)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,10 +64,6 @@ def check_family(cfg: ModelConfig) -> None:
             f"family {cfg.family!r} has no LM stack (the port covers the "
             f"dense, MoE, ssm, hybrid, vlm and audio families; convnets "
             f"are models.convnet)")
-    if cfg.expert_parallel:
-        raise NotImplementedError(
-            "expert_parallel=True (the all-to-all MoE path) shards experts "
-            "inside a replica; it waits for ROADMAP.md Queue A 16")
 
 
 def block_pattern(cfg: ModelConfig) -> list[LayerSpec]:
@@ -132,6 +134,49 @@ def _init_layer(cfg: ModelConfig, spec: LayerSpec, n: int, gen, dtype,
     else:
         params["mlp"] = _init_mlp(cfg, n, gen, dtype, device)
     return params
+
+
+ATTN_DIMS = {"wq": ("embed", "heads", "head_dim"),
+             "wk": ("embed", "kv_heads", "head_dim"),
+             "wv": ("embed", "kv_heads", "head_dim"),
+             "wo": ("heads", "head_dim", "embed")}
+MLP_DIMS = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")}
+
+
+def layer_dims(cfg: ModelConfig, spec: LayerSpec) -> dict:
+    """Logical dims of one sub-layer's leaves, unstacked: the tree
+    :func:`_init_layer` draws, as the reference's ``_init_layer`` names
+    them."""
+    if spec.kind in ("mlstm", "slstm"):
+        cell = ssm.MLSTM_DIMS if spec.kind == "mlstm" else ssm.SLSTM_DIMS
+        return {"ln1": norm_dims(cfg), "cell": dict(cell)}
+    d = {"ln1": norm_dims(cfg), "ln2": norm_dims(cfg)}
+    if cfg.name.startswith("gemma2"):
+        d["ln1_post"] = norm_dims(cfg)
+        d["ln2_post"] = norm_dims(cfg)
+    d["attn"] = dict(ATTN_DIMS)
+    if spec.kind == "hybrid":
+        d["mamba"] = dict(ssm.MAMBA_DIMS)
+        d["fuse"] = (None,)
+    if spec.use_moe:
+        d["moe"] = moe_dims(cfg)
+    else:
+        d["mlp"] = dict(MLP_DIMS)
+    return d
+
+
+def _stacked_dims(d):
+    if isinstance(d, dict):
+        return {k: _stacked_dims(v) for k, v in d.items()}
+    return ("layers",) + d
+
+
+def stack_dims(cfg: ModelConfig) -> list:
+    """The stack's dims: one tree per pattern spec, every leaf led by the
+    ``layers`` axis."""
+    return [_stacked_dims(layer_dims(cfg, spec))
+            for spec in block_pattern(cfg)]
 
 
 def _apply_mlp(cfg, p, x):
@@ -221,9 +266,75 @@ def iter_layers(cfg: ModelConfig, stack_params, caches):
 # training path (teacher forcing over the full sequence)
 # ------------------------------------------------------------------
 
-def apply_layer_train(cfg, spec: LayerSpec, p, x, positions):
+def _attn_train_par(cfg, p_attn, h, positions, window, par):
+    """Head-parallel attention over the model ranks: the q projection is
+    column-parallel over the rank's q heads, k/v over its kv heads (or,
+    when the kv heads do not divide and their rule fell through to
+    ``head_dim``, over every kv head from the all-gathered leaves, the
+    rank keeping the heads its q heads read), ``wo`` row-parallel with a
+    sum over ``model``. Where the q heads do not divide either, every
+    attention leaf was all-gathered and the attention runs whole on each
+    rank."""
+    if not par.heads_split:
+        k, v = _project_kv(cfg, p_attn, h, positions)
+        return _attn_call(cfg, p_attn, h, positions, k, v, positions,
+                          window)
+    hm = par.copy_to_model(h)
+    k, v = _project_kv(cfg, p_attn, hm, positions)
+    q = apply_rope(_proj_heads(hm, p_attn["wq"]), positions, cfg.rope_theta)
+    n_q = q.shape[2]
+    if not par.splits(cfg.n_kv_heads):
+        k, v = select_kv_heads(k, v, par.tp_index * n_q, n_q, cfg.n_heads)
+    out = run_attention(cfg.attn_impl, q, k, v, positions, positions,
+                        window=window, logit_softcap=cfg.logit_softcap)
+    H, P, D = p_attn["wo"].shape
+    part = out.reshape(*out.shape[:-2], H * P) @ p_attn["wo"].reshape(H * P,
+                                                                      D)
+    return par.reduce_from_model(part)
+
+
+def _apply_mlp_par(cfg, p, x, par):
+    """The MLP column-then-row over the model ranks (the ``mlp`` dim
+    split), its output summed over ``model``; whole on each rank where
+    the dim does not divide."""
+    if not par.splits(cfg.d_ff):
+        return _apply_mlp(cfg, p, x)
+    return par.reduce_from_model(_apply_mlp(cfg, p, par.copy_to_model(x)))
+
+
+def _apply_layer_train_par(cfg, spec: LayerSpec, p, x, positions, par):
+    """An attention layer of the dense or MoE families with a model axis
+    inside the replica (the layer's leaves already prepared):
+    :func:`_attn_train_par`, then :func:`_apply_mlp_par` or
+    ``moe.moe_forward_sharded``."""
+    h = apply_norm(cfg, p["ln1"], x)
+    attn_out = _attn_train_par(cfg, p["attn"], h, positions, spec.window,
+                               par)
+    if "ln1_post" in p:
+        attn_out = apply_norm(cfg, p["ln1_post"], attn_out)
+    x = x + attn_out
+    h = apply_norm(cfg, p["ln2"], x)
+    if spec.use_moe:
+        mlp_out, aux = moe_forward_sharded(cfg, p["moe"], h, par)
+    else:
+        mlp_out = _apply_mlp_par(cfg, p["mlp"], h, par)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "ln2_post" in p:
+        mlp_out = apply_norm(cfg, p["ln2_post"], mlp_out)
+    return x + mlp_out, aux
+
+
+def apply_layer_train(cfg, spec: LayerSpec, p, x, positions, par=None):
     """Full-sequence layer application. Returns (x, aux) — aux is the MoE
-    router loss, zero for the other families."""
+    router loss, zero for the other families. With a ``par``
+    (``models.parallel``) and a model axis, the attention layers run
+    :func:`_apply_layer_train_par`."""
+    if par is not None and par.tp > 1:
+        if spec.kind != "attn":
+            raise NotImplementedError(
+                f"a model axis (--tp > 1) for the {cfg.family} family's "
+                f"{spec.kind} layers (ssm_heads, conv_out): {TP_REST}")
+        return _apply_layer_train_par(cfg, spec, p, x, positions, par)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.kind in ("mlstm", "slstm"):
         scan, init_state = _CELLS[spec.kind]
@@ -274,7 +385,7 @@ def _dots_context():
     return create_selective_checkpoint_contexts(_dots_policy)
 
 
-def _maybe_remat(cfg: ModelConfig, fn):
+def _maybe_remat(cfg: ModelConfig, fn, rerun_all: bool = False):
     """``remat="full"``: the block's activations are recomputed in the
     backward (``torch.utils.checkpoint``, non-reentrant, so parameters
     captured by the block still get their gradients), as
@@ -288,7 +399,9 @@ def _maybe_remat(cfg: ModelConfig, fn):
     the backward, as ``"full"`` does (the backward sweeps launch once
     each either way). Saved or recomputed, a product gives the same
     bits, so ``"dots"`` and ``"full"`` give the same loss and gradients
-    to the bit."""
+    to the bit. ``rerun_all`` runs the whole forward again, not only as
+    far as the last tensor the backward needs (no early stop): a model
+    axis's sums in the block then run exactly twice a step."""
     if cfg.remat == "none":
         return fn
     if cfg.remat not in ("full", "dots"):
@@ -298,29 +411,47 @@ def _maybe_remat(cfg: ModelConfig, fn):
     def remat(x, layer_params):
         if not torch.is_grad_enabled():
             return fn(x, layer_params)
-        return checkpoint(fn, x, layer_params, use_reentrant=False, **kw)
+        with set_checkpoint_early_stop(not rerun_all):
+            return checkpoint(fn, x, layer_params, use_reentrant=False,
+                              **kw)
     return remat
 
 
-def apply_stack_train(cfg: ModelConfig, stack_params, x, positions):
+def apply_stack_train(cfg: ModelConfig, stack_params, x, positions,
+                      par=None):
     """x: (B, S, D) -> (y, aux_loss_sum). Runs the super-blocks in order
-    (the reference scans them), each under :func:`_maybe_remat`."""
+    (the reference scans them), each under :func:`_maybe_remat`. With a
+    ``par`` the rank's blocks of each layer's leaves are
+    prepared (:meth:`Par.prepare`: FSDP's all-gathers) just before the
+    layer."""
     pattern = block_pattern(cfg)
     n_blocks = cfg.n_layers // len(pattern)
 
     def block(x, layer_params):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for spec, p in zip(pattern, layer_params):
-            x, a = apply_layer_train(cfg, spec, p, x, positions)
+            x, a = apply_layer_train(cfg, spec, p, x, positions, par)
             aux = aux + a
         return x, aux
 
-    block = _maybe_remat(cfg, block)
+    block = _maybe_remat(cfg, block,
+                         rerun_all=par is not None and par.tp > 1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    places = (None if par is None else
+              [_unstack_places(pl) for pl in par.places["stack"]])
     for n in range(n_blocks):
-        x, a = block(x, [_layer(p, n) for p in stack_params])
+        layer = [_layer(p, n) for p in stack_params]
+        if par is not None:
+            layer = [par.prepare(lp, pl) for lp, pl in zip(layer, places)]
+        x, a = block(x, layer)
         aux = aux + a
     return x, aux
+
+
+def _unstack_places(tree):
+    if isinstance(tree, dict):
+        return {k: _unstack_places(v) for k, v in tree.items()}
+    return tree.unstacked()
 
 
 # ------------------------------------------------------------------

@@ -39,14 +39,11 @@ import json
 import os
 import shutil
 import time
-import zlib
 from typing import Any, Callable, Mapping
 
-import numpy as np
-
-from repro_torch.checkpoint.io import (_read_stored, load_pytree,
-                                       load_window_state, save_pytree,
-                                       save_window_state)
+from repro_torch.checkpoint.io import (_read_stored, crc_records,
+                                       load_pytree, load_window_state,
+                                       save_pytree, save_window_state)
 
 MANIFEST = "manifest.json"
 MANIFEST_VERSION = 1
@@ -55,19 +52,9 @@ _STEP_RE = "step_"
 
 def _crc_entries(path: str) -> dict[str, dict]:
     """Per-array integrity records of an npz written by either package,
-    keyed by stored leaf key. The CRC is over the logical bytes (a bf16
-    leaf's bits are the same whether read as bf16 or as uint16) and the
-    dtype is the logical name, so both packages record the same."""
-    keys, dtypes, arrays = _read_stored(path)
-    out: dict[str, dict] = {}
-    for i, (key, name, arr) in enumerate(zip(keys, dtypes, arrays)):
-        a = np.ascontiguousarray(arr)
-        out[f"{i}:{key}"] = {
-            "crc32": zlib.crc32(a.reshape(-1).view(np.uint8)) & 0xFFFFFFFF,
-            "dtype": name,
-            "shape": list(a.shape),
-        }
-    return out
+    keyed by stored leaf key (``checkpoint.io.crc_records`` of what the
+    file holds), as both packages record them."""
+    return crc_records(*_read_stored(path))
 
 
 class CheckpointSession:
@@ -141,23 +128,33 @@ class CheckpointSession:
         os.makedirs(d, exist_ok=True)
         files: dict[str, dict] = {}
 
+        crcs: dict[str, dict] = {}
+
         def record(fname: str) -> None:
+            # the records of the arrays as written (computed from them in
+            # memory: the same bytes a read-back would give, not read
+            # back); ``verify`` reads the file
             path = os.path.join(d, fname)
             files[fname] = {"size": os.path.getsize(path),
-                            "arrays": _crc_entries(path)}
+                            "arrays": crcs.pop(fname)}
+
+        def write(fname, save, *args):
+            crcs[fname] = save(*args)
 
         for name in sorted(trees):
             if not name.isidentifier():
                 raise ValueError(f"tree name {name!r} is not a plain "
                                  f"identifier")
-            path = os.path.join(d, f"{name}.npz")
+            fname = f"{name}.npz"
+            path = os.path.join(d, fname)
             self._write("array_write", path,
-                        lambda p=path, t=trees[name]: save_pytree(p, t))
-            record(f"{name}.npz")
+                        lambda f=fname, p=path, t=trees[name]: write(
+                            f, save_pytree, p, t))
+            record(fname)
         if window is not None:
             path = os.path.join(d, "window.npz")
-            self._write("window_write", path,
-                        lambda: save_window_state(path, window))
+            self._write("window_write", path, lambda: write(
+                "window.npz", save_window_state, path, window))
             record("window.npz")
 
         manifest = {"version": MANIFEST_VERSION, "step": step,
@@ -198,10 +195,13 @@ class CheckpointSession:
     def meta(self, step: int) -> dict:
         return self.manifest(step).get("meta", {})
 
-    def verify(self, step: int) -> tuple[bool, list[str]]:
+    def verify(self, step: int, first: bool = False
+               ) -> tuple[bool, list[str]]:
         """Deep-check one checkpoint: manifest present/parsable, every
         file present with the recorded size, loadable, and every array
-        matching its recorded CRC32/dtype/shape."""
+        matching its recorded CRC32/dtype/shape. With ``first`` the check
+        ends at the first file with a problem (the files after it are
+        not read)."""
         problems: list[str] = []
         d = self.step_dir(step)
         try:
@@ -213,6 +213,8 @@ class CheckpointSession:
                            f"{manifest.get('version')!r} != "
                            f"{MANIFEST_VERSION}"]
         for fname, rec in manifest.get("files", {}).items():
+            if first and problems:
+                break
             path = os.path.join(d, fname)
             if not os.path.exists(path):
                 problems.append(f"{fname}: missing")
@@ -244,9 +246,10 @@ class CheckpointSession:
     def latest_intact(self) -> int | None:
         """Newest step whose checkpoint verifies; ``None`` when no
         intact checkpoint exists. Scans newest-first, so a torn newest
-        save falls back to the previous intact one."""
+        save falls back to the previous intact one; a step is left at
+        its first bad file."""
         for step in reversed(self.steps()):
-            ok, _ = self.verify(step)
+            ok, _ = self.verify(step, first=True)
             if ok:
                 return step
         return None

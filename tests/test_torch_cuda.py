@@ -717,3 +717,86 @@ def test_mesh_native_nccl_route(smoke, tmp_path):
                                                resume=True)), **kw)
     assert resumed["resumed_from"] == 4
     assert resumed["digest"] == out["digest"]
+
+
+@pytest.mark.parametrize("ring", ["f32", "bf16"])
+def test_grouped_window_push_on_card_equals_plain(smoke, ring):
+    """The window-update kernels at the grouped layout's call site, once a
+    group (``packed._push_window_groups``) over a rank's ``(I, seg_len)``
+    slices with one shared set of counters: three pushes on the card
+    against the plain twin on the CPU on the same inputs, bit for bit;
+    one launch a group a push."""
+    from repro_torch.common.packing import (pack_spec_grouped,
+                                            window_aux_buffers,
+                                            window_buffers)
+    from repro_torch.core.hwa import HWAConfig
+    from repro_torch.core.offline import WindowState
+    from repro_torch.kernels import wa_update
+    from repro_torch.launch.sync.packed import _group_bounds, \
+        _push_window_groups
+    g = torch.Generator().manual_seed(5)
+    tree = {"a": torch.zeros(64, 96), "b": torch.zeros(4096),
+            "c": torch.zeros(8, 64, 32)}
+    spec = pack_spec_grouped(tree, placements=[
+        ((0, ("data",)),), (), ((1, ("data",)), (2, ("model",)))],
+        axis_sizes={"data": 2, "model": 2})
+    lspec = spec.local_spec()
+    assert lspec.n_groups == 3
+    cfg = HWAConfig(n_replicas=2, window=3, use_kernels=True)
+    means = [torch.randn(lspec.padded, generator=g) for _ in range(3)]
+
+    def run(dev):
+        r, t = window_buffers(lspec, 3, ring, device=dev)
+        s, c = window_aux_buffers(lspec, 3, ring, device=dev)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        ws = WindowState(ring=r, total=t, count=zero,
+                         next_idx=zero.clone(), window=3, spec=spec,
+                         comp=c, scales=s)
+        cycle, avgs = zero.clone(), []
+        for m in means:
+            ws, avg, cycle = _push_window_groups(
+                cfg, _group_bounds(lspec), ws, m.to(dev), cycle)
+            avgs.append(avg.cpu())
+        return ws, avgs
+    counter = ("WINDOW_UPDATE_LAUNCHES" if ring == "f32"
+               else "WINDOW_UPDATE_C_LAUNCHES")
+    before = getattr(wa_update, counter)
+    card, card_avgs = run(torch.device("cuda"))
+    torch.cuda.synchronize()
+    assert getattr(wa_update, counter) - before == 3 * lspec.n_groups
+    cpu, cpu_avgs = run(torch.device("cpu"))
+
+    def bits(t):
+        return t.cpu().reshape(-1).view(torch.uint8)
+    for a, b in zip(card_avgs, cpu_avgs):
+        assert torch.equal(bits(a), bits(b))
+    for f in ("ring", "total", "comp"):
+        x, y = getattr(card, f), getattr(cpu, f)
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert all(torch.equal(bits(p), bits(q)) for p, q in zip(x, y))
+    assert int(card.count) == int(cpu.count) == 3
+
+
+def test_mesh_native_grouped_run_on_card(smoke):
+    """K 2 × data 2 × model 2 with FSDP (8 ranks on the card, ``gloo``),
+    the smoke granite-3-2b: the grouped layout, the window update once a
+    group a sync on every rank, every W̄ 0 ULP from its oracle and W̿ 0
+    ULP from the stacked per-leaf ``hwa_sync`` on the host, the calls'
+    collectives those their bundles declare."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import (contract_violations, mesh_args,
+                                          run_mesh_native)
+    cfg = get_smoke_config("granite-3-2b").with_(attn_impl="flash_jnp")
+    out = run_mesh_native(mesh_args(
+        k=2, tp=2, fsdp=True, world_size=8, steps=4, sync_period=2,
+        window=3, batch_size=4, seq_len=64, device="cuda"), cfg=cfg,
+        probe="host", with_state=False)
+    n = out["layout"]["n_groups"]
+    assert out["layout"]["grouped"] and n >= 2
+    assert contract_violations(out) == []
+    for rank in out["ranks"]:
+        assert rank["launches"]["wa_window_update"] == 2 * n
+        assert rank["declared_launches"] == {"wa_window_update": 2 * n}
+    assert all(h["probe"]["mean_ulps"] == 0 and h["probe"]["restarts_equal"]
+               and h["probe"]["wa_host_ulps"] == 0 for h in out["history"])

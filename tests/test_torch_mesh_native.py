@@ -195,15 +195,17 @@ def test_launcher_cli_and_refusals(tmp_path, capfd):
     assert rec["syncs"] == 2 and "_state" not in rec
     assert len(rec["losses"]) == 4 and len(rec["losses"][0]) == 2
     for argv, err in [
-            (["--fsdp"], NotImplementedError),
-            (["--tp", "2"], NotImplementedError),
+            (["--tp", "2", "--arch", "xlstm-125m"], NotImplementedError),
+            (["--tp", "2", "--attn-impl", "flash_pallas"], SystemExit),
+            (["--tp", "2", "--world-size", "6"], SystemExit),
             (["--comms-dtype", "bf16"], SystemExit),
             (["--sync-tree", "two-level", "--k", "3"], SystemExit),
             (["--inject-nan", "2:5"], SystemExit),
             (["--resume"], SystemExit),
             (["--sync-tree", "two-level", "--k", "4", "--resilient",
               "--comms-dtype", "fp8"], SystemExit)]:
-        with pytest.raises(err, match="A 16|two-level|K divisible|out of "
+        with pytest.raises(err, match="A 18|--tp must stay 1|divisible by "
+                                      "K×tp|two-level|K divisible|out of "
                                       "range|--resume|resilient"):
             launcher.main(["--device", "cpu", "--mesh-native"] + argv)
     for argv in (["--inject-nan", "2:1"], ["--wa-dtype", "bf16"]):

@@ -198,15 +198,21 @@ def test_moe_launchers_on_cpu(capsys):
 
 
 def test_moe_sharded_paths_raise():
-    """The shard_map paths and ``expert_parallel`` need a device mesh
-    inside a replica (ROADMAP.md Queue A 16): they raise, naming it."""
+    """``expert_parallel=True`` selects nothing where no sharding rules
+    apply, as in the reference (its mesh-native path included): the
+    model builds and its layer is :func:`moe_forward`'s, bit for bit. The
+    expert-parallel all-to-all path still raises, naming its ROADMAP.md
+    item."""
     cfg = get_smoke_config(ARCHS[0])
-    with pytest.raises(NotImplementedError, match="Queue A 16"):
-        build_model(cfg.with_(expert_parallel=True))
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="Queue A 16"):
-        moe.moe_forward(cfg.with_(expert_parallel=True), {}, x)
-    with pytest.raises(NotImplementedError, match="Queue A 16"):
-        moe.moe_forward_sharded(cfg, {}, x, rules=None)
-    with pytest.raises(NotImplementedError, match="Queue A 16"):
+    ep = cfg.with_(expert_parallel=True)
+    build_model(ep)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                   device="cpu")
+    p = {k: v[0] for k, v in params["stack"][0]["moe"].items()}
+    x = torch.randn(2, 4, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    want, aux = moe.moe_forward(cfg, p, x)
+    got, aux_ep = moe.moe_forward(ep, p, x)
+    assert torch.equal(got, want) and torch.equal(aux_ep, aux)
+    with pytest.raises(NotImplementedError, match="Queue A 17"):
         moe.moe_forward_ep(cfg, {}, x, mesh=None)
