@@ -264,6 +264,26 @@ raising on any failure:
                ``[mesh16]`` lines give the layouts, rank 0's set-up,
                steps and probes, each sync's ms and bytes a level, and
                each rank's peak device memory.
+17. model axis — right after phase 16: a model axis for the recurrent
+               families and the expert-parallel MoE, K 2 × model 2 on
+               ``gloo``, 4 steps, H 2, I 2, 4 × 512 tokens a replica,
+               bf16, in one spawn (``phase_mesh_model_axis``): 17a
+               xlstm-125m whole (12 layers; its 4 heads 2 a rank, the
+               vocab split), 17b hymba-1.5b cut to 2 layers (its 25
+               heads and ssm heads divide by no 2: attention and Mamba
+               whole on each rank from gathered leaves), 17c
+               granite-moe-1b-a400m cut to 2 layers with its experts
+               split over ``model`` (16 a rank, capacity 1.25, the
+               all-to-all exchange; the share of pairs dropped printed).
+               Gates: every W̄ 0 ULP, the train steps exactly their
+               declared collectives a level and none on a replica level,
+               the window update launched exactly, the loss finite, every
+               sync's audit verdict (the audit also gates phases 15-16's
+               syncs). 17d, beside it: the smoke configs in f32 at tp 2
+               within 1e-5 of one rank a replica after 4 steps, and the EP
+               layer within 1e-3 of the TP layer at capacity E/k.
+               ``[mesh17]`` lines give each sync's ms and bytes a level,
+               each rank's peak memory and the train steps' collectives.
 6. yardstick — each kernel timed at its main path's shapes (CUDA-graph
                replay between CUDA events: device time, cold L2), beside
                its plain version, a library call where one exists, and
@@ -4102,18 +4122,28 @@ def _nonzero(rows):
             for lvl, row in rows.items()}
 
 
+def launcher_violations(out) -> list[str]:
+    """A run's contract and audit violations
+    (``launch.train.contract_violations``, ``audit_violations``)."""
+    from repro_torch.launch.train import audit_violations, \
+        contract_violations
+    return contract_violations(out) + audit_violations(out)
+
+
 def _mesh_checks(label, out, *, exact=True, cuda=True):
     """Every rank's train steps and syncs issue exactly the collectives
     their bundles declare (``launch.train.contract_violations``: a train
     step never crosses a replica axis; with one rank a replica it issues
-    none), and on the card launch exactly the kernels the bundles
+    none), every sync passes the reference's audit
+    (``launch.train.audit_violations``: flat, grouped, the tree's inner
+    and outer levels), and on the card launch exactly the kernels the
+    bundles
     declare; every rank restarted from the same W̄; with ``exact`` every
     W̄ 0 ULP from its core.online oracle."""
-    from repro_torch.launch.train import contract_violations
-    bad = contract_violations(out)
+    bad = launcher_violations(out)
     if bad:
-        raise AssertionError(f"{label}: collectives off their contracts: "
-                             f"{bad}")
+        raise AssertionError(f"{label}: collectives off their contracts "
+                             f"or audits: {bad}")
     for rank in out["ranks"]:
         want = rank["declared_launches"]
         got = {k: v for k, v in rank["launches"].items() if v}
@@ -4359,19 +4389,19 @@ PAR_CKPT_EVERY = 4
 
 
 
-def _par_report(label, out, cfg, beside=None):
-    """A phase-16 run's report (``_mesh_report``) with its layout and each
-    rank's peak device memory."""
+def _par_report(label, out, cfg, beside=None, tag="mesh16"):
+    """A phase-16 or -17 run's report (``_mesh_report``) with its layout
+    and each rank's peak device memory."""
     lay = out["layout"]
     t = out["ranks"][0]["times"]
-    print(f"[mesh16] {label}: layout "
+    print(f"[{tag}] {label}: layout "
           f"{'grouped' if lay['grouped'] else 'one range'}, "
           f"{lay['n_groups']} group(s) of {lay['shards']} segment(s), "
           f"{lay['padded']} elements, {lay['local_padded']} a rank; rank "
           f"0: set-up {t['init_s']:.1f} s, train steps "
           f"{[round(x, 1) for x in t['step_ms']]} ms, probes "
           f"{t['probe_s']:.1f} s")
-    res = _mesh_report(label, out, cfg, tag="mesh16", beside=beside)
+    res = _mesh_report(label, out, cfg, tag=tag, beside=beside)
     res["layout"] = {k: v for k, v in lay.items() if k != "json"}
     res["times"] = t
     return res
@@ -4527,6 +4557,192 @@ def phase_mesh_parallel(device):
     print(f"[mesh16] phase 16 in {t2 - t0:.1f} s (16c {t1 - t0:.1f} s, "
           f"16a, 16b and the resume side by side {t2 - t1:.1f} s) | "
           f"{CARD['line']}")
+    return res
+
+
+# ------------------------ 17. the recurrent model axis, the EP MoE
+#: phase 17: K 2 × model 2 on the one card, 4 steps, H 2, I 2, 4 × 512
+#: tokens a replica, bf16: xlstm-125m whole (17a), hymba-1.5b cut to 2
+#: layers (17b, ``flash_jnp``: tp > 1 refuses the flash kernels), and
+#: granite-moe-1b-a400m cut to 2 layers with its experts split over
+#: ``model`` (17c, 16 a rank, capacity 1.25); the recurrent models at lr
+#: 0.03 (their smoke configs are chaotic at 0.3)
+REC_TP_RUN = dict(MESH_RUN, steps=4, k=2, tp=2)
+REC_TP_LR = 0.03
+REC_TP_LAYERS = {"hymba-1.5b": 2, "granite-moe-1b-a400m": 2}
+#: 17d: the smoke configs in f32 on the card: the tp 2 steps against the
+#: single-rank steps (1e-5), the EP layer against the TP layer at a
+#: capacity that drops nothing (the reference's 1e-3, spmd_check.py:57)
+REC_TP_SMOKE_TOL = 1e-5
+EP_TP_TOL = 1e-3
+#: 17d's hymba with heads that do not divide by tp 2, as hymba-1.5b's 25
+#: do not: its Mamba branch and attention run whole on each rank
+REC_TP_ODD = dict(d_model=48, n_heads=3, n_kv_heads=1, ssm_heads=3)
+
+
+def _rec_tp_cfgs():
+    """17a-c's configs (the smoke configs when MESH_FULL is off, as the
+    CPU rehearsal runs them)."""
+    from repro_torch.configs import get_smoke_config
+    out = []
+    for arch in ("xlstm-125m", "hymba-1.5b", "granite-moe-1b-a400m"):
+        cfg = get_config(arch) if MESH_FULL else get_smoke_config(arch)
+        if MESH_FULL and arch in REC_TP_LAYERS:
+            cfg = cfg.with_(n_layers=REC_TP_LAYERS[arch])
+        if cfg.family != "ssm":
+            cfg = cfg.with_(attn_impl="flash_jnp")
+        if cfg.family == "moe":
+            cfg = cfg.with_(expert_parallel=True, moe_capacity_factor=1.25)
+        out.append(cfg)
+    return out
+
+
+def _rec_smoke_cfgs():
+    """17d's smoke configs: xlstm-125m's, hymba-1.5b's and hymba-1.5b's
+    with 3 heads (:data:`REC_TP_ODD`)."""
+    from repro_torch.configs import get_smoke_config
+    hymba = get_smoke_config("hymba-1.5b")
+    return [get_smoke_config("xlstm-125m"), hymba, hymba.with_(**REC_TP_ODD)]
+
+
+def _ep_layer_case():
+    """17d's EP-against-TP case: granite-moe's smoke layer in f32 at
+    capacity E/k (no pair dropped), 4 × 64 tokens."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("granite-moe-1b-a400m")
+    p = {k: v[0] for k, v in moe.init_moe(
+        cfg, 1, torch.Generator().manual_seed(17), torch.float32,
+        "cpu").items()}
+    g = torch.Generator().manual_seed(18)
+    x = torch.randn((4, 64, cfg.d_model), generator=g)
+    return {"cfg": cfg, "p": p, "x": x, "g": torch.randn(x.shape, generator=g),
+            "cf": cfg.n_experts / cfg.top_k, "coef": 0.0, "tp_layer": True}
+
+
+def phase_mesh_model_axis(device):
+    """Phase 17: a model axis for the recurrent families and the
+    expert-parallel MoE (``--mesh-native --tp 2``; the EP layer through
+    ``run_mesh_native(expert_parallel=True)``), on ``gloo`` on the one
+    card. One spawn of K 2 × model 2 runs 17a xlstm-125m (12 layers),
+    17b hymba-1.5b (2 layers) and 17c granite-moe-1b-a400m (2 layers,
+    experts split) at full width, then 17d's smoke-width f32 runs of
+    xlstm, hymba and hymba with 3 heads (whose heads do not divide, as
+    hymba-1.5b's do not), each probed against the host's per-leaf
+    reference; beside it, 17d's single-rank runs (K 2 × model 1)
+    and the EP layer against the TP layer (data 2 × model 2,
+    ``moe.ep_cases``). Gates for 17a-c: every W̄ 0 ULP from its oracle,
+    the train steps exactly the collectives they declare a level (none on
+    a replica level), the window update launched exactly, the loss
+    finite, every sync's audit verdict; 17d: the tp 2 runs' replicas, W̿
+    and losses within 1e-5 of the single-rank runs', the EP layer within
+    1e-3 of the TP layer."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.train import mesh_args, run_mesh_native
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    _free(dev)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    base = dict(REC_TP_RUN, device=dev.type)
+    cfgs = _rec_tp_cfgs()
+    smoke = _rec_smoke_cfgs()
+    small = dict(base, seq_len=16, lr=REC_TP_LR)
+    runs = [mesh_args(**dict(base, arch=c.name, lr=REC_TP_LR
+                             if c.family != "moe" else base["lr"]))
+            for c in cfgs]
+    runs += [mesh_args(**dict(small, arch=c.name)) for c in smoke]
+    _reset_counts()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        main = pool.submit(
+            run_mesh_native, runs, cfg=cfgs + smoke,
+            probe=[True] * 3 + ["host"] * len(smoke),
+            with_state=[False] * 3 + [True] * len(smoke),
+            expert_parallel=[False, False, True] + [False] * len(smoke))
+        single = pool.submit(
+            run_mesh_native, [mesh_args(**dict(small, arch=c.name, tp=1))
+                              for c in smoke], cfg=smoke, with_state=True)
+        layer = pool.submit(spawn_ranks, {"data": 2, "model": 2},
+                            "repro_torch.models.moe:ep_cases",
+                            [_ep_layer_case()], device=device,
+                            levels=[("data",), ("model",)])
+        outs, ones, ranks = main.result(), single.result(), layer.result()
+    t1 = time.perf_counter()
+    if any(_counts().values()):
+        raise AssertionError(f"17: this process launched {_counts()}")
+    res = {}
+    for label, key, out, cfg in zip(("17a", "17b", "17c"),
+                                    ("xlstm_tp", "hymba_tp", "ep"),
+                                    outs[:3], cfgs):
+        if out["mesh"] != {"replica": 2, "model": 2}:
+            raise AssertionError(f"{label}: mesh {out['mesh']}")
+        _mesh_checks(label, out, cuda=cuda)
+        _par_probes(label, out, host=False)
+        if not (np.isfinite(out["final_loss"]) and out["wa_finite"]):
+            raise AssertionError(f"{label}: loss {out['final_loss']}, W̿ "
+                                 f"finite {out['wa_finite']}")
+        res[key] = _par_report(f"{label} {cfg.name}", out, cfg,
+                               beside="17d", tag="mesh17")
+        res[key]["train_declared"] = out["ranks"][0]["train_declared"]
+        print(f"[mesh17] {label}: a train step's collectives (rank 0) "
+              f"{out['ranks'][0]['train_declared']}, audit "
+              f"{[s['audit']['replica'] for s in out['ranks'][0]['syncs']]}"
+              f" (replica level), assembly-free "
+              f"{all(s['audit']['assembly_free'] for s in out['ranks'][0]['syncs'])}")
+    ep = outs[2]
+    tally = [r["ep_pairs"] for r in ep["ranks"]]
+    pairs = sum(t["pairs"] for t in tally)
+    dropped = sum(t["dropped"] for t in tally)
+    fwd = 1 if cfgs[2].remat == "none" else 2
+    a2a = ep["ranks"][0]["train_declared"]["model"]["all_to_all"]
+    want = cfgs[2].n_layers * (2 * fwd + 2)
+    if a2a != want or ep["ranks"][0]["train_collectives"]["model"][
+            "all_to_all"] != want * REC_TP_RUN["steps"]:
+        raise AssertionError(f"17c: {a2a} all-to-alls a step, want {want}")
+    res["ep"].update(pairs=pairs, dropped=dropped, all_to_all=a2a)
+    print(f"[mesh17] 17c: {cfgs[2].n_experts // 2} experts a rank, "
+          f"capacity {cfgs[2].moe_capacity_factor}: {dropped} of {pairs} "
+          f"pairs dropped ({dropped / max(pairs, 1):.4%}, every forward "
+          f"counted); all-to-alls a layer a step: {2 * fwd} forward "
+          f"({'twice ' if fwd == 2 else ''}dispatch and return), 2 "
+          f"backward")
+    # 17d: tp 2 against one rank a replica, at smoke width in f32
+    worst = {}
+    for c, got, ref in zip(smoke, outs[3:], ones):
+        name = c.name + ("" if c.n_heads % 2 == 0
+                         else f" ({c.n_heads} heads)")
+        for o, lbl in ((got, "tp 2"), (ref, "tp 1")):
+            if launcher_violations(o):
+                raise AssertionError(f"17d {name} {lbl}: "
+                                     f"{launcher_violations(o)}")
+        _par_probes(f"17d {name}", got, host=True)
+        d = max(float(np.max(np.abs(np.asarray(got["losses"])
+                                    - np.asarray(ref["losses"])))),
+                max(float((a.float() - b.float()).abs().max())
+                    for k in ("inner", "wa") for a, b in zip(
+                        tree_leaves(got["_state"][k]),
+                        tree_leaves(ref["_state"][k]))))
+        worst[name] = d
+        print(f"[mesh17] 17d {name} smoke f32: K 2 × model 2 against K 2 "
+              f"× model 1 after {small['steps']} steps: max |d| {d:.3e} "
+              f"(losses, replicas, W̿; limit {REC_TP_SMOKE_TOL})")
+        if not d <= REC_TP_SMOKE_TOL:
+            raise AssertionError(f"17d {name}: tp 2 off the single-rank "
+                                 f"run by {d}")
+    lay = [r["result"][0] for r in ranks]
+    ep_d = max(float((r["out"] - r["out_tp"]).abs().max()) for r in lay)
+    kept = all(bool(r["keep"].all()) for r in lay)
+    print(f"[mesh17] 17d EP layer against the TP layer (granite-moe smoke, "
+          f"f32, capacity E/k, all pairs kept {kept}): max |d| {ep_d:.3e} "
+          f"(limit {EP_TP_TOL}); {lay[0]['collectives']['model']} a rank")
+    if not (kept and ep_d <= EP_TP_TOL):
+        raise AssertionError(f"17d: the EP layer off the TP layer by {ep_d}")
+    res["smoke"] = {"tp_vs_single": worst, "ep_vs_tp": ep_d}
+    print(f"[mesh17] phase 17 in {t1 - t0:.1f} s (one spawn of 17a-c and "
+          f"17d's tp 2 runs, beside 17d's single-rank runs and layer "
+          f"check) | {CARD['line']}")
     return res
 
 
@@ -5278,6 +5494,8 @@ def main() -> int:
     stamp("phase 15")
     par = phase_mesh_parallel(device)
     stamp("phase 16")
+    model_axis = phase_mesh_model_axis(device)
+    stamp("phase 17")
     serve, eng = phase_serve(device)
     phase_trace(device, eng, serve)
     del eng                  # its timing wrappers hold it in a cycle: collect
@@ -5384,7 +5602,11 @@ def main() -> int:
              "mesh_tp": par["tp"]["launches"],
              "mesh_fsdp": {k: par["fsdp"]["launches"][k]
                            + par["fsdp"]["smoke_launches"][k]
-                           for k in _counts()}}
+                           for k in _counts()},
+             # phase 17: every rank's launches, summed over the ranks
+             "mesh_xlstm_tp": model_axis["xlstm_tp"]["launches"],
+             "mesh_hymba_tp": model_axis["hymba_tp"]["launches"],
+             "mesh_ep": model_axis["ep"]["launches"]}
     for e in entries:
         by_path = e.setdefault("launches_by_path", {"train": e["launches"]})
         for path, counts in paths.items():

@@ -2,9 +2,11 @@
 
 24L d_model=1024 16H (GQA kv=8) d_ff=512 vocab=49155, MoE 32e top-8.
 The reference also runs its expert-parallel all-to-all variant
-(``expert_parallel=True``) in its GSPMD builders; its mesh-native path,
-and the port, ignore the flag (the all-to-all path is ROADMAP.md Queue
-A 17).
+(``expert_parallel=True``) in its rules-carrying builders; its
+mesh-native path ignores the flag. So does the port's command line; a
+train step built with ``expert_parallel`` (``launch.sync.bundles
+.replica_layout``, ``launch.train.run_mesh_native(expert_parallel=True)``)
+splits the experts over the model ranks and runs ``moe.moe_forward_ep``.
 """
 from repro_torch.models.types import ModelConfig
 

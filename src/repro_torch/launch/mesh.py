@@ -34,15 +34,19 @@ name (the level's axes joined by ``+``: ``replica``, ``pod``, ``data``,
 ``model``, ``data+model``, or a label such as ``probe`` or
 ``checkpoint``) and op: its count and the bytes
 this rank put in (an all-reduce's tensor, an all-gather's or a gather's
-one contribution), and ``staged_bytes``, the bytes copied to the host
-and back for ``gloo``. Nothing else touches it, as nothing but a
-kernel's wrapper touches its launch count.
+one contribution, an all-to-all's whole send buffer), and
+``staged_bytes``, the bytes copied to the host and back for ``gloo``.
+Nothing else touches it, as nothing but a kernel's wrapper touches its
+launch count. Inside :func:`record_groups` the wrappers also log the
+rank group each collective ran on (``launch.sync.bundles
+.sync_collective_audit`` reads it).
 
 :func:`spawn_ranks` starts the K processes (``spawn``), runs a named
 function in each with its mesh and collects what each returns.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import importlib
@@ -63,7 +67,32 @@ import torch.distributed as dist
 #: "staged_bytes": int}
 LEDGER: dict[str, dict[str, int]] = {}
 
-_OPS = ("all_reduce", "all_gather", "gather", "barrier")
+_OPS = ("all_reduce", "all_gather", "all_to_all", "gather", "barrier")
+
+
+#: while :func:`record_groups` is open: ``(op, ranks)`` a collective this
+#: process ran, ``ranks`` the group it ran on, sorted
+GROUPS: list | None = None
+
+
+@contextlib.contextmanager
+def record_groups():
+    """Log the rank group of every collective this process runs inside
+    the block into the list it yields: one entry a collective, except
+    that a hypercube chain of two-way all-reduces (``ReplicaMesh.psum``)
+    is one all-reduce over the ranks its rounds joined, so a chain cut
+    short names fewer ranks than its level."""
+    global GROUPS
+    outer, GROUPS = GROUPS, []
+    try:
+        yield GROUPS
+    finally:
+        GROUPS = outer
+
+
+def _log_group(op: str, ranks) -> None:
+    if GROUPS is not None:
+        GROUPS.append((op, sorted(ranks)))
 
 
 def ledger_snapshot() -> dict[str, dict[str, int]]:
@@ -86,9 +115,12 @@ def level_name(axes) -> str:
 
 
 def _tally(level: str, op: str, nbytes: int, staged: int) -> None:
+    # a level's row lists every op but the exchange, which only the
+    # expert-parallel MoE issues: its key appears where it was used
     row = LEDGER.setdefault(level, dict.fromkeys(
-        _OPS + ("bytes", "staged_bytes"), 0))
-    row[op] += 1
+        tuple(o for o in _OPS if o != "all_to_all")
+        + ("bytes", "staged_bytes"), 0))
+    row[op] = row.get(op, 0) + 1
     row["bytes"] += nbytes
     row["staged_bytes"] += staged
 
@@ -147,29 +179,19 @@ class _Level:
     """This rank's process groups for one level."""
     axes: tuple[str, ...]
     ranks: list[int]          # the level group holding this rank, sorted
-    rounds: list[Any]         # two-way groups of the hypercube chain
+    rounds: list[Any]         # (two-way group, its ranks): the chain
     group: Any                # the whole level group (None: one rank)
 
 
-class ReplicaMesh:
-    """One rank's view of the replica mesh: ``shape`` (axis -> size, in
-    layout order), its rank, backend and device, and its process groups
-    for ``levels`` (axis tuples) and the whole world. Construct it in
-    every rank, in the same order: group creation is collective."""
+class MeshLayout:
+    """The rank layout of a mesh, no process group: ``shape`` (axis ->
+    size, in layout order), ranks laid out row-major over it. ``rank`` is
+    the rank :meth:`coords` reads by default."""
 
-    def __init__(self, shape: dict[str, int], rank: int, backend: str,
-                 device: torch.device, levels=(), timeout: float = 60.0):
+    def __init__(self, shape: dict[str, int], rank: int = 0):
         self.shape = dict(shape)
         self.world = math.prod(self.shape.values())
         self.rank = rank
-        self.backend = backend
-        self.device = torch.device(device)
-        self._timeout = datetime.timedelta(seconds=timeout)
-        self._levels: dict[tuple[str, ...], _Level] = {}
-        for axes in (tuple(self.shape),) + tuple(levels):
-            self._build(tuple(axes))
-
-    # ------------------------------------------------------ layout
 
     def coords(self, rank: int | None = None) -> dict[str, int]:
         r = self.rank if rank is None else rank
@@ -190,6 +212,23 @@ class ReplicaMesh:
             key = tuple(c[a] for a in self.shape if a not in axes)
             groups.setdefault(key, []).append(r)
         return list(groups.values())
+
+
+class ReplicaMesh(MeshLayout):
+    """One rank's view of the replica mesh: its layout
+    (:class:`MeshLayout`), rank, backend and device, and its process
+    groups for ``levels`` (axis tuples) and the whole world. Construct it
+    in every rank, in the same order: group creation is collective."""
+
+    def __init__(self, shape: dict[str, int], rank: int, backend: str,
+                 device: torch.device, levels=(), timeout: float = 60.0):
+        super().__init__(shape, rank)
+        self.backend = backend
+        self.device = torch.device(device)
+        self._timeout = datetime.timedelta(seconds=timeout)
+        self._levels: dict[tuple[str, ...], _Level] = {}
+        for axes in (tuple(self.shape),) + tuple(levels):
+            self._build(tuple(axes))
 
     def _new_group(self, ranks):
         return dist.new_group(sorted(ranks), timeout=self._timeout)
@@ -216,7 +255,7 @@ class ReplicaMesh:
                             pair = [p[i], p[i | (1 << j)]]
                             g = self._new_group(pair)
                             if self.rank in pair:
-                                rounds.append(g)
+                                rounds.append((g, pair))
         self._levels[axes] = _Level(axes=axes, ranks=mine, rounds=rounds,
                                     group=whole)
 
@@ -230,16 +269,21 @@ class ReplicaMesh:
     # ------------------------------------------------- collectives
 
     def _collective(self, op: str, level: str, x: torch.Tensor,
-                    run: Callable[[torch.Tensor], Any], out_device=None):
+                    run: Callable[[torch.Tensor], Any], out_device=None,
+                    ranks=None):
         """Run ``run`` on the tensor the backend takes for ``x``: ``x``
         itself, or for ``gloo`` and a CUDA tensor a host copy (the one
-        place the port stages through host memory). Tallies the ledger.
-        Returns what ``run`` returns, on ``out_device`` (``x``'s device
-        unless given); a reduction in place writes ``x`` itself."""
+        place the port stages through host memory). Tallies the ledger,
+        and logs ``ranks``, the group ``run`` uses (:func:`record_groups`;
+        None: the caller logs). Returns what ``run`` returns, on
+        ``out_device`` (``x``'s device unless given); a reduction in place
+        writes ``x`` itself."""
         x = x.contiguous()
         staged = self.backend == "gloo" and x.is_cuda
         nbytes = x.numel() * x.element_size()
         _tally(level, op, nbytes, 2 * nbytes if staged else 0)
+        if ranks is not None:
+            _log_group(op, ranks)
         dst = x.device if out_device is None else torch.device(out_device)
         if not staged:
             out = run(x)
@@ -266,11 +310,18 @@ class ReplicaMesh:
             return halving_sum_axis0(self.all_gather(x, axes))
         shape = x.shape
         flat = x.reshape(-1)
-        for g in lv.rounds:
+        # the ranks the chain's rounds join: a round's partner differs
+        # from this rank in one bit of its level index, the same offset
+        # for every rank joined so far
+        joined = [self.rank]
+        for g, pair in lv.rounds:
             def reduce(t, g=g):
                 dist.all_reduce(t, group=g)
                 return t
             flat = self._collective("all_reduce", name, flat, reduce)
+            step = sum(pair) - 2 * self.rank
+            joined += [r + step for r in joined]
+        _log_group("all_reduce", joined)
         return flat.reshape(shape)
 
     def all_gather(self, x: torch.Tensor, axes, level: str | None = None
@@ -286,7 +337,29 @@ class ReplicaMesh:
             outs = [torch.empty_like(t) for _ in lv.ranks]
             dist.all_gather(outs, t, group=lv.group)
             return torch.stack(outs)
-        return self._collective("all_gather", name, x, gather)
+        return self._collective("all_gather", name, x, gather,
+                                ranks=lv.ranks)
+
+    def all_to_all(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """The exchange over a level: ``x`` is ``(n, ...)``, one block a
+        rank of the level in rank order; the result is ``(n, ...)`` with
+        block i the block rank i sent this rank (its ``x[index]``). Its
+        own transpose: the backward of an exchange is the same
+        exchange."""
+        lv = self.level(axes)
+        n = len(lv.ranks)
+        if x.shape[0] != n:
+            raise ValueError(f"all_to_all over {n} ranks needs a leading "
+                             f"dim of {n}, got {tuple(x.shape)}")
+        if n == 1:
+            return x.clone()
+
+        def exchange(t):
+            out = torch.empty_like(t)
+            dist.all_to_all_single(out, t, group=lv.group)
+            return out
+        return self._collective("all_to_all", level_name(lv.axes), x,
+                                exchange, ranks=lv.ranks)
 
     def gather(self, x: torch.Tensor, level: str, dst: int = 0,
                out_device=None, axes=None) -> torch.Tensor | None:
@@ -308,11 +381,13 @@ class ReplicaMesh:
             dist.gather(t, outs, dst=dst,
                         group=None if lv is None else lv.group)
             return torch.stack(outs) if outs is not None else None
-        return self._collective("gather", level, x, gather, out_device)
+        return self._collective("gather", level, x, gather, out_device,
+                                ranks=ranks)
 
     def barrier(self, level: str) -> None:
         if self.world > 1:
             _tally(level, "barrier", 0, 0)
+            _log_group("barrier", range(self.world))
             dist.barrier()
 
 

@@ -34,7 +34,9 @@ outside the sync.
 :func:`sync_collective_budget` declares what a sync issues, per level
 (``launch.mesh.LEDGER``'s names). ``launch.train.mesh_rank`` records
 each call's contract beside its ledger delta and launch counts, and the
-tests and ``chip_smoke.py`` hold the counts to it.
+tests and ``chip_smoke.py`` hold the counts to it;
+:func:`sync_collective_audit` gives each sync the reference's per-level
+verdicts over the rank groups its collectives ran on.
 """
 from __future__ import annotations
 
@@ -63,7 +65,8 @@ class StepBundle:
     layout its window state lives in; None for the train step) and
     ``contract`` (``launches``: kernel -> launches a call on the card,
     None where not exact; ``collectives``: level -> {op: count} a
-    call)."""
+    call; the train step's a function of the batch's sequence
+    length)."""
     fn: Callable
     pack_spec: Any = None
     contract: dict = dataclasses.field(default_factory=dict)
@@ -134,17 +137,32 @@ def inner_axes(mesh) -> tuple[str, ...]:
 
 
 def replica_layout(lm, mesh, topology: SyncTopology, *, fsdp=False,
-                   params=None) -> ReplicaLayout:
+                   params=None, expert_parallel: bool = False
+                   ) -> ReplicaLayout:
     """The reference's sharding of a replica over the rank mesh
-    (``make_tp_rules(mesh, replica_axis=..., fsdp=...)``, no
-    ``expert_parallel``), each leaf's place and the layout the chooser
-    picks, from ``lm.abstract()``. With no ``lm`` (a sync on its own) the
-    replica is whole on each rank: the layout of ``params``."""
+    (``make_tp_rules(mesh, replica_axis=..., fsdp=...,
+    expert_parallel=...)``), each leaf's place and the layout the chooser
+    picks, from ``lm.abstract()``. ``expert_parallel`` (the reference's
+    rules-carrying builders, on a config with ``expert_parallel=True``)
+    splits the MoE experts over ``model``, whose layer is then
+    ``moe.moe_forward_ep``; it needs a model axis that divides the
+    experts. With no ``lm`` (a sync on its own) the replica is whole on
+    each rank: the layout of ``params``."""
     from repro_torch.common.pytree import tree_flatten
     from repro_torch.models.parallel import places_tree
     from repro_torch.sharding.rules import flatten_dims, make_tp_rules
+    if expert_parallel:
+        cfg = lm.cfg if lm is not None else None
+        tp = mesh.shape.get("model", 1)
+        if cfg is None or not cfg.expert_parallel or cfg.family != "moe":
+            raise ValueError("expert_parallel needs an MoE config with "
+                             "expert_parallel=True")
+        if tp == 1 or cfg.n_experts % tp:
+            raise ValueError(f"expert_parallel splits {cfg.n_experts} "
+                             f"experts over a model axis of {tp}: needs "
+                             f"tp > 1 dividing them")
     rules = make_tp_rules(mesh.shape, replica_axis=topology.replica_axes,
-                          fsdp=fsdp)
+                          fsdp=fsdp, expert_parallel=expert_parallel)
     if lm is None:
         flat, _ = tree_flatten(params)
         return ReplicaLayout(rules=rules, places=places_tree(
@@ -196,28 +214,77 @@ def sync_collective_budget(mesh, topology: SyncTopology, *,
     return out
 
 
-def par_step_collectives(par, dtypes, skip) -> dict:
+def _layer_sums(cfg, spec, par, fwd: int, seq_len) -> tuple[int, int,
+                                                             int]:
+    """The model-axis (sums, all-gathers, all-to-alls) one layer of
+    ``spec`` issues a step inside its block (the gathers of its leaves
+    before it are :func:`par_step_collectives`'s): a copy to ``model``
+    one sum in the backward, a reduction from it one sum in each forward
+    (``fwd``: 2 under remat), an activation's gather one all-gather a
+    forward, a scatter one in the backward, an exchange one a forward and
+    one in the backward."""
+    H = cfg.n_heads
+    if spec.kind == "mlstm":
+        # the input's and b_if's copies, w_out's reduction
+        return (2 + fwd, 0, 0) if par.splits(H) else (0, 0, 0)
+    if spec.kind == "slstm":
+        from repro_torch.models.ssm import slstm_ff
+        # the input's and b's copies, the heads' outputs gathered; the
+        # split FFN's copy and reduction
+        sums, gathers = (2, fwd) if par.splits(H) else (0, 0)
+        if par.splits(slstm_ff(cfg.d_model)):
+            sums += 1 + fwd
+        return sums, gathers, 0
+    hidden = cfg.expert_d_ff or cfg.d_ff
+    split = [par.heads_split]                      # the attention
+    if spec.kind == "hybrid":
+        split.append(par.splits(cfg.ssm_heads or H))       # the Mamba heads
+    sums = gathers = a2a = 0
+    if spec.use_moe and par.expert_parallel:
+        a2a = 2 * fwd + 2                # dispatch and return, each way
+        if seq_len % par.tp == 0:
+            gathers = fwd + 1            # the output's; the scatter's
+        else:
+            sums += 1                    # the replicated input's copy
+        sums += bool(cfg.n_shared_experts)        # sh_route's copy
+    elif spec.use_moe:
+        split += [par.splits(hidden), bool(cfg.n_shared_experts)
+                  and par.splits(cfg.n_shared_experts * hidden)]
+    else:
+        split.append(par.splits(cfg.d_ff))
+    return sums + (1 + fwd) * sum(split), gathers, a2a
+
+
+def par_step_collectives(par, dtypes, skip, seq_len: int) -> dict:
     """The collectives one train step of ``lm_loss`` with ``par``
     (``models.parallel.Par``) issues a level, counted from the leaves'
     places and the model's layers as the model code issues them: each
     sum one ``ReplicaMesh.psum`` (:func:`_level_cost`), each gather one
-    all-gather.
+    all-gather, each exchange one all-to-all.
 
     - ``Par.prepare``, a layer's leaves before the layer and the others
       once: a dim split over ``data`` a gather and, in the backward, a
       sum; a ``head_dim`` split over ``model`` a gather, and a backward
       sum where the heads are split;
-    - with a model axis, a layer: the head-parallel attention's sums
-      (its input's gradient, ``wo``'s output) and those of the split MLP,
-      experts or shared experts, two each; the forward's sums twice under
-      remat (the backward runs the layer's forward again);
+    - ``Par.gather_leaves`` (``transformer.model_gathers``), a layer's
+      recurrent or expert-parallel leaves before the layer: a dim split
+      over ``model`` a gather, and a backward sum where the use is
+      partial;
+    - with a model axis, a layer's own (:func:`_layer_sums`): the
+      head-parallel attention's sums (its input's gradient, ``wo``'s
+      output) and those of the split MLP, experts, shared experts or
+      Mamba heads, two each, those of the recurrent cells and the
+      expert-parallel exchange; the forward's twice under remat (the
+      backward runs the layer's forward again). The expert-parallel
+      layer's depend on the sequence length ``seq_len`` (the tokens
+      split over ``model`` only when it divides);
     - with the vocab split: the embedding's sum, the cross-entropy's
       three sums (the input's gradient, the exponentials, the target's
       logit) and its gather of the maxima;
     - ``Par.data_mean``: one sum a dtype of the leaves it averages."""
-    from repro_torch.models.transformer import block_pattern
+    from repro_torch.models.transformer import block_pattern, model_gathers
     mesh, cfg = par.mesh, par.cfg
-    sums, gathers = {}, {}
+    sums, gathers, a2a = {}, {}, {}
 
     def add(into, axes, n=1):
         lvl = level_name(tuple(a for a in mesh.shape if a in axes))
@@ -245,26 +312,32 @@ def par_step_collectives(par, dtypes, skip) -> dict:
     if par.tp > 1:
         model = par.model_axes
         fwd = 1 if cfg.remat == "none" else 2
-        hidden = cfg.expert_d_ff or cfg.d_ff
-        for spec in pattern:
-            split = [par.heads_split]
-            if spec.use_moe:
-                split += [par.splits(hidden), bool(cfg.n_shared_experts)
-                          and par.splits(cfg.n_shared_experts * hidden)]
-            else:
-                split.append(par.splits(cfg.d_ff))
-            add(sums, model, n_blocks * (1 + fwd) * sum(split))
+        for spec, pl in zip(pattern, par.places["stack"]):
+            for sub, names in model_gathers(cfg, spec, par).items():
+                for name, partial in names.items():
+                    if name not in pl.get(sub, {}):
+                        continue
+                    n = par.model_split_dims(pl[sub][name].unstacked())
+                    add(gathers, model, n_blocks * n)
+                    if partial:
+                        add(sums, model, n_blocks * n)
+            s_, g_, a_ = _layer_sums(cfg, spec, par, fwd, seq_len)
+            add(sums, model, n_blocks * s_)
+            add(gathers, model, n_blocks * g_)
+            add(a2a, model, n_blocks * a_)
         if par.splits(cfg.vocab_size):
             add(sums, model, 4)
             add(gathers, model)
     if par.dp > 1:
         add(sums, par.data_axes, par.data_mean_groups(dtypes, skip))
     out = {}
-    for lvl in sorted(set(sums) | set(gathers)):
+    for lvl in sorted(set(sums) | set(gathers) | set(a2a)):
         n = mesh.size(tuple(lvl.split("+")))
         row = _level_cost(n, sums[lvl]) if sums.get(lvl) else {}
         if gathers.get(lvl):
             row["all_gather"] = row.get("all_gather", 0) + gathers[lvl]
+        if a2a.get(lvl):
+            row["all_to_all"] = a2a[lvl]
         out[lvl] = row
     return out
 
@@ -280,9 +353,12 @@ def _make_mesh_hwa_train_step(lm, mesh, hwa_cfg: HWAConfig,
     the collective-free step. With a data axis the ``flash_pallas``
     form steps the whole replica on the rank's rows and averages
     gradients and loss over ``data``; the other form runs the model on
-    the rank's blocks with a ``models.parallel.Par``. Neither crosses a
+    the rank's blocks with a ``models.parallel.Par`` (expert-parallel
+    where the layout's rules split the experts). Neither crosses a
     replica axis. With ``flash_pallas`` and remat off it launches the
-    flash forward once and each backward sweep once a layer."""
+    flash forward once and each backward sweep once a layer. Its
+    contract's ``collectives`` is a function of the batch's sequence
+    length (the expert-parallel layer's depend on it)."""
     from repro_torch.launch.sync.topology import _norm_axes
     from repro_torch.models.parallel import Par, batch_rows
     rep_axes = _norm_axes(replica_axis)
@@ -297,6 +373,9 @@ def _make_mesh_hwa_train_step(lm, mesh, hwa_cfg: HWAConfig,
     par = Par(mesh, cfg, layout.places) if inner else None
     dtypes = [x.dtype for x in tree_leaves(lm.abstract()[0])]
     colls = {}
+
+    def declared(seq_len):
+        return colls
     if par is None:
         def step(params, opt_state, batch):
             params, opt_state, loss, _ = hwa_local_inner_step(
@@ -323,7 +402,8 @@ def _make_mesh_hwa_train_step(lm, mesh, hwa_cfg: HWAConfig,
                 functools.partial(lm.loss, par=par), opt, lr,
                 grad_hook=functools.partial(par.data_mean, skip=skip))
             return params, opt_state, loss
-        colls = par_step_collectives(par, dtypes, skip)
+        declared = functools.partial(par_step_collectives, par, dtypes,
+                                     skip)
 
     exact = (cfg.attn_impl == "flash_pallas" and cfg.remat == "none"
              and cfg.family in ("dense", "moe"))    # every layer attends
@@ -331,7 +411,7 @@ def _make_mesh_hwa_train_step(lm, mesh, hwa_cfg: HWAConfig,
                               cfg.n_layers) if exact
                 else {} if cfg.attn_impl != "flash_pallas" else None)
     return StepBundle(fn=step, contract={"launches": launches,
-                                         "collectives": colls})
+                                         "collectives": declared})
 
 
 def _make_mesh_hwa_sync_step(lm, mesh, hwa_cfg: HWAConfig, params,
@@ -469,17 +549,92 @@ def _make_rest_step(mesh, layout: ReplicaLayout) -> StepBundle:
         level_name(axes): {"all_gather": 1}}})
 
 
-#: what the reference's HLO collective audit waits for
-AUDIT_ITEM = "ROADMAP.md Queue A 14 (the collective audit's verdicts)"
+def sync_collective_audit(records, mesh, replica_axis: str = "replica",
+                          outer_axis: str | None = None,
+                          n_groups: int | None = None) -> dict:
+    """The reference's structural audit of an HWA sync's collectives, per
+    level (``repro.analysis.collectives.sync_collective_audit``), over the
+    rank groups the sync's collectives ran on rather than over lowered
+    HLO: ``records`` is a list of ``(op, groups)``, ``groups`` lists of
+    ranks of ``mesh`` (a ``launch.mesh.MeshLayout``); a rank's
+    ``launch.mesh.record_groups`` log gives one group a record, the one
+    it ran on, and a hypercube chain of two-way all-reduces one
+    all-reduce over the ranks its rounds joined. A collective *crosses*
+    an axis when the ranks of one of its groups sit at different
+    coordinates along it: the counterpart of the reference's
+    ``collectives_crossing_axis`` over ``replica_groups``. A group that
+    is not a whole level of the axes it crosses (a chain cut short, a
+    miswired group) is listed with its op marked ``partial_``, which no
+    verdict counts as a level's all-reduce.
 
+    **Flat** (``outer_axis=None``): exactly one all-reduce over the
+    replica axis, and nothing crossing any other axis.
+    **Grouped** (``n_groups`` set): the same traffic contract
+    (``grouped_sync_ok``); the groups change the launches, not the
+    collectives. **Two-level** (``outer_axis`` set): each collective is
+    inner-only (crosses ``replica_axis`` only), outer-only (crosses
+    ``outer_axis`` only) or *mixed* (both: a miswired joint grouping);
+    ``inner_sync_ok``: one inner-only all-reduce, nothing crossing the
+    outer axis, assembly-free; ``outer_sync_ok``: one inner-only and one
+    outer-only all-reduce, nothing mixed, assembly-free. A compressed
+    outer level moves all-gathers, which no verdict counts as its
+    all-reduce (as in the reference).
 
-def sync_collective_audit(*args, **kwargs):
-    """The reference's ``launch.hlo.sync_collective_audit`` reads a
-    sync's lowered HLO. The port's counterpart, verdicts over the
-    ledger and the bundles' declared collectives, is not written yet
-    (``launch.train.contract_violations`` holds every call to its
-    contract meanwhile)."""
-    raise NotImplementedError(f"sync_collective_audit: {AUDIT_ITEM}")
+    Returns the reference's keys: ``replica``, ``outer``, ``mixed`` (lists
+    of ``(op, level)``, ``level`` the axes the group spans joined by
+    ``+``), ``other`` (axis -> such a list), ``replica_allreduce_only``,
+    ``assembly_free``, ``inner_sync_ok``, ``outer_sync_ok`` and, with
+    ``n_groups``, ``n_groups`` and ``grouped_sync_ok``."""
+    coords = [mesh.coords(r) for r in range(mesh.world)]
+
+    def spans(groups) -> tuple[str, ...]:
+        return tuple(a for a in mesh.shape
+                     if any(len({coords[r][a] for r in g}) > 1
+                            for g in groups))
+
+    def whole(op, groups, sp):
+        blocks = mesh.partition(sp)
+        return op if all(sorted(g) in blocks for g in groups) \
+            else "partial_" + op
+
+    hits = []
+    for i, (op, groups) in enumerate(records):
+        sp = spans(groups)
+        hits.append((i, whole(op, groups, sp), sp))
+
+    def crossing(axis):
+        return [(i, op, level_name(sp)) for i, op, sp in hits if axis in sp]
+
+    replica = crossing(replica_axis)
+    outer = crossing(outer_axis) if outer_axis is not None else []
+    outer_ids = {i for i, _, _ in outer}
+    replica_ids = {i for i, _, _ in replica}
+    mixed = [h for h in replica if h[0] in outer_ids]
+    inner_only = [h for h in replica if h[0] not in outer_ids]
+    outer_only = [h for h in outer if h[0] not in replica_ids]
+    other = {ax: crossing(ax) for ax in mesh.shape
+             if ax not in (replica_axis, outer_axis)}
+    assembly_free = not any(other.values())
+
+    def one_ar(h):
+        return len(h) == 1 and h[0][1] == "all_reduce"
+
+    def bare(h):
+        return [(op, lvl) for _, op, lvl in h]
+    out = {
+        "replica": bare(replica), "outer": bare(outer), "mixed": bare(mixed),
+        "other": {ax: bare(h) for ax, h in other.items()},
+        "replica_allreduce_only": one_ar(replica),
+        "assembly_free": assembly_free,
+        "inner_sync_ok": one_ar(inner_only) and not outer and assembly_free,
+        "outer_sync_ok": (one_ar(inner_only) and one_ar(outer_only)
+                          and not mixed and assembly_free),
+    }
+    if n_groups is not None:
+        out["n_groups"] = n_groups
+        out["grouped_sync_ok"] = (out["replica_allreduce_only"]
+                                  and assembly_free)
+    return out
 
 
 def sync_cases(mesh, cases) -> list[dict]:

@@ -96,13 +96,15 @@ class HWABundles:
 
 
 def build_hwa_bundles(lm, mesh, plan: SyncPlan, params,
-                      train: bool = True, fsdp: bool = False) -> HWABundles:
+                      train: bool = True, fsdp: bool = False,
+                      expert_parallel: bool = False) -> HWABundles:
     """Assemble the mesh-native train / sync / inner-sync (/ rest)
     bundles a plan describes, validated against ``mesh``
     (``launch.mesh.ReplicaMesh``) once. The replica's layout comes from
-    the reference's rules over ``mesh`` with ``fsdp``
-    (``bundles.replica_layout``); with no ``lm`` (``train=False`` only)
-    it is the whole-replica layout of ``params``, the rank's replica."""
+    the reference's rules over ``mesh`` with ``fsdp`` and
+    ``expert_parallel`` (``bundles.replica_layout``); with no ``lm``
+    (``train=False`` only) it is the whole-replica layout of ``params``,
+    the rank's replica."""
     from repro_torch.launch.sync.bundles import (
         _make_mesh_hwa_inner_sync_step, _make_mesh_hwa_sync_step,
         _make_mesh_hwa_train_step, _make_rest_step, replica_layout)
@@ -110,7 +112,8 @@ def build_hwa_bundles(lm, mesh, plan: SyncPlan, params,
         raise ValueError("the stacked path has no bundles in the port: "
                          "call core.hwa.hwa_inner_step and hwa_sync")
     topology = plan.resolved_topology
-    layout = replica_layout(lm, mesh, topology, fsdp=fsdp, params=params)
+    layout = replica_layout(lm, mesh, topology, fsdp=fsdp, params=params,
+                            expert_parallel=expert_parallel)
     train_b = (_make_mesh_hwa_train_step(
         lm, mesh, plan.hwa, optimizer=plan.optimizer, lr=plan.lr,
         replica_axis=topology.replica_axes, layout=layout)

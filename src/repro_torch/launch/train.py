@@ -46,14 +46,23 @@ model)`` mesh (``(pod, replica, data, model)`` under the tree):
       --mesh-native --fsdp --tp 2 --k 2 --world-size 8 --steps 4 \
       --sync-period 2 --window 3 --batch-size 4 --seq-len 16
 
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --mesh-native --tp 2 --arch xlstm-125m --k 2 --steps 4 \
+      --sync-period 2 --window 3 --batch-size 4 --seq-len 16 --lr 0.03
+
 ``--world-size`` is the number of ranks, the counterpart of the
 reference's device count (its default, K·tp, gives ``data`` 1); ``data =
 world / (K·tp)``. ``--tp`` splits each replica's layers over ``model``
-(tensor parallelism: the dense and MoE families), ``--fsdp`` its
-``embed`` weight dims over ``data``; the batch rows of a replica split
-over ``data``. ``--attn-impl flash_pallas`` runs the reference's manual
-step (parameters whole on each rank, gradients averaged over ``data``)
-and refuses ``--tp > 1``, as the reference does. The command line trains
+(tensor parallelism; the recurrent families' heads where they divide),
+``--fsdp`` its ``embed`` weight dims over ``data``; the batch rows of a
+replica split over ``data``. The command line never splits the MoE
+experts, as the reference's mesh-native launcher does not: a caller of
+:func:`run_mesh_native` passes ``expert_parallel=True`` for a config
+with ``expert_parallel=True`` (the reference's rules-carrying
+builders), whose layer is then ``moe.moe_forward_ep``. ``--attn-impl
+flash_pallas`` runs the reference's manual step (parameters whole on
+each rank, gradients averaged over ``data``) and refuses ``--tp > 1``,
+as the reference does. The command line trains
 the smoke config; a caller of :func:`run_mesh_native` passes any model
 config (``chip_smoke.py`` passes the published width cut in depth).
 """
@@ -76,10 +85,6 @@ from repro_torch.models.registry import build_model
 from repro_torch.train.trainer import METHODS, PARALLEL, TrainConfig, \
     Trainer, lm_task
 
-#: what the rest of the reference's mesh-native driver waits for: the
-#: recurrent families' model axis and the collective audit
-MESH_REST = ("ROADMAP.md Queue A 18 (the recurrent families' model axis) "
-             "and Queue A 14 (sync_collective_audit)")
 #: seconds before a mesh-native process group gives up on a collective (a
 #: rank waits at a barrier while rank 0 writes a checkpoint)
 COLLECTIVE_TIMEOUT = 300.0
@@ -259,7 +264,7 @@ def _check_mesh_args(args, cfg=None) -> None:
     """The launcher's refusals of a mesh-native run, before any spawn:
     the reference's (``flash_pallas`` with ``--tp > 1``, the vlm and audio
     families, the divisibility of the world size and of the batch over
-    ``data``) and the port's (``--tp > 1`` for the recurrent families)."""
+    ``data``)."""
     shape = _mesh_shape(args)
     cfg = cfg or mesh_config(args)
     if cfg.attn_impl == "flash_pallas" and args.tp > 1:
@@ -268,10 +273,6 @@ def _check_mesh_args(args, cfg=None) -> None:
     if cfg.family in ("vlm", "audio"):
         raise SystemExit(f"{args.arch}: the mesh-native launcher supports "
                          "LM families only")
-    if args.tp > 1 and cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"--tp > 1 for the {cfg.family} family (ssm_heads, conv_out "
-            f"over the model axis): {MESH_REST}")
     data = shape.get("data", 1)
     if args.batch_size % data:
         raise SystemExit(f"the per-replica batch {args.batch_size} must "
@@ -284,7 +285,7 @@ def _check_mesh_args(args, cfg=None) -> None:
 
 
 def run_mesh_native(args, *, cfg=None, probe=False, with_state=True,
-                    digest: bool = False):
+                    digest: bool = False, expert_parallel=False):
     """Train with the mesh-native HWA steps: spawned ranks
     (``launch.mesh.spawn_ranks``) on a mesh of ``{"replica": K}`` or, with
     ``--sync-tree two-level``, ``{"pod": G, "replica": K // G}``, then
@@ -297,7 +298,11 @@ def run_mesh_native(args, *, cfg=None, probe=False, with_state=True,
     (its shape, tree and device): one spawn then runs them in turn, the
     ranks' start-up paid once, and a list of results comes back. ``cfg``
     (a ``ModelConfig``, or a list of them, one a run) replaces the smoke
-    config of ``--arch``; ``probe`` and ``with_state`` may be lists too.
+    config of ``--arch``; ``probe``, ``with_state`` and
+    ``expert_parallel`` may be lists too. ``expert_parallel`` builds the
+    train step with the MoE experts split over ``model``
+    (``bundles.replica_layout``; the config must set
+    ``expert_parallel=True``); the command line never sets it.
 
     Returns rank 0's result with the reference's keys (``history`` with
     ``"sync": "inner"|"outer"``, ``cycles``, ``syncs``, ``wa_finite``,
@@ -309,9 +314,11 @@ def run_mesh_native(args, *, cfg=None, probe=False, with_state=True,
     rank's kernel launches summed), ``layout`` (the sync's packed layout:
     grouped or not, its groups' shards, its JSON) and ``ranks`` (per
     rank: its train steps' collectives and their declared ones, each
-    sync's kind, ms, collectives and declared collectives, the rest
+    sync's kind, ms, collectives, declared collectives and audit
+    verdicts (``bundles.sync_collective_audit``), the rest
     steps', its launches and the launches its bundles declare for the
-    card, its peak device memory). ``probe`` gathers the replicas around
+    card, its peak device memory, the expert-parallel layer's pairs and
+    dropped pairs). ``probe`` gathers the replicas around
     every sync (``"outer"``: every outer sync) and holds rank 0's W̄
     against ``core.online``'s canonical, grouped or pod mean of them on
     its device (``history[i]["probe"]``); ``"host"`` also holds a split
@@ -360,6 +367,10 @@ def run_mesh_native(args, *, cfg=None, probe=False, with_state=True,
                          "with_state": (list(with_state)
                                         if isinstance(with_state, list)
                                         else [with_state] * len(runs)),
+                         "expert_parallel": (
+                             list(expert_parallel)
+                             if isinstance(expert_parallel, list)
+                             else [expert_parallel] * len(runs)),
                          "digest": digest},
                         device=first.device, levels=levels,
                         collective_timeout=COLLECTIVE_TIMEOUT)
@@ -526,6 +537,41 @@ def contract_violations(out) -> list[str]:
     return bad
 
 
+def audit_violations(out) -> list[str]:
+    """Where a :func:`run_mesh_native` result's syncs leave the
+    reference's audit verdicts (``bundles.sync_collective_audit``, each
+    sync's on every rank): a flat sync ``replica_allreduce_only`` and
+    ``assembly_free``, ``grouped_sync_ok`` for a grouped layout; the
+    tree's inner syncs ``inner_sync_ok`` and its outer ones
+    ``outer_sync_ok``, or, with a compressed cross-pod payload, its
+    all-gathers (one for bf16, two for fp8: payload and scales) as the
+    only outer traffic, nothing mixed, assembly-free. A resilient run is
+    held to its contracts only: its alive count and health stats are
+    collectives of their own. An empty list: every verdict holds."""
+    if out["resilient"]:
+        return []
+    bad = []
+    tree = out["sync_tree"] == "two-level"
+    n_gather = {"f32": 0, "bf16": 1, "fp8": 2}[out["comms_dtype"]]
+    for rank in out["ranks"]:
+        for i, c in enumerate(rank["syncs"]):
+            a = c["audit"]
+            if not tree:
+                ok = a["replica_allreduce_only"] and a["assembly_free"] \
+                    and a.get("grouped_sync_ok", True)
+            elif c["sync"] == "inner":
+                ok = a["inner_sync_ok"]
+            elif n_gather:
+                ok = (a["outer"] == [("all_gather", "pod")] * n_gather
+                      and not a["mixed"] and a["assembly_free"])
+            else:
+                ok = a["outer_sync_ok"]
+            if not ok:
+                bad.append(f"rank {rank['rank']}: {c['sync']} sync {i} "
+                           f"fails its audit: {a}")
+    return bad
+
+
 def _add(acc: dict, rows: dict, times: int = 1) -> None:
     """``acc[level][op] += times * rows[level][op]``."""
     for lvl, row in rows.items():
@@ -550,10 +596,12 @@ def mesh_rank(mesh, payload) -> list[dict]:
     Returns a list with, per run, rank 0's result and every rank's
     ``rank_stats``."""
     out = []
-    for run, probe, keep, cfg in zip(payload["runs"], payload["probe"],
-                                     payload["with_state"], payload["cfg"]):
+    for run, probe, keep, cfg, ep in zip(
+            payload["runs"], payload["probe"], payload["with_state"],
+            payload["cfg"], payload["expert_parallel"]):
         out.append(_mesh_rank_run(mesh, argparse.Namespace(**run), probe,
-                                  dict(payload, with_state=keep, cfg=cfg)))
+                                  dict(payload, with_state=keep, cfg=cfg,
+                                       expert_parallel=ep)))
         if mesh.device.type == "cuda":
             torch.cuda.empty_cache()
     return out
@@ -573,9 +621,10 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
     from repro_torch.core.offline import WindowState
     from repro_torch.launch import shards
     from repro_torch.launch.mesh import (kernel_counts, ledger_delta,
-                                         ledger_snapshot)
+                                         ledger_snapshot, record_groups)
     from repro_torch.launch.sync import build_hwa_bundles, window_state_args
-    from repro_torch.launch.sync.bundles import _mk_optimizer
+    from repro_torch.launch.sync.bundles import (_mk_optimizer,
+                                                 sync_collective_audit)
     from repro_torch.models.parallel import blocks_of, places_tree
 
     t_start = time.perf_counter()
@@ -586,6 +635,8 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     launched0 = kernel_counts()
+    from repro_torch.models import moe
+    moe.ep_tally(reset=True)
     cfg = payload["cfg"] or mesh_config(args)
     lm = build_model(cfg)
     plan = _mesh_plan(args, K)
@@ -594,7 +645,8 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
     all_axes = tuple(mesh.shape)
     full = lm.init(torch.Generator(device=dev).manual_seed(args.seed),
                    device=dev)
-    bundles = build_hwa_bundles(lm, mesh, plan, full, fsdp=args.fsdp)
+    bundles = build_hwa_bundles(lm, mesh, plan, full, fsdp=args.fsdp,
+                                expert_parallel=payload["expert_parallel"])
     train, sync, inner_sync = bundles.train, bundles.sync, bundles.inner_sync
     rest, layout = bundles.rest, bundles.layout
     spec = sync.pack_spec                  # global; a rank holds lspec
@@ -778,18 +830,23 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
             t0 = time.perf_counter()
             before = ledger_snapshot()
             bundle = inner_sync if inner else sync
-            if inner:
-                mean = inner_sync(params)
-            else:
-                ws, wa, cycle, alive, k_alive_t, mean = sync(params, ws,
-                                                             cycle)
+            with record_groups() as used:
+                if inner:
+                    mean = inner_sync(params)
+                else:
+                    ws, wa, cycle, alive, k_alive_t, mean = sync(
+                        params, ws, cycle)
             wait()
             ms = (time.perf_counter() - t0) * 1e3
             declare(bundle)
             sync_colls.append({
                 "sync": "inner" if inner else "outer", "ms": ms,
                 "collectives": ledger_delta(before, ledger_snapshot()),
-                "declared": bundle.contract["collectives"]})
+                "declared": bundle.contract["collectives"],
+                "audit": sync_collective_audit(
+                    [(op, [g]) for op, g in used], mesh,
+                    outer_axis="pod" if plan.is_tree else None,
+                    n_groups=spec.n_groups if spec.is_grouped else None)})
             if rest is not None:
                 before = ledger_snapshot()
                 rest(params, mean)
@@ -871,14 +928,15 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
     flush_losses()
     launched = kernel_counts()
     stats = {"rank": rank, "replica": rep, "train_collectives": train_colls,
-             "train_declared": train.contract["collectives"],
+             "train_declared": train.contract["collectives"](args.seq_len),
              "train_steps": train_steps, "syncs": sync_colls,
              "rests": rest_colls,
              "launches": {k: v - launched0[k] for k, v in launched.items()},
              "declared_launches": declared,
              "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
                           if cuda else None),
-             "resume_gib": resume_gib, "times": times}
+             "resume_gib": resume_gib, "times": times,
+             "ep_pairs": moe.ep_tally()}
     keys = payload["with_state"]
     keys = (("inner", "wa", "ring", "total") if keys is True
             else tuple(keys or ()))
@@ -900,6 +958,7 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
         loss = float(np.mean(losses[-1]))
     out = {"final_loss": loss, "cycles": int(cycle), "syncs": sync_idx,
            "history": history, "sync_tree": args.sync_tree,
+           "resilient": args.resilient,
            "wa_dtype": plan.wa_dtype, "comms_dtype": plan.comms_dtype,
            "wa_finite": bool(finite.min() > 0), "k_alive_min": k_alive_min,
            "mesh": dict(mesh.shape), "losses": losses,

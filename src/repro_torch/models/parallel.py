@@ -17,7 +17,16 @@ groups (``launch.mesh.ReplicaMesh``):
 - :meth:`Par.prepare`: before a layer uses them, the leaves split over the
   data axes (FSDP's ``embed`` dim) are all-gathered, their gradient
   reduce-scattered in the backward as a mean over ``data``; a leaf whose
-  rule fell through to ``head_dim`` is all-gathered over ``model``.
+  rule fell through to ``head_dim`` is all-gathered over ``model``;
+- :meth:`Par.gather_leaves`: the leaves a layer names
+  (``transformer.model_gathers``: the recurrent cells' input side, the
+  expert-parallel layer's router and shared experts) all-gathered over
+  ``model``, their gradient summed over it where each rank's use is a
+  part of the whole;
+- :meth:`Par.scatter_model` / :meth:`Par.gather_blocks`: an activation's
+  block along a dim (the backward all-gathers) and the blocks gathered
+  back whole (the backward slices), around the expert-parallel
+  dispatch and around the heads of an sLSTM cell.
 
 The other data-axis half, the mean over ``data`` of the gradients of
 leaves no data axis splits, is :meth:`Par.data_mean`, after the backward.
@@ -88,6 +97,15 @@ def blocks_of(tree, places, mesh, rank: int | None = None):
     return tree_unflatten(treedef, out)
 
 
+def experts_split(places, model_axes=("model",)) -> bool:
+    """Whether the rules behind ``places`` (a :class:`LeafPlace` tree)
+    split the MoE experts over ``model``: the layer is then the
+    expert-parallel one (``moe.moe_forward_ep``)."""
+    return any("experts" in p.dims and set(model_axes)
+               & set(p.axes(p.dims.index("experts")))
+               for p in tree_flatten(places)[0])
+
+
 def _level_index(mesh, axes) -> int:
     lv = mesh.level(axes)
     return lv.ranks.index(mesh.rank)
@@ -155,6 +173,43 @@ class _Gather(torch.autograd.Function):
         return block.to(ctx.x_dtype), None, None, None, None, None
 
 
+class _Scatter(torch.autograd.Function):
+    """The rank's block along ``dim`` of a tensor every rank of a level
+    holds whole; the backward all-gathers the blocks' gradients, so the
+    whole tensor's gradient is whole on every rank again (Megatron's
+    sequence-parallel scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        n = mesh.size(axes)
+        w = x.shape[dim] // n
+        return x.narrow(dim, _level_index(mesh, axes) * w, w).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        got = _gather_bytes(ctx.mesh, g, ctx.axes)
+        return torch.cat(list(got.unbind(0)), dim=ctx.dim), None, None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the gradient times ``scale`` (in its dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def scale_grad(x, scale: float):
+    return x if scale == 1.0 else _ScaleGrad.apply(x, scale)
+
+
 class Par:
     """One rank's place inside its replica. ``mesh`` is the rank's
     ``launch.mesh.ReplicaMesh``; ``data_axes``/``model_axes`` the
@@ -177,6 +232,8 @@ class Par:
         # the head-parallel attention: q heads split over the model ranks
         # (the rules split ``heads`` exactly when they divide)
         self.heads_split = self.tp > 1 and cfg.n_heads % self.tp == 0
+        self.expert_parallel = (places is not None and self.tp > 1
+                                and experts_split(places, self.model_axes))
 
     # --------------------------------------------------- layouts
 
@@ -195,6 +252,19 @@ class Par:
         if self.tp == 1:
             return x
         return _ReduceFromModel.apply(x, self.mesh, self.model_axes)
+
+    def scatter_model(self, x, dim: int):
+        """The rank's block along ``dim`` of an activation every model
+        rank holds whole (:class:`_Scatter`: an all-gather in the
+        backward)."""
+        return _Scatter.apply(x, self.mesh, self.model_axes, dim)
+
+    def gather_blocks(self, x, dim: int):
+        """Every model rank's block of an activation along ``dim``, in
+        rank order: the whole tensor on every rank. Its backward hands the
+        rank its block of the gradient, with no sum: the gradient of a
+        whole activation is whole on every model rank."""
+        return _Gather.apply(x, self.mesh, self.model_axes, dim, False, 1.0)
 
     def gather_model(self, x: torch.Tensor) -> torch.Tensor:
         """Every model rank's ``x``, ``(tp, *x.shape)``: no gradient."""
@@ -225,6 +295,43 @@ class Par:
                                       self.heads_split, 1.0)
             out.append(x)
         return tree_unflatten(treedef, out)
+
+    def gather_leaves(self, tree, places, leaves: dict):
+        """The leaves of a layer named by ``leaves`` (sub-tree -> {leaf:
+        partial}) all-gathered along their dims split over ``model``
+        (:class:`_Gather`); ``partial`` where each model rank's use of the
+        whole leaf is a part of the whole use (its gradient is summed over
+        ``model`` before the rank takes its block), not where every rank
+        makes the same, whole use of it (the block is sliced). Returns the
+        tree with those leaves replaced."""
+        if self.tp == 1 or not leaves:
+            return tree
+        out = dict(tree)
+        for sub, names in leaves.items():
+            if sub not in tree:
+                continue
+            out[sub] = dict(tree[sub])
+            for name, partial in names.items():
+                if name not in tree[sub]:
+                    continue
+                x, p = tree[sub][name], places[sub][name]
+                for i in range(x.dim()):
+                    if self.model_split(p.axes(i)):
+                        x = _Gather.apply(x, self.mesh, p.axes(i), i,
+                                          partial, 1.0)
+                out[sub][name] = x
+        return out
+
+    def model_split(self, axes) -> bool:
+        """Whether a dim placed on ``axes`` is split over ``model``."""
+        return bool(axes) and set(axes) <= set(self.model_axes) \
+            and self.mesh.size(axes) > 1
+
+    def model_split_dims(self, place) -> int:
+        """How many dims of a leaf (its :class:`LeafPlace`) ``model``
+        splits (0 or 1)."""
+        return sum(1 for i in range(len(place.spec))
+                   if self.model_split(place.axes(i)))
 
     def data_sharded(self) -> list[bool]:
         """Per leaf (flatten order): whether a data axis splits it (its
@@ -291,4 +398,5 @@ def batch_rows(batch: dict, par: Par | None) -> dict:
     return out
 
 
-__all__ = ["LeafPlace", "Par", "batch_rows", "blocks_of", "places_tree"]
+__all__ = ["LeafPlace", "Par", "batch_rows", "blocks_of", "experts_split",
+           "places_tree", "scale_grad"]

@@ -257,11 +257,8 @@ def _lm_loss_par(cfg: ModelConfig, params, batch, par):
     its rows. The leaves outside the stack are prepared (FSDP's gathers)
     once; the stack's a layer at a time. With a model axis the vocab is
     split where it divides (the embedding's masked lookup, the
-    vocab-parallel cross-entropy) and whole elsewhere."""
-    if par.tp > 1 and cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"a model axis (--tp > 1) for the {cfg.family} family: "
-            f"{tfm.TP_REST}")
+    vocab-parallel cross-entropy) and whole elsewhere; a prefix (hymba's
+    meta tokens) is whole on every rank."""
     top = {k: v for k, v in params.items() if k != "stack"}
     top = par.prepare(top, {k: v for k, v in par.places.items()
                             if k != "stack"})

@@ -22,6 +22,13 @@ the reference's overflow there turns every gradient into NaN). sLSTM
 has no chunkwise form: its step loop runs with its backward written out
 (``_SLSTMScan``), on the card as CUDA graphs.
 
+With a model axis inside a replica (``models.parallel.Par``) the
+training forms ``mlstm_train_par``, ``slstm_train_par`` and
+``mamba_train_par`` run the rank's heads where they divide by tp (the
+leaves that do not line up with heads gathered whole, ``cell_gathers``;
+the output side row-parallel), or the whole cell from gathered leaves
+where they do not; no collective runs inside a time loop.
+
 Initializers return stacked parameters, ``n`` copies along a leading
 layer axis, with the reference's leaf names, shapes (after that axis)
 and dtypes: the gates' leaves (``w_if``, ``b_if``, ``r``, ``b``,
@@ -271,30 +278,14 @@ def _mlstm_chunkwise(q, k, v, i_pre, f_pre, state, chunk: int):
     return h, {"C": C0, "n": n0, "m": m0}
 
 
-def mlstm_scan(cfg, p, x, state):
-    """x: (B, T, D) -> (y: (B, T, D), state')."""
-    B, T, D = x.shape
-    H = cfg.n_heads
-    d_inner = 2 * D
-    P = d_inner // H
-    up = x @ p["w_up"]
-    xm, z = up.chunk(2, dim=-1)                                  # (B,T,d_inner)
-    xc, conv_state = _causal_conv(xm, p["conv"], state["conv"])
-    xc = _silu_as(xc, x.dtype)
-    q = (xc @ p["w_q"]).reshape(B, T, H, P)
-    # sqrt(P) rounded to f32 and then to x's dtype, as jnp.sqrt(P) is
-    k = (xc @ p["w_k"]).reshape(B, T, H, P) / float(
-        torch.tensor(float(P)).sqrt().to(x.dtype))
-    v = (xm @ p["w_v"]).reshape(B, T, H, P)
-    gates = xc.float() @ p["w_if"] + p["b_if"]                  # (B,T,2H)
-    i_pre, f_pre = gates.chunk(2, dim=-1)                        # (B,T,H)
-
+def _mlstm_heads(q, k, v, i_pre, f_pre, state, dtype):
+    """The mLSTM recurrence over (B, T, H, P) heads (chunkwise or a step
+    loop, by T): (h (B, T, H·P) head-normed in ``dtype``, carry)."""
+    B, T, H, P = q.shape
     chunk = _pick_chunk(T, MLSTM_CHUNK)
     if chunk and T >= 2 * chunk:
         hs_bthp, carry = _mlstm_chunkwise(q, k, v, i_pre, f_pre, state, chunk)
-        h = _rms_head_norm(hs_bthp).reshape(B, T, d_inner).to(x.dtype)
-        y = (h * _silu_as(z, x.dtype)) @ p["w_out"]
-        return y, {**carry, "conv": conv_state}
+        return _rms_head_norm(hs_bthp).reshape(B, T, H * P).to(dtype), carry
 
     C, n, m = state["C"], state["n"], state["m"]
     log_fs = -_softplus(-f_pre)
@@ -313,11 +304,84 @@ def mlstm_scan(cfg, p, x, state):
         # true-scale denominator max(|n.q|, 1) in stabilized space
         den = torch.maximum(_dot_last(n, qt).abs(), torch.exp(-m_new))
         m = m_new
-        hs.append((num / den[..., None]).to(x.dtype))
+        hs.append((num / den[..., None]).to(dtype))
     h = torch.stack(hs, dim=1)                                   # (B,T,H,P)
-    h = _rms_head_norm(h).reshape(B, T, d_inner)
+    return _rms_head_norm(h).reshape(B, T, H * P), {"C": C, "n": n, "m": m}
+
+
+def _sqrt_as(P: int, dtype) -> float:
+    """sqrt(P) rounded to f32 and then to ``dtype``, as jnp.sqrt(P) is."""
+    return float(torch.tensor(float(P)).sqrt().to(dtype))
+
+
+def mlstm_scan(cfg, p, x, state):
+    """x: (B, T, D) -> (y: (B, T, D), state')."""
+    B, T, D = x.shape
+    H = cfg.n_heads
+    d_inner = 2 * D
+    P = d_inner // H
+    up = x @ p["w_up"]
+    xm, z = up.chunk(2, dim=-1)                                  # (B,T,d_inner)
+    xc, conv_state = _causal_conv(xm, p["conv"], state["conv"])
+    xc = _silu_as(xc, x.dtype)
+    q = (xc @ p["w_q"]).reshape(B, T, H, P)
+    k = (xc @ p["w_k"]).reshape(B, T, H, P) / _sqrt_as(P, x.dtype)
+    v = (xm @ p["w_v"]).reshape(B, T, H, P)
+    gates = xc.float() @ p["w_if"] + p["b_if"]                  # (B,T,2H)
+    i_pre, f_pre = gates.chunk(2, dim=-1)                        # (B,T,H)
+    h, carry = _mlstm_heads(q, k, v, i_pre, f_pre, state, x.dtype)
     y = (h * _silu_as(z, x.dtype)) @ p["w_out"]
-    return y, {"C": C, "n": n, "m": m, "conv": conv_state}
+    return y, {**carry, "conv": conv_state}
+
+
+def _zero_heads_state(B, H, shapes, device):
+    return {k: torch.zeros((B, H) + sh, dtype=torch.float32, device=device)
+            for k, sh in shapes.items()}
+
+
+def mlstm_train_par(cfg, p, x, par):
+    """The mLSTM block's training forward from the zero state on one rank
+    of a replica split over ``model`` (``models.parallel.Par``; the
+    leaves as ``Par.gather_leaves`` leaves them, by
+    :func:`cell_gathers`).
+
+    Where the heads divide by tp the rank runs its H/tp heads: the input
+    side reads every channel, so ``w_up`` (its column blocks at tp 2 are
+    the branch and the gate halves, not heads), ``conv`` and the
+    ``mlp``-split rows of ``w_q``, ``w_k``, ``w_v`` and ``w_if`` are
+    gathered whole and the rank takes its heads' columns of the products
+    (their gradients summed over ``model``, the input's too); ``b_if``
+    is whole, its gradient summed over ``model``; the recurrence runs on
+    the rank's heads; ``w_out``'s row block is the rank's heads' channels
+    (row-parallel, summed over ``model``). Otherwise every leaf was
+    gathered and the block runs whole on each rank."""
+    if not par.splits(cfg.n_heads):
+        B = x.shape[0]
+        return mlstm_scan(cfg, p, x, init_mlstm_state(
+            cfg, B, x.dtype, x.device))[0]
+    B, T, D = x.shape
+    H = cfg.n_heads
+    P = 2 * D // H
+    hl = H // par.tp
+    h0 = par.tp_index * hl
+    cols = slice(h0 * P, (h0 + hl) * P)
+    xin = par.copy_to_model(x)
+    xm, z = (xin @ p["w_up"]).chunk(2, dim=-1)
+    xc, _ = _causal_conv(xm, p["conv"])
+    xc = _silu_as(xc, x.dtype)
+    q = (xc @ p["w_q"][:, cols]).reshape(B, T, hl, P)
+    k = (xc @ p["w_k"][:, cols]).reshape(B, T, hl, P) / _sqrt_as(P, x.dtype)
+    v = (xm @ p["w_v"][:, cols]).reshape(B, T, hl, P)
+    gate_cols = torch.cat([torch.arange(h0, h0 + hl),
+                           H + torch.arange(h0, h0 + hl)]).to(x.device)
+    gates = (xc.float() @ p["w_if"].index_select(1, gate_cols)
+             + par.copy_to_model(p["b_if"]).index_select(0, gate_cols))
+    i_pre, f_pre = gates.chunk(2, dim=-1)                        # (B,T,hl)
+    state = _zero_heads_state(B, hl, {"C": (P, P), "n": (P,), "m": ()},
+                              x.device)
+    h, _ = _mlstm_heads(q, k, v, i_pre, f_pre, state, x.dtype)
+    y = (h * _silu_as(z[..., cols], x.dtype)) @ p["w_out"]
+    return par.reduce_from_model(y)
 
 
 # ===================================================================
@@ -331,13 +395,18 @@ SLSTM_DIMS = {"w_in": ("embed", "mlp"), "r": ("heads", None, None),
               "ff_up": ("embed", "mlp"), "ff_down": ("mlp", "embed")}
 
 
+def slstm_ff(D: int) -> int:
+    """The width of the post-cell FFN xLSTM's sLSTM blocks carry."""
+    return max(2 * D, 64)
+
+
 def init_slstm(cfg, n, gen, dtype, device):
     D, H = cfg.d_model, cfg.n_heads
     P = D // H
     f32 = torch.float32
     b = torch.zeros((4 * D,), dtype=f32, device=device)
     b[2 * D:3 * D] = 3.0                                          # f-gate bias
-    ff = max(2 * D, 64)       # the post-cell FFN xLSTM's sLSTM blocks carry
+    ff = slstm_ff(D)
     return {
         "w_in": normal_init(gen, (n, D, 4 * D), dtype, fan_in=D,
                             device=device),                      # z,i,f,o
@@ -496,25 +565,77 @@ class _SLSTMScan(torch.autograd.Function):
         return tuple(g.clone() for g in grads)
 
 
-def slstm_scan(cfg, p, x, state):
-    B, T, D = x.shape
-    H = cfg.n_heads
-    P = D // H
-    pre_in = (x @ p["w_in"]).float() + p["b"]                   # (B,T,4D)
-    # each step's (4D,) laid out as [z | i | f | o], each (H, P): to
-    # (T, H, B, 4P) for all steps at once (a permutation, no arithmetic)
+def _slstm_heads(pre_in, r, state):
+    """The sLSTM recurrence over H heads: ``pre_in`` (B, T, 4·H·P) f32,
+    each step's [z | i | f | o] of (H, P); ``state`` (B, H, P) each.
+    Returns (y (B, T, H, P) f32, state')."""
+    B, T = pre_in.shape[:2]
+    H, P = r.shape[0], r.shape[1]
+    # to (T, H, B, 4P) for all steps at once (a permutation, no arithmetic)
     pre = pre_in.reshape(B, T, 4, H, P).permute(1, 3, 0, 2, 4).reshape(
         T, H, B, 4 * P)
     heads_first = [state[k].transpose(0, 1).contiguous()
                    for k in ("c", "n", "m", "h")]
-    hs, c, n, m = _SLSTMScan.apply(pre, p["r"], *heads_first)
-    y = hs.permute(2, 0, 1, 3)                                  # (B,T,H,P) f32
+    hs, c, n, m = _SLSTMScan.apply(pre, r, *heads_first)
+    return hs.permute(2, 0, 1, 3), {                            # (B,T,H,P)
+        "c": c.transpose(0, 1), "n": n.transpose(0, 1),
+        "m": m.transpose(0, 1), "h": hs[-1].transpose(0, 1)}
+
+
+def _slstm_ffn(p, y, dtype):
+    ff = activation("gelu")((y @ p["ff_up"]).float()).to(dtype)
+    return ff @ p["ff_down"]
+
+
+def slstm_scan(cfg, p, x, state):
+    B, T, D = x.shape
+    pre_in = (x @ p["w_in"]).float() + p["b"]                   # (B,T,4D)
+    y, state = _slstm_heads(pre_in, p["r"], state)
     y = _rms_head_norm(y).reshape(B, T, D).to(x.dtype)
     y = y @ p["w_out"]
-    ff = activation("gelu")((y @ p["ff_up"]).float()).to(x.dtype)
-    y = y + ff @ p["ff_down"]
-    return y, {"c": c.transpose(0, 1), "n": n.transpose(0, 1),
-               "m": m.transpose(0, 1), "h": hs[-1].transpose(0, 1)}
+    return y + _slstm_ffn(p, y, x.dtype), state
+
+
+def slstm_train_par(cfg, p, x, par):
+    """The sLSTM block's training forward from the zero state on one rank
+    of a replica split over ``model`` (``Par.gather_leaves`` by
+    :func:`cell_gathers`). Where the heads divide by tp the rank runs its
+    H/tp heads: ``w_in`` (its column blocks are the z, i, f, o quarters,
+    not heads) is gathered whole and the rank takes its heads' columns of
+    each quarter (its gradient and the input's summed over ``model``),
+    ``b`` likewise from the whole leaf; ``r`` is split over the heads
+    (in place); the heads' outputs are all-gathered for ``w_out``, which
+    stays whole over ``model`` (its gradient is then whole on each rank).
+    Otherwise the cell runs whole from the gathered ``w_in``. The FFN is
+    column- then row-parallel where its width divides (``ff_up``/
+    ``ff_down`` in place, summed over ``model``), whole elsewhere."""
+    B, T, D = x.shape
+    H = cfg.n_heads
+    P = D // H
+    zero = {k: (P,) for k in ("c", "n", "m", "h")}
+    if par.splits(H):
+        hl = H // par.tp
+        h0 = par.tp_index * hl
+        xin = par.copy_to_model(x)
+        w_in = p["w_in"].reshape(D, 4, H, P)[:, :, h0:h0 + hl].reshape(
+            D, 4 * hl * P)
+        b = par.copy_to_model(p["b"]).reshape(4, H, P)[:, h0:h0 + hl] \
+            .reshape(-1)
+        y, _ = _slstm_heads((xin @ w_in).float() + b, p["r"],
+                            _zero_heads_state(B, hl, zero, x.device))
+        y = _rms_head_norm(y).reshape(B, T, hl * P).to(x.dtype)
+        y = par.gather_blocks(y, 2)
+    else:
+        y, _ = _slstm_heads((x @ p["w_in"]).float() + p["b"], p["r"],
+                            _zero_heads_state(B, H, zero, x.device))
+        y = _rms_head_norm(y).reshape(B, T, D).to(x.dtype)
+    y = y @ p["w_out"]
+    if par.splits(slstm_ff(D)):
+        ff = par.reduce_from_model(_slstm_ffn(p, par.copy_to_model(y),
+                                              x.dtype))
+    else:
+        ff = _slstm_ffn(p, y, x.dtype)
+    return y + ff
 
 
 # ===================================================================
@@ -605,6 +726,25 @@ def _mamba_chunkwise(xh, b_in, c_out, dt, a, state, chunk: int):
     return y, S0
 
 
+def _mamba_heads(xh, b_in, c_out, dt, a, S0):
+    """The selective SSM over (B, T, H, P) heads (chunkwise or a step
+    loop, by T): (y (B, T, H, P) f32, S')."""
+    T = xh.shape[1]
+    chunk = _pick_chunk(T, MAMBA_CHUNK)
+    if chunk and T >= 2 * chunk:
+        return _mamba_chunkwise(xh, b_in, c_out, dt, a, {"S": S0}, chunk)
+    S = S0
+    ys = []
+    for t in range(T):
+        xt, bt, ct, dtt = xh[:, t], b_in[:, t], c_out[:, t], dt[:, t]
+        dA = torch.exp(dtt * a)                                  # (B,H)
+        dBx = dtt[..., None, None] * (xt[..., :, None]
+                                      * bt[:, None, None, :])
+        S = dA[..., None, None] * S + dBx                        # (B,H,P,N)
+        ys.append(_bmm_last(S, ct[:, None]))
+    return torch.stack(ys, dim=1), S                             # (B,T,H,P)
+
+
 def mamba_scan(cfg, p, x, state):
     B, T, D = x.shape
     H = cfg.ssm_heads or cfg.n_heads
@@ -616,22 +756,68 @@ def mamba_scan(cfg, p, x, state):
     dt = _softplus(xc.float() @ p["w_dt"] + p["dt_bias"])        # (B,T,H)
     a = -torch.exp(p["A_log"])                                   # (H,)
     xh = xc.reshape(B, T, H, P).float()
-
-    chunk = _pick_chunk(T, MAMBA_CHUNK)
-    if chunk and T >= 2 * chunk:
-        y, S = _mamba_chunkwise(xh, b_in, c_out, dt, a, state, chunk)
-    else:
-        S = state["S"]
-        ys = []
-        for t in range(T):
-            xt, bt, ct, dtt = xh[:, t], b_in[:, t], c_out[:, t], dt[:, t]
-            dA = torch.exp(dtt * a)                              # (B,H)
-            dBx = dtt[..., None, None] * (xt[..., :, None]
-                                          * bt[:, None, None, :])
-            S = dA[..., None, None] * S + dBx                    # (B,H,P,N)
-            ys.append(_bmm_last(S, ct[:, None]))
-        y = torch.stack(ys, dim=1)                               # (B,T,H,P)
+    y, S = _mamba_heads(xh, b_in, c_out, dt, a, state["S"])
     y = y + p["D_skip"][:, None] * xh
     y = _rms_head_norm(y).reshape(B, T, D).to(x.dtype)
     y = y * _silu_as(z, x.dtype)
     return y @ p["w_out"], {"S": S, "conv": conv_state}
+
+
+def mamba_train_par(cfg, p, x, par):
+    """Hymba's Mamba branch in training, from the zero state, on one rank
+    of a replica split over ``model`` (``Par.gather_leaves`` by
+    :func:`cell_gathers`). Where the ``ssm_heads`` divide by tp the rank
+    runs its H/tp heads: the input side reads every channel, so ``w_in``
+    (its column blocks at tp 2 are the branch and the gate halves),
+    ``conv`` and the ``mlp``-split rows of ``w_bc`` and ``w_dt`` are
+    gathered whole (their gradients summed over ``model``, the input's
+    too) and the rank takes its heads' columns; ``dt_bias``, ``A_log``
+    and ``D_skip`` are split over the heads (in place); ``w_out``'s row
+    block is the rank's heads' channels (row-parallel, summed over
+    ``model``). Otherwise (hymba-1.5b's 25 heads) every leaf was gathered
+    and the branch runs whole on each rank."""
+    B, T, D = x.shape
+    H = cfg.ssm_heads or cfg.n_heads
+    if not par.splits(H):
+        return mamba_scan(cfg, p, x, init_mamba_state(
+            cfg, B, x.dtype, x.device))[0]
+    P = D // H
+    hl = H // par.tp
+    h0 = par.tp_index * hl
+    cols = slice(h0 * P, (h0 + hl) * P)
+    xin = par.copy_to_model(x)
+    xs, z = (xin @ p["w_in"]).chunk(2, dim=-1)
+    xc, _ = _causal_conv(xs, p["conv"])
+    xc = _silu_as(xc, x.dtype)
+    b_in, c_out = (xc @ p["w_bc"]).float().chunk(2, dim=-1)     # (B,T,N)
+    dt = _softplus(xc.float() @ p["w_dt"][:, h0:h0 + hl] + p["dt_bias"])
+    a = -torch.exp(p["A_log"])                                   # (hl,)
+    xh = xc[..., cols].reshape(B, T, hl, P).float()
+    S0 = torch.zeros((B, hl, P, cfg.ssm_state), dtype=torch.float32,
+                     device=x.device)
+    y, _ = _mamba_heads(xh, b_in, c_out, dt, a, S0)
+    y = y + p["D_skip"][:, None] * xh
+    y = _rms_head_norm(y).reshape(B, T, hl * P).to(x.dtype)
+    y = y * _silu_as(z[..., cols], x.dtype)
+    return par.reduce_from_model(y @ p["w_out"])
+
+
+def cell_gathers(cfg, kind: str, par) -> dict:
+    """The recurrent leaves a layer of ``kind`` all-gathers over
+    ``model`` before it runs (``Par.gather_leaves``: sub-tree -> {leaf:
+    partial}), for :func:`mlstm_train_par`, :func:`slstm_train_par` and
+    :func:`mamba_train_par`. A leaf no rule splits over ``model`` is
+    passed over."""
+    if kind == "mlstm":
+        if par.splits(cfg.n_heads):
+            return {"cell": dict.fromkeys(
+                ("w_up", "conv", "w_q", "w_k", "w_v", "w_if"), True)}
+        return {"cell": dict.fromkeys(MLSTM_DIMS, False)}
+    if kind == "slstm":
+        return {"cell": {"w_in": par.splits(cfg.n_heads)}}
+    if kind == "hybrid":
+        if par.splits(cfg.ssm_heads or cfg.n_heads):
+            return {"mamba": dict.fromkeys(("w_in", "conv", "w_bc",
+                                            "w_dt"), True)}
+        return {"mamba": dict.fromkeys(MAMBA_DIMS, False)}
+    return {}

@@ -43,12 +43,8 @@ from repro_torch.models.cache import (TRASH_PAGE, attn_cache_len,
 from repro_torch.models.common import (activation, apply_norm, apply_rope,
                                        init_norm, norm_dims, normal_init)
 from repro_torch.models.moe import (init_moe, moe_dims, moe_forward,
-                                    moe_forward_sharded)
+                                    moe_forward_ep, moe_forward_sharded)
 from repro_torch.models.types import ModelConfig
-
-
-#: what a model axis for the recurrent families waits for
-TP_REST = "ROADMAP.md Queue A 18 (the recurrent families' model axis)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -303,22 +299,35 @@ def _apply_mlp_par(cfg, p, x, par):
 
 
 def _apply_layer_train_par(cfg, spec: LayerSpec, p, x, positions, par):
-    """An attention layer of the dense or MoE families with a model axis
-    inside the replica (the layer's leaves already prepared):
-    :func:`_attn_train_par`, then :func:`_apply_mlp_par` or
-    ``moe.moe_forward_sharded``."""
+    """A layer with a model axis inside the replica (the layer's leaves
+    already prepared and gathered, :func:`model_gathers`). The recurrent
+    blocks: ``ssm.mlstm_train_par``/``slstm_train_par``. The attention
+    layers: :func:`_attn_train_par` (beside ``ssm.mamba_train_par``,
+    fused, in Hymba's), then :func:`_apply_mlp_par`, or the MoE layer:
+    ``moe.moe_forward_ep`` where the rules split the experts
+    (``par.expert_parallel``), ``moe.moe_forward_sharded`` elsewhere."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.kind in ("mlstm", "slstm"):
+        cell = (ssm.mlstm_train_par if spec.kind == "mlstm"
+                else ssm.slstm_train_par)
+        return x + cell(cfg, p["cell"], apply_norm(cfg, p["ln1"], x),
+                        par), zero
     h = apply_norm(cfg, p["ln1"], x)
     attn_out = _attn_train_par(cfg, p["attn"], h, positions, spec.window,
                                par)
+    if spec.kind == "hybrid":
+        attn_out = _fuse_hybrid(p, attn_out, ssm.mamba_train_par(
+            cfg, p["mamba"], h, par))
     if "ln1_post" in p:
         attn_out = apply_norm(cfg, p["ln1_post"], attn_out)
     x = x + attn_out
     h = apply_norm(cfg, p["ln2"], x)
-    if spec.use_moe:
+    if spec.use_moe and par.expert_parallel:
+        mlp_out, aux = moe_forward_ep(cfg, p["moe"], h, par)
+    elif spec.use_moe:
         mlp_out, aux = moe_forward_sharded(cfg, p["moe"], h, par)
     else:
-        mlp_out = _apply_mlp_par(cfg, p["mlp"], h, par)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        mlp_out, aux = _apply_mlp_par(cfg, p["mlp"], h, par), zero
     if "ln2_post" in p:
         mlp_out = apply_norm(cfg, p["ln2_post"], mlp_out)
     return x + mlp_out, aux
@@ -327,13 +336,9 @@ def _apply_layer_train_par(cfg, spec: LayerSpec, p, x, positions, par):
 def apply_layer_train(cfg, spec: LayerSpec, p, x, positions, par=None):
     """Full-sequence layer application. Returns (x, aux) — aux is the MoE
     router loss, zero for the other families. With a ``par``
-    (``models.parallel``) and a model axis, the attention layers run
+    (``models.parallel``) and a model axis, every layer runs
     :func:`_apply_layer_train_par`."""
     if par is not None and par.tp > 1:
-        if spec.kind != "attn":
-            raise NotImplementedError(
-                f"a model axis (--tp > 1) for the {cfg.family} family's "
-                f"{spec.kind} layers (ssm_heads, conv_out): {TP_REST}")
         return _apply_layer_train_par(cfg, spec, p, x, positions, par)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.kind in ("mlstm", "slstm"):
@@ -439,13 +444,30 @@ def apply_stack_train(cfg: ModelConfig, stack_params, x, positions,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     places = (None if par is None else
               [_unstack_places(pl) for pl in par.places["stack"]])
+    gathers = (None if par is None else
+               [model_gathers(cfg, spec, par) for spec in pattern])
     for n in range(n_blocks):
         layer = [_layer(p, n) for p in stack_params]
         if par is not None:
-            layer = [par.prepare(lp, pl) for lp, pl in zip(layer, places)]
+            layer = [par.gather_leaves(par.prepare(lp, pl), pl, g)
+                     for lp, pl, g in zip(layer, places, gathers)]
         x, a = block(x, layer)
         aux = aux + a
     return x, aux
+
+
+def model_gathers(cfg, spec: LayerSpec, par) -> dict:
+    """The leaves of a layer all-gathered over ``model`` before it runs
+    (``Par.gather_leaves``: sub-tree -> {leaf: partial}): the recurrent
+    cells' (``ssm.cell_gathers``) and, in the expert-parallel MoE layer,
+    the router and the shared experts, which every rank applies whole to
+    its own tokens (their gradients summed over ``model``)."""
+    if par.tp == 1:
+        return {}
+    if spec.use_moe and par.expert_parallel:
+        return {"moe": dict.fromkeys(("router", "sh_gate", "sh_up",
+                                      "sh_down"), True)}
+    return ssm.cell_gathers(cfg, spec.kind, par)
 
 
 def _unstack_places(tree):

@@ -48,6 +48,7 @@ from repro_torch.models.registry import build_model
 from repro_torch.optim import schedules as ps
 from repro_torch.train.trainer import Task, TrainConfig, Trainer, lm_task
 from test_torch_train import _Injected, _jax_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(x):

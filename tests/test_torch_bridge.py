@@ -10,6 +10,7 @@ import torch
 from repro.configs import get_smoke_config
 from repro.models.registry import build_model
 from repro_torch.bridge import params_from_numpy, params_to_numpy
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -2,6 +2,7 @@
 the ``.cu`` source, the local headers it includes and the nvcc flags.
 Runs on the CPU (nothing is compiled)."""
 from repro_torch.kernels import build
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _tree(tmp_path):

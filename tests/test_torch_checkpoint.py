@@ -41,6 +41,7 @@ from repro_torch.core.offline import window_init
 from repro_torch.resilience import (CheckpointSession, InjectedIOError,
                                     KillAt, SimulatedCrash, TransientIO,
                                     flip_bit, poison_replica, truncate_file)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FP8 = jnp.float8_e4m3fn
 

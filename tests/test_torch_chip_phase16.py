@@ -8,6 +8,7 @@ import os
 import pytest
 
 from repro_torch.launch import train as launcher
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

@@ -44,6 +44,7 @@ from repro_torch.launch.resnet_cifar import ResNetCifarConfig, \
 from repro_torch.models import convnet as tc
 from repro_torch.models.registry import build_model
 from repro_torch.optim import cosine_schedule, sgd
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _close(got, want, rel):

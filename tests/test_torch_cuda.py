@@ -800,3 +800,27 @@ def test_mesh_native_grouped_run_on_card(smoke):
         assert rank["declared_launches"] == {"wa_window_update": 2 * n}
     assert all(h["probe"]["mean_ulps"] == 0 and h["probe"]["restarts_equal"]
                and h["probe"]["wa_host_ulps"] == 0 for h in out["history"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ep_exchange_on_card_equals_cpu(smoke, dtype):
+    """The expert-parallel exchange (``ReplicaMesh.all_to_all`` over
+    ``model``, 2 ranks on the card, ``gloo``): CUDA tensors, staged
+    through host memory, give the bits the same exchange gives CPU
+    tensors; each rank receives block i from model rank i."""
+    from repro_torch.launch.mesh import spawn_ranks
+    g = torch.Generator().manual_seed(25)
+    x = torch.randn((2, 3, 40, 64), generator=g).to(dtype)
+    ranks = spawn_ranks({"data": 1, "model": 2},
+                        "repro_torch.models.moe:ep_cases",
+                        [{"exchange": x}], device="cuda",
+                        levels=[("data",), ("model",)])
+    for r, got in enumerate(ranks):
+        res = got["result"][0]
+        assert res["device"].dtype == dtype
+        assert torch.equal(res["device"].view(torch.uint8),
+                           res["cpu"].view(torch.uint8))
+        # every rank sends the same x: block i of the result is x[r]
+        assert torch.equal(res["cpu"], x[r][None].expand_as(x))
+        staged = got["ledger"]["model"]["staged_bytes"]
+        assert staged == 2 * x.numel() * x.element_size()

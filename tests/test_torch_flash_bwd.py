@@ -19,6 +19,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_fwd_ref)
 from repro_torch.models.attention import naive_attention
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B = 2
 

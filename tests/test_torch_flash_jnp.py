@@ -34,6 +34,7 @@ from repro_torch.models.attention import _pick_block, flash_attention_jnp, \
     run_attention
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import _DOT_OPS
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B = 2
 

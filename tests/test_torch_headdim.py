@@ -41,6 +41,7 @@ from repro_torch.models.registry import build_model
 from repro_torch.models.registry import lm_paged_decode_step as decode
 from repro_torch.models.registry import lm_paged_prefill_chunk as prefill
 from repro_torch.models.transformer import paged_pool_head_dim
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 #: head dims below, at and between the instances, and stablelm-12b's 160
 DIMS = [40, 64, 72, 160, 192]

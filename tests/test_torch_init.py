@@ -21,6 +21,7 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import common
 from repro_torch.models.registry import init_lm
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ["granite-3-2b", "gemma2-27b", "command-r-35b",
          "granite-moe-1b-a400m", "qwen2-moe-a2.7b"]

@@ -18,6 +18,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels.ref import (flash_attention_fwd_ref,
                                      paged_attention_ref)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -18,7 +18,9 @@ granite-3-2b smoke config in f32), on the CPU:
   0 ULP at f32;
 - the train step's exact collectives a level under FSDP×TP, with remat
   and for the MoE family, and a bf16 model's W̿ against the host's
-  per-leaf reference;
+  per-leaf reference; in the same spawn the expert-parallel MoE
+  (``expert_parallel``), its all-to-alls exact, and every sync's
+  reference audit verdict (``grouped_sync_ok``);
 - the launcher's ``--mesh-native --fsdp --tp 2 --k 2 --world-size 8``
   line.
 """
@@ -30,6 +32,7 @@ from repro_torch.common.packing import merge_groups, repack, spec_from_json
 from repro_torch.common.pytree import tree_leaves
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import train as launcher
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RUN = dict(arch="granite-3-2b", device="cpu", steps=4, sync_period=2,
            window=3, batch_size=4, seq_len=16, lr=0.1, seed=0, k=2)
@@ -127,18 +130,53 @@ def test_launcher_fsdp_tp_line(capfd):
     assert np.isfinite(float(text.split("final loss ")[1].split(",")[0]))
 
 
-def test_audit_and_ep_wait_for_their_items():
-    """What this slice leaves: the collective audit (A14) and the
-    expert-parallel MoE (A17) raise, naming their ROADMAP.md items."""
-    from repro_torch.launch.sync.bundles import sync_collective_audit
-    from repro_torch.models import moe
-    with pytest.raises(NotImplementedError, match="Queue A 14"):
-        sync_collective_audit()
-    with pytest.raises(NotImplementedError, match="Queue A 17"):
-        moe.moe_forward_ep(None, {}, None, mesh=None)
+@pytest.fixture(scope="module")
+def step_runs():
+    """FSDP×TP (K 2 × data 2 × model 2), one spawn: a bf16 granite, a
+    granite under remat "full", a qwen2-moe under remat "dots" with its
+    experts' hidden dim split, and a qwen2-moe under remat "full" built
+    with ``expert_parallel`` (its experts split over ``model``)."""
+    form = dict(RUN, tp=2, fsdp=True, world_size=8)
+    cfgs = [get_smoke_config("granite-3-2b").with_(dtype="bfloat16"),
+            get_smoke_config("granite-3-2b").with_(remat="full"),
+            get_smoke_config("qwen2-moe-a2.7b").with_(remat="dots"),
+            get_smoke_config("qwen2-moe-a2.7b").with_(
+                remat="full", expert_parallel=True)]
+    return launcher.run_mesh_native(
+        [launcher.mesh_args(**dict(form, arch=c.name)) for c in cfgs],
+        cfg=cfgs, probe=["host", True, True, True], with_state=False,
+        expert_parallel=[False, False, False, True])
 
 
-def test_exact_step_collectives_under_remat_and_bf16_host_reference():
+def test_audit_and_ep_wait_for_their_items(step_runs):
+    """The collective audit (A14) and the expert-parallel MoE (A17) under
+    FSDP×TP: every sync of the four runs passes the reference's grouped
+    verdict (one replica all-reduce, nothing crossing ``data`` or
+    ``model``); the expert-parallel train step (qwen2-moe, the experts
+    split over ``model``, the shared experts gathered) issues exactly the
+    collectives it declares, six all-to-alls a layer a step under remat
+    (dispatch and return, twice forward and once backward), and its
+    syncs' W̄ are 0 ULP from their oracle."""
+    for out in step_runs:
+        assert launcher.audit_violations(out) == []
+        for rank in out["ranks"]:
+            for s in rank["syncs"]:
+                assert s["audit"]["grouped_sync_ok"]
+                assert s["audit"]["n_groups"] == out["layout"]["n_groups"]
+    ep = step_runs[3]
+    assert ep["layout"]["grouped"]
+    assert launcher.contract_violations(ep) == []
+    assert np.isfinite(ep["final_loss"]) and ep["wa_finite"]
+    for rank in ep["ranks"]:
+        assert rank["train_declared"]["model"]["all_to_all"] == 2 * 6
+        assert rank["train_collectives"]["model"]["all_to_all"] \
+            == 2 * 6 * RUN["steps"]
+    for h in ep["history"]:
+        assert h["probe"]["mean_ulps"] == 0 and h["probe"]["restarts_equal"]
+
+
+def test_exact_step_collectives_under_remat_and_bf16_host_reference(
+        step_runs):
     """FSDP×TP (K 2 × data 2 × model 2), one spawn: the train step
     declares exact counts a level (``bundles.par_step_collectives``),
     which the ledger meets, under remat too (the layer's forward runs
@@ -146,13 +184,7 @@ def test_exact_step_collectives_under_remat_and_bf16_host_reference():
     MoE family's split experts and shared experts; a bf16 model's W̿ is
     0 ULP from the host's per-leaf ``hwa_sync`` (the replicas widened to
     f32, as the packed sync means them)."""
-    form = dict(RUN, tp=2, fsdp=True, world_size=8)
-    cfgs = [get_smoke_config("granite-3-2b").with_(dtype="bfloat16"),
-            get_smoke_config("granite-3-2b").with_(remat="full"),
-            get_smoke_config("qwen2-moe-a2.7b").with_(remat="dots")]
-    outs = launcher.run_mesh_native(
-        [launcher.mesh_args(**dict(form, arch=c.name)) for c in cfgs],
-        cfg=cfgs, probe=["host", True, True], with_state=False)
+    outs = step_runs[:3]
     # granite: the vocab's 4 sums, 2 layers of attention and MLP (2 sums
     # each, the forward's twice under remat); FSDP's 19 gathered leaves
     # (a gather and a backward sum each) and the data mean's sum a dtype

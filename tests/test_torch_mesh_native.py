@@ -45,6 +45,7 @@ from repro_torch.common.packing import ALIGN
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import train as launcher
 from repro_torch.models.registry import build_model
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "granite-3-2b"
 RUN = dict(arch=ARCH, device="cpu", steps=8, sync_period=2, window=3,
@@ -195,7 +196,7 @@ def test_launcher_cli_and_refusals(tmp_path, capfd):
     assert rec["syncs"] == 2 and "_state" not in rec
     assert len(rec["losses"]) == 4 and len(rec["losses"][0]) == 2
     for argv, err in [
-            (["--tp", "2", "--arch", "xlstm-125m"], NotImplementedError),
+            (["--tp", "2", "--arch", "internvl2-1b"], SystemExit),
             (["--tp", "2", "--attn-impl", "flash_pallas"], SystemExit),
             (["--tp", "2", "--world-size", "6"], SystemExit),
             (["--comms-dtype", "bf16"], SystemExit),
@@ -204,10 +205,15 @@ def test_launcher_cli_and_refusals(tmp_path, capfd):
             (["--resume"], SystemExit),
             (["--sync-tree", "two-level", "--k", "4", "--resilient",
               "--comms-dtype", "fp8"], SystemExit)]:
-        with pytest.raises(err, match="A 18|--tp must stay 1|divisible by "
+        with pytest.raises(err, match="LM families|--tp must stay 1|"
+                                      "divisible by "
                                       "K×tp|two-level|K divisible|out of "
                                       "range|--resume|resilient"):
             launcher.main(["--device", "cpu", "--mesh-native"] + argv)
+    # the recurrent families take a model axis (their run:
+    # tests/test_torch_mesh_recurrent.py)
+    for arch in ("xlstm-125m", "hymba-1.5b"):
+        launcher._check_mesh_args(launcher.mesh_args(arch=arch, tp=2))
     for argv in (["--inject-nan", "2:1"], ["--wa-dtype", "bf16"]):
         with pytest.raises(SystemExit, match="--mesh-native"):
             launcher.main(["--device", "cpu"] + argv)

@@ -40,6 +40,7 @@ from repro_torch.common.packing import (merge_groups, pack_spec, repack,
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import train as launcher
 from repro_torch.models.registry import build_model
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RUN = dict(device="cpu", steps=4, sync_period=2, window=3, batch_size=4,
            seq_len=16, lr=0.1, seed=0)

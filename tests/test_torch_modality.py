@@ -57,6 +57,7 @@ from repro_torch.optim import sgd
 from repro_torch.serve.engine import PagedDecodeEngine, \
     apply_delay_pattern, undo_delay_pattern
 from repro_torch.serve.scheduler import ContinuousScheduler, Request
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ["internvl2-1b", "musicgen-medium"]
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -24,6 +24,7 @@ from repro_torch.models.attention import run_attention
 from repro_torch.models.registry import build_model, init_lm
 from repro_torch.models.registry import lm_paged_decode_step as decode
 from repro_torch.models.registry import lm_paged_prefill_chunk as prefill
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

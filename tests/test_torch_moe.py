@@ -12,8 +12,9 @@ same bridged parameters and the same numpy inputs made from a seed:
   JAX Trainer on its batches, per-step losses and W̿ within 1e-5;
 - the layer under ``remat`` "full" and "dots": loss and gradients
   bit-equal to no remat (the routing is recomputed to the same bits);
-- the launchers with a MoE ``--arch`` on the CPU, and the unported
-  sharded paths raising.
+- the launchers with a MoE ``--arch`` on the CPU, and where the
+  expert-parallel layer is reached (``tests/test_torch_ep.py`` holds it
+  against the reference's).
 
 The differences come from the order in which XLA's and torch's CPU
 matmuls add (measured <= 5e-7 on out, 0 on aux here).
@@ -41,6 +42,7 @@ from repro_torch.models import moe
 from repro_torch.models.registry import build_model
 from repro_torch.train.trainer import Task, TrainConfig, Trainer, lm_task
 from test_torch_train import _Injected, _record
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ["granite-moe-1b-a400m", "qwen2-moe-a2.7b"]
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -201,8 +203,14 @@ def test_moe_sharded_paths_raise():
     """``expert_parallel=True`` selects nothing where no sharding rules
     apply, as in the reference (its mesh-native path included): the
     model builds and its layer is :func:`moe_forward`'s, bit for bit. The
-    expert-parallel all-to-all path still raises, naming its ROADMAP.md
-    item."""
+    rules split the experts over ``model`` only for a train step built
+    with ``expert_parallel`` (``bundles.replica_layout``, the layer then
+    ``moe_forward_ep``), which refuses a config without the flag and a
+    model axis that does not divide the experts."""
+    from repro_torch.launch.mesh import MeshLayout
+    from repro_torch.launch.sync.bundles import replica_layout
+    from repro_torch.launch.sync.topology import Flat
+    from repro_torch.models.parallel import experts_split
     cfg = get_smoke_config(ARCHS[0])
     ep = cfg.with_(expert_parallel=True)
     build_model(ep)
@@ -214,5 +222,21 @@ def test_moe_sharded_paths_raise():
     want, aux = moe.moe_forward(cfg, p, x)
     got, aux_ep = moe.moe_forward(ep, p, x)
     assert torch.equal(got, want) and torch.equal(aux_ep, aux)
-    with pytest.raises(NotImplementedError, match="Queue A 17"):
-        moe.moe_forward_ep(cfg, {}, x, mesh=None)
+    mesh = MeshLayout({"replica": 2, "model": 2})
+
+    def w_gate(layout):
+        return layout.places["stack"][0]["moe"]["w_gate"].spec
+    plain = replica_layout(build_model(ep), mesh, Flat("replica"))
+    assert not experts_split(plain.places)
+    assert w_gate(plain) == (None, None, None, "model")     # mlp split
+    split = replica_layout(build_model(ep), mesh, Flat("replica"),
+                           expert_parallel=True)
+    assert experts_split(split.places)
+    assert w_gate(split) == (None, "model", None, None)     # experts split
+    with pytest.raises(ValueError, match="expert_parallel=True"):
+        replica_layout(build_model(cfg), mesh, Flat("replica"),
+                       expert_parallel=True)
+    with pytest.raises(ValueError, match="dividing them"):
+        replica_layout(build_model(ep.with_(n_experts=3)), MeshLayout(
+            {"replica": 2, "model": 2}), Flat("replica"),
+            expert_parallel=True)

@@ -34,6 +34,7 @@ from repro_torch.serve.engine import PagedDecodeEngine
 from repro_torch.serve.publish import WeightPublisher, wa_snapshot
 from repro_torch.serve.scheduler import ContinuousScheduler, Request
 from test_torch_serve import _trace
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(max_batch=3, max_seq_len=64, max_new=8, page_size=4,

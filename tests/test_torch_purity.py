@@ -15,6 +15,7 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import PagedDecodeEngine
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")

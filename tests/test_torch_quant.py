@@ -17,6 +17,7 @@ from repro.common.packing import pack_spec as jax_pack_spec
 from repro_torch.bridge import params_from_numpy, params_to_numpy
 from repro_torch.common import quant as q
 from repro_torch.common.packing import ALIGN, pack_spec
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B = q.SCALE_BLOCK
 

@@ -64,24 +64,13 @@ from repro_torch.models import ssm
 from repro_torch.models.registry import build_model, init_lm
 from repro_torch.train.trainer import Task, TrainConfig, Trainer, lm_task
 from test_torch_train import _Injected, _record
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ["xlstm-125m", "hymba-1.5b"]
 LOGIT_TOL = dict(rtol=2e-5, atol=2e-5)
 TOL = dict(rtol=1e-5, atol=1e-5)
 #: the constant leaves of the recurrent layers (last key of the path)
 CONSTANT = ("b_if", "b", "dt_bias", "A_log", "D_skip", "fuse", "scale")
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """The cells' step loops are thousands of small ops: with the CPU's
-    threads contended by the suite's other workers, each op's parallel
-    region costs far more than the op (an xlstm test took 30x its time
-    alone). One thread a test, restored after."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _models(arch):

@@ -39,6 +39,7 @@ from repro_torch.kernels import wa_update as wa
 from repro_torch.launch import train as launch_train
 from repro_torch.resilience import check
 from repro_torch.resilience import health as th
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _bits(x):

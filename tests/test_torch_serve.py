@@ -24,6 +24,7 @@ from repro_torch.serve.engine import PagedDecodeEngine
 from repro_torch.serve.pages import PageManager
 from repro_torch.serve.scheduler import ContinuousScheduler, Request
 from test_torch_models import smoke_configs
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

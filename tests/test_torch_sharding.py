@@ -41,6 +41,7 @@ from repro_torch.core.offline import WindowState
 from repro_torch.launch.sync.packed import choose_resident_spec
 from repro_torch.models.registry import build_model, param_dims
 from repro_torch.sharding.rules import flatten_dims, make_tp_rules
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LM_ARCHS = ["granite-3-2b", "gemma2-27b", "stablelm-12b", "command-r-35b",
             "granite-moe-1b-a400m", "qwen2-moe-a2.7b", "xlstm-125m",

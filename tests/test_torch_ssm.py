@@ -43,6 +43,7 @@ from repro.models.types import ModelConfig as JaxModelConfig
 from repro_torch.bridge import params_from_numpy
 from repro_torch.models import ssm
 from repro_torch.models.types import ModelConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 _KW = dict(name="t", family="ssm", n_layers=2, d_model=64, n_heads=4,
@@ -58,18 +59,6 @@ CELLS = {
     "mamba": (jssm.init_mamba, jssm.init_mamba_state, jssm.mamba_scan,
               ssm.init_mamba_state, ssm.mamba_scan),
 }
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """The cells' step loops are thousands of small ops: with the CPU's
-    threads contended by the suite's other workers, each op's parallel
-    region costs far more than the op (an xlstm test took 30x its time
-    alone). One thread a test, restored after."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _setup(cell, T, B=2, seed=1):

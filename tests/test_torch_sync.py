@@ -57,6 +57,7 @@ from repro_torch.launch.sync import bundles as pbundles
 from repro_torch.launch.sync import packed as ppacked
 from repro_torch.launch.sync import plan as pplan
 from repro_torch.launch.sync import topology as ptopo
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 I = 3
 JOB = "repro_torch.launch.sync.bundles:sync_cases"

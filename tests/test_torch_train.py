@@ -44,6 +44,7 @@ from repro_torch.data import DataPipeline, make_markov_lm_dataset, \
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw, apply_updates, sgd
 from repro_torch.train.trainer import Task, TrainConfig, Trainer, lm_task
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _bits(x):

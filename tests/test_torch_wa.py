@@ -35,6 +35,7 @@ from repro_torch.core.hwa import HWAConfig, hwa_sync
 from repro_torch.core.offline import window_average_packed
 from repro_torch.kernels import wa_update as wa
 from repro_torch.kernels.ref import wa_sync_fused_ref
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _bits(x):

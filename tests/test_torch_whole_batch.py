@@ -32,20 +32,11 @@ from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.models import cache
 from repro_torch.models.registry import build_model
 from repro_torch.serve.engine import DecodeEngine, PagedDecodeEngine
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 #: the reference's tests/test_decode_consistency.py ARCHS
 ARCHS = ["granite-3-2b", "gemma2-27b", "xlstm-125m", "hymba-1.5b",
          "musicgen-medium", "internvl2-1b", "qwen2-moe-a2.7b"]
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """The recurrent cells' step loops are many small ops: one thread a
-    test (see tests/test_torch_recurrent.py), restored after."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _batch(cfg, B, S, seed=1):

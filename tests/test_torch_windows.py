@@ -52,6 +52,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import wa_update as wa
 
 from test_torch_train import _Injected, _record
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _bits(x):
