@@ -284,6 +284,25 @@ raising on any failure:
                layer within 1e-3 of the TP layer at capacity E/k.
                ``[mesh17]`` lines give each sync's ms and bytes a level,
                each rank's peak memory and the train steps' collectives.
+18. lint     — the contract checker (``repro_torch.analysis``) on the
+               card, right after phase 17, spawning nothing. 18a: the
+               lint's in-process cases at granite-3-2b's published width
+               cut to MESH_LAYERS, ``flash_pallas``: the paged decode
+               step (the paged kernel once an attention layer), the
+               stacked syncs of K 2 (``sync/legacy-kernel@1dev``) and K 4
+               (``sync/flat-vmap-k4-kernel``), the fused sync once each,
+               and the stacked K 2 train step (the flash forward and both
+               sweeps once a layer a replica): every pass holds, the
+               launch budgets exactly. 18b, inside phases 15-17's
+               ``_mesh_checks``: the collectives, dtype and donation
+               passes on every sync and rest call those runs recorded
+               (payload dtypes a level, 15c's bf16 and fp8 wire views
+               included; a sync's window state, which it returns, kept
+               in place; each call's peak allocation above its start
+               within the working set its builder declares).
+               ``[lint18]`` lines give each case's launches and peak
+               beside its declared working set, and each run's recorded
+               payloads and its call closest to its bound.
 6. yardstick — each kernel timed at its main path's shapes (CUDA-graph
                replay between CUDA events: device time, cold L2), beside
                its plain version, a library call where one exists, and
@@ -4130,33 +4149,56 @@ def launcher_violations(out) -> list[str]:
     return contract_violations(out) + audit_violations(out)
 
 
+#: 18b's record: per checked run, its recorded calls' payloads and peaks
+LINT_RECORDED: list = []
+
+
 def _mesh_checks(label, out, *, exact=True, cuda=True):
     """Every rank's train steps and syncs issue exactly the collectives
     their bundles declare (``launch.train.contract_violations``: a train
-    step never crosses a replica axis; with one rank a replica it issues
-    none), every sync passes the reference's audit
+    step never crosses a replica axis, with one rank a replica it issues
+    none; every recorded sync and rest call passes the contract
+    checker's collectives pass), every sync passes the reference's audit
     (``launch.train.audit_violations``: flat, grouped, the tree's inner
-    and outer levels), and on the card launch exactly the kernels the
-    bundles
-    declare; every rank restarted from the same W̄; with ``exact`` every
-    W̄ 0 ULP from its core.online oracle."""
-    bad = launcher_violations(out)
+    and outer levels), every recorded sync and rest call passes the
+    dtype and donation passes (18b: ``launch.train
+    .recorded_violations``: its payloads and arguments, its window state
+    in place, on the card its peak within its declared working set), and
+    on the card launch exactly the kernels the bundles declare; every
+    rank restarted from the same W̄; with ``exact`` every W̄ 0 ULP from
+    its core.online oracle. Each failure names its pass."""
+    from repro_torch.launch.train import recorded_violations
+    bad = launcher_violations(out) + recorded_violations(
+        out, ("dtype", "donation"))
     if bad:
-        raise AssertionError(f"{label}: collectives off their contracts "
-                             f"or audits: {bad}")
+        raise AssertionError(f"{label}: calls off their contracts: {bad}")
     for rank in out["ranks"]:
         want = rank["declared_launches"]
         got = {k: v for k, v in rank["launches"].items() if v}
         if cuda and (want is None
                      or got != {k: v for k, v in want.items() if v}):
-            raise AssertionError(f"{label}: rank {rank['rank']} launched "
-                                 f"{got}, its bundles declare {want}")
+            raise AssertionError(f"{label}: launch_budget: rank "
+                                 f"{rank['rank']} launched {got}, its "
+                                 f"bundles declare {want}")
     bad = [h for h in out["history"] if "probe" in h and (
         not h["probe"]["restarts_equal"]
         or (exact and h["probe"]["mean_ulps"]))]
     if bad:
         raise AssertionError(f"{label}: W̄ off its oracle, or ranks "
                              f"restarted from different W̄: {bad}")
+    calls = [c for r in out["ranks"] for c in r["syncs"] + r["rests"]]
+    payloads: dict = {}
+    for c in calls:
+        for _, lvl, tok in c["artifacts"].payloads:
+            payloads.setdefault(lvl, set()).add(tok)
+    peaks = [(c["artifacts"].peak_above_start,
+              c["contract"].donation.peak_bytes)
+             for c in calls if c["artifacts"].peak_above_start is not None
+             and c["contract"].donation.peak_bytes is not None]
+    LINT_RECORDED.append({"label": label, "calls": len(calls),
+                          "payloads": {k: sorted(v)
+                                       for k, v in payloads.items()},
+                          "peaks": peaks})
 
 
 def _stacked_mesh_run(dev, cfg, K):
@@ -4744,6 +4786,65 @@ def phase_mesh_model_axis(device):
           f"17d's tp 2 runs, beside 17d's single-rank runs and layer "
           f"check) | {CARD['line']}")
     return res
+
+
+# ------------------------------------------------ 18. the contract checker
+
+
+def phase_lint(device):
+    """Phase 18. 18a: the lint's in-process cases
+    (``analysis.lint.default_cases`` without a mesh) on ``device`` at
+    phase 15's model (granite-3-2b at its published width cut to
+    MESH_LAYERS, ``flash_pallas``, remat off; the smoke config when
+    MESH_FULL is off), the stacked train step under ``flash_pallas``:
+    every pass holds and, on the card, every launch budget is exact.
+    18b: the summary of the passes ``_mesh_checks`` ran on phases 15-17's
+    recorded calls. Returns the report, the launches and 18b's record."""
+    from repro_torch.analysis import lint
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    _free(dev)
+    cfg = _mesh_cfg()
+    cases = [c for c in lint.default_cases(cfg, train_attn="flash_pallas")
+             if c.mesh is None]
+    facts = {}
+    _reset_counts()
+    t0 = time.perf_counter()
+    rep = lint.run_lint(cases, device=device, facts=facts,
+                        log=lambda *_: None)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    bad = []
+    for name, entry in rep["bundles"].items():
+        if "error" in entry:
+            bad.append(f"{name}: {entry['error']}")
+            continue
+        lb = entry["passes"]["launch_budget"]
+        if cuda and lb["skipped"]:
+            bad.append(f"{name}: launch_budget skipped on the card")
+        for p, r in entry["passes"].items():
+            bad += [f"{name}: {p}: {v}" for v in r["violations"]]
+        print(f"[lint18] 18a {name}: {'PASS' if entry['ok'] else 'FAIL'}; "
+              f"{lb['evidence'][0]}; "
+              + "; ".join(entry["passes"]["donation"]["evidence"]))
+    print(f"[lint18] 18a: {cfg.name} L{cfg.n_layers} d{cfg.d_model}, "
+          f"{len(cases)} cases in {secs:.1f} s, launches "
+          f"{ {k: v for k, v in launches.items() if v} } | {CARD['line']}")
+    for r in LINT_RECORDED:
+        worst = max(r["peaks"], key=lambda x: x[0] / x[1], default=None)
+        print(f"[lint18] 18b {r['label']}: {r['calls']} recorded sync/rest "
+              f"calls held to their collectives, dtype and donation "
+              f"contracts; payloads {r['payloads']}"
+              + ("" if worst is None else
+                 f"; closest peak above a call's start {worst[0]} B of its "
+                 f"declared working set {worst[1]} B"))
+    if bad:
+        raise AssertionError(f"phase 18: {bad}")
+    if cuda and not LINT_RECORDED:
+        raise AssertionError("phase 18b: no run of phases 15-17 recorded")
+    return {"report": rep, "launches": launches, "seconds": secs,
+            "recorded": list(LINT_RECORDED), "facts": facts}
 
 
 # --------------------------------------------------------- 6. yardstick
@@ -5496,6 +5597,8 @@ def main() -> int:
     stamp("phase 16")
     model_axis = phase_mesh_model_axis(device)
     stamp("phase 17")
+    lint18 = phase_lint(device)
+    stamp("phase 18")
     serve, eng = phase_serve(device)
     phase_trace(device, eng, serve)
     del eng                  # its timing wrappers hold it in a cycle: collect
@@ -5606,7 +5709,9 @@ def main() -> int:
              # phase 17: every rank's launches, summed over the ranks
              "mesh_xlstm_tp": model_axis["xlstm_tp"]["launches"],
              "mesh_hymba_tp": model_axis["hymba_tp"]["launches"],
-             "mesh_ep": model_axis["ep"]["launches"]}
+             "mesh_ep": model_axis["ep"]["launches"],
+             # phase 18a: the lint's in-process cases
+             "lint": lint18["launches"]}
     for e in entries:
         by_path = e.setdefault("launches_by_path", {"train": e["launches"]})
         for path, counts in paths.items():

@@ -141,25 +141,42 @@ def decode_slot(slot: torch.Tensor, scales=None,
     return dequantize_fp8(slot, scales, block)
 
 
+def _two_sum(a, b):
+    """Knuth's TwoSum: ``s = RN(a + b)`` and its exact error ``e``."""
+    s = a + b
+    z = s - a
+    return s, (a - (s - z)) + (b - z)
+
+
+def _split(x):
+    """Veltkamp's split of an f32 into two halves of at most 12
+    significant bits each (x = hi + lo exactly)."""
+    t = x * 4097.0
+    hi = t - (t - x)
+    return hi, x - hi
+
+
 def fma_f32(a, b, c):
-    """``a·b + c`` for f32 tensors, rounded ONCE as a fused multiply-add:
-    the product is exact in f64 (24 + 24 bits), the f64 sum is rounded
-    to odd (a TwoSum error moves an inexact, even result one step toward
-    the exact value), and the cast to f32 then rounds to nearest even
-    correctly (53 >= 24 + 2 bits)."""
-    p = a.double() * b.double()
-    cd = c.double()
-    s = p + cd
-    z = s - p
-    err = (p - (s - z)) + (cd - z)
-    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
-                         torch.full_like(s, float("-inf")))
-    even = (s.view(torch.int64) & 1) == 0
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.to(torch.float32)
-
-
-# -------------------------------------------------- compensated summation
+    """``a·b + c`` for f32 tensors, rounded ONCE as a fused multiply-add,
+    in f32 arithmetic only (Boldo and Melquiond's emulation with
+    rounding to odd): Dekker's product gives a·b exactly as ph + pl; a
+    TwoSum gives c + ph exactly as th + tl; tl + pl is rounded to odd (a
+    TwoSum error moves an inexact, even result one step toward the exact
+    value), and th plus it then rounds to nearest even correctly. Exact
+    while no product or partial underflows, as the sync's operands (fp8
+    payloads times block scales) never do."""
+    ph = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    pl = ((ah * bh - ph) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, ph)
+    v, e = _two_sum(tl, pl)
+    toward = torch.where(e > 0, torch.full_like(v, float("inf")),
+                         torch.full_like(v, float("-inf")))
+    even = (v.view(torch.int32) & 1) == 0
+    v = torch.where((e != 0) & even, torch.nextafter(v, toward), v)
+    # a zero v keeps th's sign (-0 + -0·x is -0)
+    return torch.where(v == 0, th, th + v)
 
 
 def kahan_add(total, comp, delta):

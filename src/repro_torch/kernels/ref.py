@@ -75,7 +75,7 @@ def wa_window_update_c_ref(ring, scales, total, comp, new, idx, full_flag,
 
     ring, scales, total and comp are written IN PLACE, SLOT_CHUNK
     elements at a time (whole scale blocks, so the bits are those of one
-    pass; the f64 temporaries of the fp8 path stay a chunk's). Returns
+    pass; the fp8 path's temporaries stay a chunk's). Returns
     (ring, scales, total, comp, avg = total'·inv_count)."""
     row = idx.reshape(1).long()
     # the row moves as integer bits: index_copy_ has no fp8 version

@@ -39,7 +39,9 @@ one contribution, an all-to-all's whole send buffer), and
 Nothing else touches it, as nothing but a kernel's wrapper touches its
 launch count. Inside :func:`record_groups` the wrappers also log the
 rank group each collective ran on (``launch.sync.bundles
-.sync_collective_audit`` reads it).
+.sync_collective_audit`` and ``analysis.passes`` read it), and inside
+:func:`record_payloads` each collective's level and payload dtype as it
+crosses (``analysis.passes``' dtype pass), outside the ledger's rows.
 
 :func:`spawn_ranks` starts the K processes (``spawn``), runs a named
 function in each with its mesh and collects what each returns.
@@ -93,6 +95,30 @@ def record_groups():
 def _log_group(op: str, ranks) -> None:
     if GROUPS is not None:
         GROUPS.append((op, sorted(ranks)))
+
+
+#: while :func:`record_payloads` is open: ``(op, level, dtype)`` of every
+#: collective this process runs, ``dtype`` its payload's as it crosses
+#: (a compressed payload's ``uint8`` view, not the float it carries)
+PAYLOADS: list | None = None
+
+
+@contextlib.contextmanager
+def record_payloads():
+    """Log the level and payload dtype of every collective this process
+    runs inside the block into the list it yields: one entry a
+    collective call, a hypercube chain's rounds one each."""
+    global PAYLOADS
+    outer, PAYLOADS = PAYLOADS, []
+    try:
+        yield PAYLOADS
+    finally:
+        PAYLOADS = outer
+
+
+def _log_payload(op: str, level: str, dtype) -> None:
+    if PAYLOADS is not None:
+        PAYLOADS.append((op, level, dtype))
 
 
 def ledger_snapshot() -> dict[str, dict[str, int]]:
@@ -282,6 +308,7 @@ class ReplicaMesh(MeshLayout):
         staged = self.backend == "gloo" and x.is_cuda
         nbytes = x.numel() * x.element_size()
         _tally(level, op, nbytes, 2 * nbytes if staged else 0)
+        _log_payload(op, level, x.dtype)
         if ranks is not None:
             _log_group(op, ranks)
         dst = x.device if out_device is None else torch.device(out_device)

@@ -31,10 +31,12 @@ layout splits them (``flash_pallas`` with ``--fsdp``), the rank syncs its
 block in place and the rest step all-gathers the replica's blocks back,
 outside the sync.
 
-:func:`sync_collective_budget` declares what a sync issues, per level
-(``launch.mesh.LEDGER``'s names). ``launch.train.mesh_rank`` records
-each call's contract beside its ledger delta and launch counts, and the
-tests and ``chip_smoke.py`` hold the counts to it;
+:func:`sync_collective_contract` declares what a sync issues, per level
+(``launch.mesh.LEDGER``'s names), as an ``analysis.contracts``
+``BundleContract``: the one declaration that ``launch.train.mesh_rank``
+records beside each call's record (``analysis.passes.record_call``), that
+``analysis.passes`` checks it against, and whose
+``BundleContract.ledger`` view the tests hold the ledger's counts to.
 :func:`sync_collective_audit` gives each sync the reference's per-level
 verdicts over the rank groups its collectives ran on.
 """
@@ -47,6 +49,11 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.analysis.contracts import (DEFAULT_CONTRACT, PEAK_SLACK,
+                                            BundleContract,
+                                            CollectiveContract,
+                                            DonationPolicy, LaunchBudget,
+                                            sync_contract, train_contract)
 from repro_torch.common.packing import pack_spec
 from repro_torch.common.pytree import tree_leaves
 from repro_torch.core.hwa import HWAConfig, hwa_local_inner_step
@@ -54,7 +61,8 @@ from repro_torch.launch.mesh import _is_pow2, level_name
 from repro_torch.launch.sync.packed import (_local_inner_sync,
                                             _local_packed_sync,
                                             choose_resident_spec,
-                                            packed_sync_launch_budget)
+                                            packed_sync_launch_budget,
+                                            packed_sync_working_set)
 from repro_torch.launch.sync.topology import Flat, SyncTopology, TwoLevel
 from repro_torch.optim import adamw, sgd
 
@@ -62,17 +70,26 @@ from repro_torch.optim import adamw, sgd
 @dataclasses.dataclass(frozen=True)
 class StepBundle:
     """A step callable with what it declares: ``pack_spec`` (the packed
-    layout its window state lives in; None for the train step) and
-    ``contract`` (``launches``: kernel -> launches a call on the card,
-    None where not exact; ``collectives``: level -> {op: count} a
-    call; the train step's a function of the batch's sequence
-    length)."""
+    layout its window state lives in; None for a train step),
+    ``contract`` (an ``analysis.contracts.BundleContract``: the
+    collectives a call issues a level, the kernels it launches on the
+    card, its dtype and in-place discipline), ``donate_argnums`` (the
+    arguments whose every leaf it writes in place and returns as the
+    state the caller carries on) and ``carry``:
+    ``carry(args, out)`` gives the arguments the caller passes to the
+    next call, the state it carries on (``args`` itself when None)."""
     fn: Callable
     pack_spec: Any = None
-    contract: dict = dataclasses.field(default_factory=dict)
+    contract: BundleContract = DEFAULT_CONTRACT
+    donate_argnums: tuple = ()
+    carry: Callable | None = None
 
     def __call__(self, *args, **kwargs):
         return self.fn(*args, **kwargs)
+
+    def next_args(self, args, out) -> tuple:
+        return tuple(args) if self.carry is None \
+            else tuple(self.carry(args, out))
 
 
 def _mk_optimizer(name: str):
@@ -122,12 +139,11 @@ class ReplicaLayout:
         return self.spec.is_sharded
 
 
-def _level_cost(n: int, times: int = 1) -> dict:
-    """One ``ReplicaMesh.psum`` over a level of ``n`` ranks, ``times``
-    times: its two-way all-reduce chain, or an all-gather."""
-    if _is_pow2(n):
-        return {"all_reduce": times * (n.bit_length() - 1)}
-    return {"all_gather": times}
+def _level_op(n: int) -> str:
+    """The collective one ``ReplicaMesh.psum`` over a level of ``n`` ranks
+    is, as ``launch.mesh.record_groups`` logs it: one all-reduce (its
+    two-way chain), or an all-gather."""
+    return "all_reduce" if _is_pow2(n) else "all_gather"
 
 
 def inner_axes(mesh) -> tuple[str, ...]:
@@ -183,35 +199,55 @@ def replica_layout(lm, mesh, topology: SyncTopology, *, fsdp=False,
         spec=spec, whole=lm.cfg.attn_impl == "flash_pallas")
 
 
-def sync_collective_budget(mesh, topology: SyncTopology, *,
-                           comms_dtype: str = "f32", resilient=False,
-                           inner_only: bool = False) -> dict:
-    """The collectives one sync issues on every rank, per level: a level
-    of 2^m ranks costs m two-way all-reduces (twice that resilient: the
-    alive count, then the weights), another size one all-gather (two
-    resilient); the compressed outer level of the tree one all-gather
-    (bf16) or two (fp8: payload and scales). A level of one rank costs
-    nothing. A resilient full sync of a replica split over inner axes
-    adds one psum of the health stats over them."""
+def sync_collective_contract(mesh, topology: SyncTopology, *, launches,
+                             comms_dtype: str = "f32", resilient=False,
+                             inner_only: bool = False,
+                             float_args=("f32",),
+                             peak_bytes: int | None = None, notes: str = ""
+                             ) -> BundleContract:
+    """The sync's contract (``analysis.contracts.sync_contract`` over the
+    rank mesh). Its collectives, as a process logs them
+    (``launch.mesh.record_groups``): a level's psum one all-reduce (one
+    all-gather where its size is not a power of two), two resilient (the
+    alive count, then the weights); the compressed outer level of the
+    tree one all-gather (bf16) or two (fp8: payload and scales); a level
+    of one rank nothing; a resilient full sync of a replica split over
+    inner axes one psum of the health stats over them, the one budgeted
+    non-level collective. ``launches``: the kernels a call launches on
+    the card. Payloads are f32 but for a compressed outer level, which
+    crosses as the ``uint8`` view of its narrow float
+    (``packed._psum_composition``) beside f32 (the fp8 scales).
+    ``peak_bytes``: the declared working set
+    (``packed.packed_sync_working_set``)."""
     groups = (topology.inner_groups() if inner_only
               else topology.psum_groups())
     non_empty = [i for i, axes in enumerate(groups) if axes]
     last = non_empty[-1] if non_empty else None
-    per = 2 if resilient else 1
-    out = {}
+    rows = []
     for i, axes in enumerate(groups):
         n = mesh.size(axes) if axes else 1
         if n == 1:
-            continue
-        if comms_dtype != "f32" and i == last:
-            row = {"all_gather": 2 if comms_dtype == "fp8" else 1}
+            rows.append({})
+        elif comms_dtype != "f32" and i == last:
+            rows.append({"all_gather": 2 if comms_dtype == "fp8" else 1})
         else:
-            row = _level_cost(n, per)
-        out[level_name(tuple(a for a in mesh.shape if a in axes))] = row
+            rows.append({_level_op(n): 2 if resilient else 1})
+    other = {}
     health = inner_axes(mesh)
     if resilient and not inner_only and health:
-        out[level_name(health)] = _level_cost(mesh.size(health))
-    return out
+        other[level_name(health)] = {_level_op(mesh.size(health)): 1}
+    payloads = ("f32",)
+    if comms_dtype != "f32":
+        payloads = ("f32", "bf16" if comms_dtype == "bf16" else "f8e4m3fn",
+                    "u8")
+    ((op, n),) = rows[0].items() or (("all_reduce", 0),)
+    return sync_contract(
+        groups[0], launches=launches, n_collectives=n, op=op,
+        outer_axis=(topology.outer_axis if isinstance(topology, TwoLevel)
+                    else None),
+        outer_ops=rows[1] if len(rows) > 1 else {}, other_ops=other,
+        collective_dtypes=payloads, float_args=tuple(float_args),
+        peak_bytes=peak_bytes, notes=notes)
 
 
 def _layer_sums(cfg, spec, par, fwd: int, seq_len) -> tuple[int, int,
@@ -259,8 +295,10 @@ def par_step_collectives(par, dtypes, skip, seq_len: int) -> dict:
     """The collectives one train step of ``lm_loss`` with ``par``
     (``models.parallel.Par``) issues a level, counted from the leaves'
     places and the model's layers as the model code issues them: each
-    sum one ``ReplicaMesh.psum`` (:func:`_level_cost`), each gather one
-    all-gather, each exchange one all-to-all.
+    sum one ``ReplicaMesh.psum`` (:func:`_level_op`), each gather one
+    all-gather, each exchange one all-to-all, as a process logs them
+    (``launch.mesh.record_groups``; the ledger's per-round counts are
+    ``analysis.contracts.CollectiveContract.ledger``'s view).
 
     - ``Par.prepare``, a layer's leaves before the layer and the others
       once: a dim split over ``data`` a gather and, in the backward, a
@@ -333,7 +371,7 @@ def par_step_collectives(par, dtypes, skip, seq_len: int) -> dict:
     out = {}
     for lvl in sorted(set(sums) | set(gathers) | set(a2a)):
         n = mesh.size(tuple(lvl.split("+")))
-        row = _level_cost(n, sums[lvl]) if sums.get(lvl) else {}
+        row = {_level_op(n): sums[lvl]} if sums.get(lvl) else {}
         if gathers.get(lvl):
             row["all_gather"] = row.get("all_gather", 0) + gathers[lvl]
         if a2a.get(lvl):
@@ -345,20 +383,24 @@ def par_step_collectives(par, dtypes, skip, seq_len: int) -> dict:
 def _make_mesh_hwa_train_step(lm, mesh, hwa_cfg: HWAConfig,
                               optimizer: str = "sgd", lr: float = 3e-4,
                               replica_axis="replica",
-                              layout: ReplicaLayout | None = None
-                              ) -> StepBundle:
+                              layout: ReplicaLayout | None = None, *,
+                              seq_len: int) -> StepBundle:
     """The mesh-native inner step: ``fn(params, opt_state, batch) ->
     (params, opt_state, loss)``, ``batch`` the replica's whole batch
-    (the rank takes its rows). With the replica whole on one rank it is
-    the collective-free step. With a data axis the ``flash_pallas``
-    form steps the whole replica on the rank's rows and averages
-    gradients and loss over ``data``; the other form runs the model on
-    the rank's blocks with a ``models.parallel.Par`` (expert-parallel
-    where the layout's rules split the experts). Neither crosses a
-    replica axis. With ``flash_pallas`` and remat off it launches the
-    flash forward once and each backward sweep once a layer. Its
-    contract's ``collectives`` is a function of the batch's sequence
-    length (the expert-parallel layer's depend on it)."""
+    (the rank takes its rows), the parameters and their optimizer state
+    written in place. With the replica whole on one rank it is the
+    collective-free step. With a data axis the ``flash_pallas`` form
+    steps the whole replica on the rank's rows and averages gradients
+    and loss over ``data`` (a model axis, as in the reference, holds
+    the replica whole again: its ranks repeat the step); the other form
+    runs the model on the rank's blocks with a ``models.parallel.Par``
+    (expert-parallel where the layout's rules split the experts).
+    Neither crosses a replica axis. With ``flash_pallas`` and remat off
+    it launches the flash forward once and each backward sweep once a
+    layer. Its contract pins the data and model collectives of a step
+    exactly (``seq_len``: the batch's sequence length, on which the
+    expert-parallel layer's depend; the reference leaves them to
+    GSPMD). Its working set (activations, gradients) is not bounded."""
     from repro_torch.launch.sync.topology import _norm_axes
     from repro_torch.models.parallel import Par, batch_rows
     rep_axes = _norm_axes(replica_axis)
@@ -373,26 +415,20 @@ def _make_mesh_hwa_train_step(lm, mesh, hwa_cfg: HWAConfig,
     par = Par(mesh, cfg, layout.places) if inner else None
     dtypes = [x.dtype for x in tree_leaves(lm.abstract()[0])]
     colls = {}
-
-    def declared(seq_len):
-        return colls
     if par is None:
         def step(params, opt_state, batch):
             params, opt_state, loss, _ = hwa_local_inner_step(
                 params, opt_state, batch, lm.loss, opt, lr)
             return params, opt_state, loss
     elif layout.whole:
-        if par.tp > 1:
-            raise ValueError("the flash_pallas step splits no model axis "
-                             "(--tp must stay 1)")
         def step(params, opt_state, batch):
             params, opt_state, loss, _ = hwa_local_inner_step(
                 params, opt_state, batch_rows(batch, par), lm.loss, opt,
                 lr, grad_hook=par.data_mean)
             return params, opt_state, loss
         if par.dp > 1:
-            colls[level_name(par.data_axes)] = _level_cost(
-                par.dp, par.data_mean_groups(dtypes, [False] * len(dtypes)))
+            colls[level_name(par.data_axes)] = {_level_op(par.dp): (
+                par.data_mean_groups(dtypes, [False] * len(dtypes)))}
     else:
         skip = par.data_sharded()
 
@@ -402,16 +438,21 @@ def _make_mesh_hwa_train_step(lm, mesh, hwa_cfg: HWAConfig,
                 functools.partial(lm.loss, par=par), opt, lr,
                 grad_hook=functools.partial(par.data_mean, skip=skip))
             return params, opt_state, loss
-        declared = functools.partial(par_step_collectives, par, dtypes,
-                                     skip)
+        colls = par_step_collectives(par, dtypes, skip, seq_len)
 
     exact = (cfg.attn_impl == "flash_pallas" and cfg.remat == "none"
              and cfg.family in ("dense", "moe"))    # every layer attends
     launches = (dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                               cfg.n_layers) if exact
                 else {} if cfg.attn_impl != "flash_pallas" else None)
-    return StepBundle(fn=step, contract={"launches": launches,
-                                         "collectives": declared})
+    contract = train_contract(
+        replica_axes=rep_axes, launches=launches,
+        other_ops=colls,
+        notes="mesh-native HWA inner step"
+              + (", flash_pallas attention" if layout is not None
+                 and layout.whole else ""))
+    return StepBundle(fn=step, contract=contract, donate_argnums=(0, 1),
+                      carry=lambda args, out: (out[0], out[1], args[2]))
 
 
 def _make_mesh_hwa_sync_step(lm, mesh, hwa_cfg: HWAConfig, params,
@@ -484,11 +525,37 @@ def _make_mesh_hwa_sync_step(lm, mesh, hwa_cfg: HWAConfig, params,
     # the pushes are the kernels a rank's sync launches, once a group (K =
     # 1 included: the fused sync never runs here)
     kernel = {"f32": "wa_window_update", "bf16": "wa_window_update_c"}
-    colls = sync_collective_budget(mesh, topology, comms_dtype=comms_tok,
-                                   resilient=hwa_cfg.resilient)
-    return StepBundle(fn=fn, pack_spec=spec, contract={
-        "launches": {kernel[tok]: budget} if budget else {},
-        "collectives": colls})
+    contract = sync_collective_contract(
+        mesh, topology, launches={kernel[tok]: budget} if budget else {},
+        comms_dtype=comms_tok, resilient=hwa_cfg.resilient,
+        float_args=_float_tokens(params if params is not None
+                                 else lm.abstract()[0], tok),
+        peak_bytes=packed_sync_working_set(
+            4 * lspec.padded, _level_sizes(mesh, psum_groups),
+            comms_dtype=comms_tok, ring_dtype=tok,
+            grouped=spec.is_grouped),
+        notes="mesh-native " + ("two-level outer" if isinstance(
+            topology, TwoLevel) else "flat") + " sync"
+              + (", resilient" if hwa_cfg.resilient else ""))
+    # the window state is the one argument whose carried state the sync
+    # returns; the parameters it restarts in place it does not
+    return StepBundle(fn=fn, pack_spec=spec, contract=contract,
+                      donate_argnums=(1,),
+                      carry=lambda args, out: (args[0], out[0], out[2]))
+
+
+def _level_sizes(mesh, groups) -> list[int]:
+    return [mesh.size(axes) if axes else 1 for axes in groups]
+
+
+def _float_tokens(params, ring_tok: str = "f32") -> tuple[str, ...]:
+    """The floating dtypes a sync's arguments may hold: f32 (the total,
+    the compensation, the scales), the ring's and the parameters' own."""
+    from repro_torch.analysis.contracts import dtype_token
+    toks = {"f32", {"bf16": "bf16", "fp8": "f8e4m3fn"}.get(ring_tok, "f32")}
+    toks |= {dtype_token(x.dtype) for x in tree_leaves(params)
+             if x.is_floating_point()}
+    return tuple(sorted(toks))
 
 
 def _make_mesh_hwa_inner_sync_step(lm, mesh, hwa_cfg: HWAConfig, params,
@@ -516,10 +583,17 @@ def _make_mesh_hwa_inner_sync_step(lm, mesh, hwa_cfg: HWAConfig, params,
             return body(blocks_of(params, layout.places, mesh))
     else:
         fn = body
-    return StepBundle(fn=fn, pack_spec=layout.spec, contract={
-        "launches": {},
-        "collectives": sync_collective_budget(mesh, topology,
-                                              inner_only=True)})
+    return StepBundle(fn=fn, pack_spec=layout.spec,
+                      contract=sync_collective_contract(
+                          mesh, topology, launches={}, inner_only=True,
+                          float_args=_float_tokens(
+                              params if params is not None
+                              else lm.abstract()[0]),
+                          peak_bytes=packed_sync_working_set(
+                              4 * layout.spec.local_spec().padded,
+                              _level_sizes(mesh, topology.inner_groups()),
+                              push=False),
+                          notes="two-level inner sync"))
 
 
 def _make_rest_step(mesh, layout: ReplicaLayout) -> StepBundle:
@@ -528,7 +602,7 @@ def _make_rest_step(mesh, layout: ReplicaLayout) -> StepBundle:
     mean)`` writes the other ranks' synced blocks into the rank's whole
     leaves (its own were restarted in place), from one all-gather of the
     packed W̄ over the replica's inner axes: the reference's reshard at
-    the next step's boundary."""
+    the next step's boundary. Its working set: the gathered blocks."""
     from repro_torch.common.packing import unpack
     from repro_torch.models.parallel import blocks_of
     axes = inner_axes(mesh)
@@ -545,8 +619,13 @@ def _make_rest_step(mesh, layout: ReplicaLayout) -> StepBundle:
                         tree_leaves(unpack(buf, lspec))):
                     x.copy_(b)
         return params
-    return StepBundle(fn=fn, contract={"launches": {}, "collectives": {
-        level_name(axes): {"all_gather": 1}}})
+    return StepBundle(fn=fn, contract=BundleContract(
+        collectives=CollectiveContract(other_ops={
+            level_name(axes): {"all_gather": 1}}),
+        launch=LaunchBudget.exact({}),
+        donation=DonationPolicy(peak_bytes=mesh.size(axes) * 4
+                                * lspec.padded + PEAK_SLACK),
+        notes="the rest step's all-gather"))
 
 
 def sync_collective_audit(records, mesh, replica_axis: str = "replica",
@@ -683,6 +762,6 @@ def sync_cases(mesh, cases) -> list[dict]:
         out["params"] = params
         out = tree_map(lambda x: x.cpu(), out)
         out["collectives"] = ledger_delta(before, ledger_snapshot())
-        out["declared"] = step.contract["collectives"]
+        out["declared"] = step.contract.ledger(mesh.shape)
         results.append(out)
     return results

@@ -383,3 +383,51 @@ def packed_sync_launch_budget(hwa_cfg, *, use_kernel: bool, n_groups: int,
     mean = 1 if (k_local == 2 and n_groups == 1 and not resilient) else 0
     push = n_groups if kernel_ring else 0
     return mean + push
+
+
+def packed_sync_working_set(block_bytes: int, level_sizes, *,
+                            comms_dtype="f32", ring_dtype="f32",
+                            grouped: bool = False, push: bool = True
+                            ) -> int:
+    """The bytes one rank's sync holds at once above its start, at its
+    largest phase, beside the state it writes in place
+    (:func:`_local_packed_sync`; ``push=False``: the inner sync,
+    :func:`_local_inner_sync`), plus ``analysis.contracts.PEAK_SLACK``:
+    the sync's declared working set. ``block_bytes`` is the rank's packed
+    f32 block, ``level_sizes`` the ranks of each level it reduces over,
+    innermost first. In blocks:
+
+    - the packed row, reduced in place into W̄ over a power-of-two
+      level (1); a level of another size n gathers the n rows and sums
+      them (1 + n + n - 1 at most, the halving sum's rounds);
+    - a compressed outermost level of n ranks (w bytes an element): the
+      partial, its wire view and the n gathered views (1 + (1 + n)·w/4)
+      beside the rows widened to f32 and their sum (bf16: n + n - 1) or
+      the rows dequantized, a cast and a product (fp8: 2n);
+    - the push: W̄, the window's W̿ and its count-masked copy (3; a
+      grouped layout's W̿ is its groups' concatenated: 4);
+    - a narrow ring: W̄ and the masked W̿ beside a ``SLOT_CHUNK`` of the
+      stored slot's encode and decode (1 + w/4 chunks), and the plain
+      fp8 push's temporaries, 16 chunks beside W̄."""
+    from repro_torch.analysis.contracts import PEAK_SLACK
+    from repro_torch.common.quant import SLOT_CHUNK, wa_token
+    from repro_torch.launch.mesh import _is_pow2
+    comms, ring = wa_token(comms_dtype), wa_token(ring_dtype)
+    sizes = [n for n in level_sizes if n > 1]
+    phases = [1.0]
+    for i, n in enumerate(sizes):
+        if comms != "f32" and i == len(sizes) - 1:
+            w = 2 if comms == "bf16" else 1
+            wire = 1 + (1 + n) * w / 4
+            phases.append(wire + (n + n - 1 if comms == "bf16" else 2 * n))
+        elif not _is_pow2(n):
+            phases.append(2.0 * n)
+    if push:
+        phases.append(4.0 if grouped else 3.0)
+        chunk = min(1.0, SLOT_CHUNK * 4 / max(block_bytes, 1))
+        if ring != "f32":
+            w = 2 if ring == "bf16" else 1
+            phases.append(2 + chunk * (1 + w / 4))
+        if ring == "fp8":
+            phases.append(1 + 16 * chunk)
+    return int(max(phases) * block_bytes) + PEAK_SLACK

@@ -97,26 +97,33 @@ class HWABundles:
 
 def build_hwa_bundles(lm, mesh, plan: SyncPlan, params,
                       train: bool = True, fsdp: bool = False,
-                      expert_parallel: bool = False) -> HWABundles:
+                      expert_parallel: bool = False,
+                      seq_len: int | None = None) -> HWABundles:
     """Assemble the mesh-native train / sync / inner-sync (/ rest)
     bundles a plan describes, validated against ``mesh``
     (``launch.mesh.ReplicaMesh``) once. The replica's layout comes from
     the reference's rules over ``mesh`` with ``fsdp`` and
     ``expert_parallel`` (``bundles.replica_layout``); with no ``lm``
     (``train=False`` only) it is the whole-replica layout of ``params``,
-    the rank's replica."""
+    the rank's replica. ``seq_len``, the batch's sequence length (the
+    reference's input specs), is required with ``train``: the train
+    step's contract pins its data and model collectives from it."""
     from repro_torch.launch.sync.bundles import (
         _make_mesh_hwa_inner_sync_step, _make_mesh_hwa_sync_step,
         _make_mesh_hwa_train_step, _make_rest_step, replica_layout)
     if not plan.mesh_native:
         raise ValueError("the stacked path has no bundles in the port: "
                          "call core.hwa.hwa_inner_step and hwa_sync")
+    if train and seq_len is None:
+        raise ValueError("a train bundle needs the batch's seq_len: its "
+                         "contract pins the step's data and model "
+                         "collectives from it")
     topology = plan.resolved_topology
     layout = replica_layout(lm, mesh, topology, fsdp=fsdp, params=params,
                             expert_parallel=expert_parallel)
     train_b = (_make_mesh_hwa_train_step(
         lm, mesh, plan.hwa, optimizer=plan.optimizer, lr=plan.lr,
-        replica_axis=topology.replica_axes, layout=layout)
+        replica_axis=topology.replica_axes, layout=layout, seq_len=seq_len)
         if train else None)
     sync = _make_mesh_hwa_sync_step(
         lm, mesh, plan.hwa, params, ring_dtype=plan.wa_dtype,

@@ -69,6 +69,7 @@ config (``chip_smoke.py`` passes the published width cut in depth).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import os
@@ -505,12 +506,13 @@ def _ops(row: dict) -> dict:
 
 
 def contract_violations(out) -> list[str]:
-    """Where a :func:`run_mesh_native` result's ledger leaves its bundles'
-    contracts, rank by rank: the train steps issue exactly the
-    collectives they declare, a step's count times the steps, and never
-    cross a replica axis; every sync and rest step issues exactly the
-    collectives it declares. An empty list: every call kept its
-    contract."""
+    """Where a :func:`run_mesh_native` result leaves its bundles'
+    collective contracts (``StepBundle.contract``), rank by rank: the
+    train steps, from the ledger (a step is not recorded), issue exactly
+    the collectives they declare, a step's count times the steps, and
+    never cross a replica axis; every recorded sync and rest call passes
+    the ``collectives`` pass (:func:`recorded_violations`). Each entry
+    names its pass. An empty list: every call kept its contract."""
     from repro_torch.launch.sync.bundles import INNER_AXES
     bad = []
     for rank in out["ranks"]:
@@ -521,19 +523,32 @@ def contract_violations(out) -> list[str]:
         for lvl in sorted(set(used) | set(want)):
             got = used.get(lvl, {})
             if set(lvl.split("+")) - set(INNER_AXES):
-                bad.append(f"rank {r}: a train step crossed {lvl}: {got}")
+                bad.append(f"collectives: rank {r}: a train step crossed "
+                           f"{lvl}: {got}")
             elif got != {op: n * rank["train_steps"]
                          for op, n in want.get(lvl, {}).items() if n}:
-                bad.append(f"rank {r}: train steps issued {lvl} {got}, "
-                           f"declared {want.get(lvl)} a step")
-        for kind, calls in (("sync", rank["syncs"]), ("rest",
-                                                      rank["rests"])):
-            for c in calls:
-                got = {lvl: _ops(row) for lvl, row in
-                       c["collectives"].items() if _ops(row)}
-                if got != c["declared"]:
-                    bad.append(f"rank {r}: a {c.get('sync', kind)} {kind} "
-                               f"issued {got}, declared {c['declared']}")
+                bad.append(f"collectives: rank {r}: train steps issued "
+                           f"{lvl} {got}, declared {want.get(lvl)} a step")
+    return bad + recorded_violations(out, ("collectives",))
+
+
+def recorded_violations(out, names=("collectives", "dtype", "donation")
+                        ) -> list[str]:
+    """The ``analysis.passes`` named in ``names`` on every sync and rest
+    call a :func:`run_mesh_native` result recorded, against its bundle's
+    contract: each violation names its pass, rank and call. The calls
+    were timed, so the dtype pass holds the payloads and arguments (no
+    op was recorded)."""
+    from repro_torch.analysis.passes import run_passes
+    bad = []
+    for rank in out["ranks"]:
+        calls = [(f"{c['sync']} sync {i}", c)
+                 for i, c in enumerate(rank["syncs"])]
+        calls += [(f"rest {i}", c) for i, c in enumerate(rank["rests"])]
+        for label, c in calls:
+            for res in run_passes(c["artifacts"], c["contract"], names):
+                bad += [f"{res.name}: rank {rank['rank']}: {label}: {v}"
+                        for v in res.violations]
     return bad
 
 
@@ -567,8 +582,8 @@ def audit_violations(out) -> list[str]:
             else:
                 ok = a["outer_sync_ok"]
             if not ok:
-                bad.append(f"rank {rank['rank']}: {c['sync']} sync {i} "
-                           f"fails its audit: {a}")
+                bad.append(f"audit: rank {rank['rank']}: {c['sync']} sync "
+                           f"{i} fails its verdicts: {a}")
     return bad
 
 
@@ -620,8 +635,9 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
     from repro_torch.common.quant import wa_token
     from repro_torch.core.offline import WindowState
     from repro_torch.launch import shards
+    from repro_torch.analysis.passes import record_call
     from repro_torch.launch.mesh import (kernel_counts, ledger_delta,
-                                         ledger_snapshot, record_groups)
+                                         ledger_snapshot)
     from repro_torch.launch.sync import build_hwa_bundles, window_state_args
     from repro_torch.launch.sync.bundles import (_mk_optimizer,
                                                  sync_collective_audit)
@@ -646,7 +662,8 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
     full = lm.init(torch.Generator(device=dev).manual_seed(args.seed),
                    device=dev)
     bundles = build_hwa_bundles(lm, mesh, plan, full, fsdp=args.fsdp,
-                                expert_parallel=payload["expert_parallel"])
+                                expert_parallel=payload["expert_parallel"],
+                                seq_len=args.seq_len)
     train, sync, inner_sync = bundles.train, bundles.sync, bundles.inner_sync
     rest, layout = bundles.rest, bundles.layout
     spec = sync.pack_spec                  # global; a rank holds lspec
@@ -779,11 +796,22 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
 
     def declare(bundle):
         nonlocal declared
-        if declared is not None and bundle.contract["launches"] is None:
+        launch = bundle.contract.launch
+        if declared is not None and (launch is None or launch.counts is None):
             declared = None
         if declared is not None:
-            for k, v in bundle.contract["launches"].items():
+            for k, v in launch.counts.items():
                 declared[k] = declared.get(k, 0) + v
+
+    run_peak = 0                     # the run's peak before a recorded call
+
+    def record(bundle, call_args):
+        """One sync or rest call under the recorder (no op recording: the
+        call is timed); the card's run peak kept across its reset."""
+        nonlocal run_peak
+        if cuda:
+            run_peak = max(run_peak, torch.cuda.max_memory_allocated(dev))
+        return record_call(bundle, call_args, mesh=mesh, ops=False)
 
     train_colls, train_steps = {}, 0
     sync_colls, rest_colls = [], []
@@ -828,31 +856,30 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
             times["probe_s"] += time.perf_counter() - t_probe
             wait()
             t0 = time.perf_counter()
-            before = ledger_snapshot()
             bundle = inner_sync if inner else sync
-            with record_groups() as used:
-                if inner:
-                    mean = inner_sync(params)
-                else:
-                    ws, wa, cycle, alive, k_alive_t, mean = sync(
-                        params, ws, cycle)
+            if inner:
+                mean, art = record(inner_sync, (params,))
+            else:
+                (ws, wa, cycle, alive, k_alive_t, mean), art = record(
+                    sync, (params, ws, cycle))
             wait()
             ms = (time.perf_counter() - t0) * 1e3
             declare(bundle)
             sync_colls.append({
                 "sync": "inner" if inner else "outer", "ms": ms,
-                "collectives": ledger_delta(before, ledger_snapshot()),
-                "declared": bundle.contract["collectives"],
+                "collectives": art.ledger,
+                "declared": bundle.contract.ledger(mesh.shape),
+                "contract": bundle.contract, "artifacts": art,
                 "audit": sync_collective_audit(
-                    [(op, [g]) for op, g in used], mesh,
+                    [(op, [g]) for op, g in art.groups], mesh,
                     outer_axis="pod" if plan.is_tree else None,
                     n_groups=spec.n_groups if spec.is_grouped else None)})
             if rest is not None:
-                before = ledger_snapshot()
-                rest(params, mean)
+                _, art = record(rest, (params, mean))
                 rest_colls.append({
-                    "collectives": ledger_delta(before, ledger_snapshot()),
-                    "declared": rest.contract["collectives"]})
+                    "collectives": art.ledger,
+                    "declared": rest.contract.ledger(mesh.shape),
+                    "contract": rest.contract, "artifacts": art})
             entry = {"step": step + 1, "loss": loss,
                      "sync": "inner" if inner else "outer"}
             if not inner:
@@ -928,13 +955,13 @@ def _mesh_rank_run(mesh, args, probe, payload) -> dict:
     flush_losses()
     launched = kernel_counts()
     stats = {"rank": rank, "replica": rep, "train_collectives": train_colls,
-             "train_declared": train.contract["collectives"](args.seq_len),
+             "train_declared": train.contract.ledger(mesh.shape),
              "train_steps": train_steps, "syncs": sync_colls,
              "rests": rest_colls,
              "launches": {k: v - launched0[k] for k, v in launched.items()},
              "declared_launches": declared,
-             "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
-                          if cuda else None),
+             "peak_gib": (max(run_peak, torch.cuda.max_memory_allocated(dev))
+                          / 2**30 if cuda else None),
              "resume_gib": resume_gib, "times": times,
              "ep_pairs": moe.ep_tally()}
     keys = payload["with_state"]
@@ -998,9 +1025,11 @@ def main(argv=None):
             os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                         exist_ok=True)
             with open(args.out, "w") as f:
-                # "_"-prefixed keys carry tensors for in-process callers
+                # "_"-prefixed keys carry tensors for in-process callers;
+                # the calls' contracts and records go as their fields
                 json.dump({k: v for k, v in out.items()
-                           if not k.startswith("_")}, f, indent=2)
+                           if not k.startswith("_")}, f, indent=2,
+                          default=dataclasses.asdict)
         return
 
     dev = resolve_device(args.device)

@@ -16,8 +16,11 @@ per-token host syncs). Weight hot-swap is a reference swap
 
 PyTorch runs eagerly, so there is no jit and no trace count; the step's
 control arrays go to the device once per step (as ``jnp.asarray`` does
-in the reference), the page pools are written in place, and tokens and
-the output buffer stay on the device until a request finishes. Recurrent
+in the reference), the page pools, the last tokens and the output buffer
+are written in place (:func:`paged_decode_step`, which
+:func:`make_paged_decode_bundle` offers to the contract checker), and
+tokens and the output buffer stay on the device until a request
+finishes. Recurrent
 stacks (xLSTM, Hymba) run the exact-length prefix fill at admission and
 then take their prompt one token a step through the decode step (step
 prefill).
@@ -147,6 +150,67 @@ def needs_exact_prefill(cfg) -> bool:
                for s in tfm.block_pattern(cfg))
 
 
+def paged_decode_step(cfg, params, caches, last, out, generator, ctrl, *,
+                      page_size: int, temperature: float = 0.0):
+    """The paged engine's decode step on its state, in place: zero the
+    recurrent states of the slots flagged in ``ctrl["reset"]``, feed each
+    slot its prompt token (``use_prompt``) or its last sample, one
+    ``lm_paged_decode_step`` (the pools written in place), sample, write
+    the samples into ``last`` and into ``out`` at ``out_idx``. ``ctrl``
+    holds device tensors: tables (B,TW) i32, pos (B,) i32, use_prompt
+    (B,) bool, prompt_tok (B,)/(B,CB) i32, out_idx (B,) i32, reset (B,)
+    bool. Returns (caches, last, out, logits)."""
+    caches = tfm.reset_paged_states(caches, ctrl["reset"])
+    up = ctrl["use_prompt"]
+    upb = up if last.ndim == 1 else up[:, None]
+    tok_in = torch.where(upb, ctrl["prompt_tok"], last)
+    logits, caches = lm_paged_decode_step(
+        cfg, params, caches, tok_in, ctrl["pos"], ctrl["tables"], page_size)
+    sampled = _sample(logits, generator, temperature).to(torch.int32)
+    last.copy_(sampled)
+    out[torch.arange(out.shape[0], device=out.device),
+        ctrl["out_idx"].long()] = sampled
+    return caches, last, out, logits
+
+
+def make_paged_decode_bundle(lm: LM, *, max_batch: int = 2,
+                             max_seq_len: int = 64, max_new: int = 4,
+                             page_size: int = 4, temperature: float = 0.0):
+    """The paged decode step as a ``StepBundle`` for the contract checker
+    (the reference's bundle and defaults): ``fn(params, caches, last,
+    out, generator, ctrl) -> (caches, last, out, logits)``, the engine's
+    own :func:`paged_decode_step`. Its contract
+    (``analysis.contracts.decode_contract``): no collectives anywhere,
+    the paged kernel once an attention layer under ``flash_pallas`` (0
+    otherwise), the caches, the last tokens and the output written in
+    place, its working set the f32 logits and the sampler's copy of
+    them, no f64. ``max_batch``, ``max_seq_len`` and ``max_new`` size
+    the engine the caller builds the state from
+    (:class:`PagedDecodeEngine`)."""
+    from repro_torch.analysis.contracts import PEAK_SLACK, decode_contract
+    from repro_torch.launch.sync.bundles import StepBundle
+    cfg = lm.cfg
+    n_attn = sum(1 for s in tfm.block_pattern(cfg)
+                 if s.kind in ("attn", "hybrid")) * (
+        cfg.n_layers // len(tfm.block_pattern(cfg)))
+
+    def step(params, caches, last, out, generator, ctrl):
+        return paged_decode_step(cfg, params, caches, last, out, generator,
+                                 ctrl, page_size=page_size,
+                                 temperature=temperature)
+    return StepBundle(
+        fn=step, donate_argnums=(1, 2, 3),
+        carry=lambda args, o: (args[0], o[0], o[1], o[2], args[4], args[5]),
+        contract=decode_contract(
+            launches={"paged_attention": n_attn}
+            if cfg.attn_impl == "flash_pallas" else {},
+            peak_bytes=2 * 4 * max_batch * cfg.vocab_size * (
+                cfg.n_codebooks if cfg.family == "audio" else 1)
+            + PEAK_SLACK,
+            notes=f"paged continuous-batching decode step (B {max_batch}, "
+                  f"{max_seq_len} tokens, {max_new} new, page {page_size})"))
+
+
 @dataclasses.dataclass
 class PagedDecodeEngine:
     """Fixed-shape continuous-batching engine over a paged KV pool.
@@ -227,19 +291,11 @@ class PagedDecodeEngine:
         c = {k: _as_tensor(v, self.device, torch.bool
                            if k in ("use_prompt", "reset") else torch.int32)
              for k, v in ctrl.items()}
-        caches = tfm.reset_paged_states(s["caches"], c["reset"])
-        up = c["use_prompt"]
-        upb = up if s["last"].ndim == 1 else up[:, None]
-        tok_in = torch.where(upb, c["prompt_tok"], s["last"])
-        logits, caches = lm_paged_decode_step(
-            self.lm.cfg, self.params, caches, tok_in, c["pos"], c["tables"],
-            self.page_size)
-        sampled = _sample(logits, s["generator"],
-                          self.temperature).to(torch.int32)
-        out = s["out"]
-        out[torch.arange(out.shape[0], device=self.device),
-            c["out_idx"].long()] = sampled
-        s.update(caches=caches, last=sampled, logits=logits)
+        caches, _, _, logits = paged_decode_step(
+            self.lm.cfg, self.params, s["caches"], s["last"], s["out"],
+            s["generator"], c, page_size=self.page_size,
+            temperature=self.temperature)
+        s.update(caches=caches, logits=logits)
 
     def prefill_into(self, slot: int, batch1: dict, n_valid: int):
         """Chunk-prefill one slot: pads the prompt (tokens (1, S) or (1,

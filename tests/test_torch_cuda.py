@@ -8,6 +8,7 @@ On the card, from the repo root (this file imports no JAX, and
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import importlib.util
 import os
 
@@ -824,3 +825,60 @@ def test_ep_exchange_on_card_equals_cpu(smoke, dtype):
         assert torch.equal(res["cpu"], x[r][None].expand_as(x))
         staged = got["ledger"]["model"]["staged_bytes"]
         assert staged == 2 * x.numel() * x.element_size()
+
+
+class _Widen(torch.autograd.Function):
+    """Doubles its input; its backward (seeded) goes through f64."""
+    @staticmethod
+    def forward(ctx, x):
+        return x * 2
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.double() * 2).float()
+
+
+def test_dtype_pass_sees_a_backward_on_the_card(smoke):
+    """Autograd runs a CUDA backward on its own device thread: the dtype
+    pass's op record sees an f64 op made there."""
+    from repro_torch.analysis.contracts import BundleContract
+    from repro_torch.analysis.passes import dtype_pass, record_call
+    from repro_torch.launch.sync.bundles import StepBundle
+
+    def fn(x):
+        _Widen.apply(x).sum().backward()
+        return x.grad
+    x = torch.ones(64, device="cuda", requires_grad=True)
+    _, art = record_call(StepBundle(fn=fn), (x,))
+    res = dtype_pass(art, BundleContract())
+    assert not res.ok and "forbidden dtype f64" in res.violations[0], res
+
+
+@pytest.mark.parametrize("copy", [False, True], ids=["in-place", "copied"])
+def test_donation_bounds_the_peak_on_the_card(smoke, copy):
+    """The stacked fused sync of a 16 MiB block in four leaves holds its
+    declared working set (K + 1 blocks); the same sync keeping a copy of
+    its ring alive through the call (a window written out of place, its
+    storage kept) goes over it and fails the donation pass."""
+    from repro_torch.analysis import lint
+    from repro_torch.analysis.passes import donation_pass, record_call
+    from repro_torch.core.hwa import HWAConfig, hwa_init
+    from repro_torch.launch.sync.bundles import _mk_optimizer
+    hwa = HWAConfig(n_replicas=2, window=3, use_kernels=True)
+    params = {k: torch.randn(1 << 20, device="cuda") for k in "abcd"}
+    st = hwa_init(hwa, params, _mk_optimizer("sgd"))
+    bundle = lint.stacked_sync_bundle(hwa, params)
+    fn = inner = bundle.fn
+    if copy:
+        def fn(*a):
+            ring = a[2].ring.clone()
+            out = inner(*a)
+            del ring
+            return out
+    bundle = dataclasses.replace(bundle, fn=fn)
+    _, art = record_call(bundle, (st.inner, st.inner_opt, st.window_state,
+                                  st.wa, st.cycle))
+    res = donation_pass(art, bundle.contract)
+    assert res.ok != copy, res
+    if copy:
+        assert "exceeds the declared working set" in res.violations[0]

@@ -160,10 +160,11 @@ def _ep_oracle(cfg, run, tp, shard_mean=True):
 
 
 @pytest.fixture(scope="module")
-def phase17():
+def phase17(tmp_path_factory):
     """chip_smoke.py's phase 17 at smoke size on the CPU, with this
     module's runs added to its K 2 × model 2 spawn (the two recurrent
-    models under remat "full", the EP train step); the JAX oracles of
+    models under remat "full", the EP train step, which also saves its
+    checkpoints into ``seen["ep_ckpt"]``); the JAX oracles of
     17d's runs run here meanwhile, in a thread that runs no torch
     operation, then the EP step's oracles. Returns
     (the phase's result, 17d's tp 2 runs, the added runs, the run's
@@ -179,7 +180,9 @@ def phase17():
     assert (ep_cfg.n_experts, ep_cfg.top_k) == (4, 2)
     extra = [(c.with_(remat="full"), False, False, False) for c in cfgs[:2]]
     extra.append((ep_cfg, True, True, True))
-    seen = {}
+    ckpt = str(tmp_path_factory.mktemp("ep") / "ckpt")
+    saves = [{}] * 2 + [dict(checkpoint_dir=ckpt, checkpoint_every=2)]
+    seen = {"ep_ckpt": ckpt, "ep_cfg": ep_cfg}
     plain_run = launcher.run_mesh_native
 
     def shared(args, **kw):
@@ -189,8 +192,8 @@ def phase17():
         seen["args"] = [vars(a) for a in args]
         outs = plain_run(
             list(args) + [launcher.mesh_args(**dict(run, arch=c.name,
-                                                    tp=2))
-                          for c, *_ in extra],
+                                                    tp=2, **save))
+                          for (c, *_), save in zip(extra, saves)],
             cfg=kw["cfg"] + [c for c, *_ in extra],
             probe=kw["probe"] + [p for _, p, _, _ in extra],
             with_state=kw["with_state"] + [w for *_, w, _ in extra],
@@ -317,6 +320,30 @@ def test_ep_train_step_matches_the_shard_mean_oracle(phase17):
     gap = max(float((a - b).abs().max()) for a, b in zip(
         tree_leaves(st["inner"]), tree_leaves(whole[1].inner)))
     assert gap > 1e-4
+def test_ep_replica_resumes_elsewhere(phase17):
+    """The expert-parallel replica (K 2 × model 2, its experts split over
+    ``model``) saved its checkpoints at steps 2 and 4 in the phase's
+    spawn; resumed under K 2 whole (one rank a replica, the plain MoE
+    layer), the state of step 4 is the uninterrupted run's bit for bit:
+    the replicas, W̿, and the ring and total after the repack into the
+    whole layout."""
+    _, seen, run, _, _ = phase17
+    ep = seen["extra"][2]
+    assert [s["step"] for s in ep["saves"]] == [2, 4]
+    back = launcher.run_mesh_native(launcher.mesh_args(**dict(
+        run, arch=seen["ep_cfg"].name, checkpoint_dir=seen["ep_ckpt"],
+        checkpoint_every=2, resume=True)), cfg=seen["ep_cfg"])
+    assert back["resumed_from"] == 4 and back["mesh"] == {"replica": 2}
+    a, b = ep["_state"], back["_state"]
+    assert _bits_equal(a["inner"], b["inner"])
+    assert _bits_equal(a["wa"], b["wa"])
+    src = spec_from_json(ep["layout"]["json"])
+    dst = spec_from_json(back["layout"]["json"])
+    for name in ("ring", "total"):
+        assert torch.equal(repack(merge_groups(a[name], src), src, dst),
+                           b[name])
+
+
 def test_recurrent_fsdp_tp_and_resume_elsewhere(tmp_path):
     ckpt = str(tmp_path / "ckpt")
     form = dict(RUN, tp=2, fsdp=True, world_size=8, steps=2)

@@ -263,7 +263,9 @@ def test_mesh_layout_and_backend_rule():
     assert m.partition(("replica",)) == [[0, 1, 2, 3], [4, 5, 6, 7]]
     assert m.partition(("pod",)) == [[0, 4], [1, 5], [2, 6], [3, 7]]
     assert m.partition(("pod", "replica")) == [list(range(8))]
-    budget = pbundles.sync_collective_budget
+    def budget(mesh, topology, **kw):
+        return pbundles.sync_collective_contract(
+            mesh, topology, launches={}, **kw).ledger(mesh.shape)
     tree = ptopo.TwoLevel(outer_every=2)
     assert budget(m, tree) == {"replica": {"all_reduce": 2},
                                "pod": {"all_reduce": 1}}
