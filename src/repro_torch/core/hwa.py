@@ -25,6 +25,11 @@ stacked path ignores ``outer_every``: the two-level tree is the
 mesh-native path's (``launch.sync``), whose builders refuse a value that
 disagrees with their topology. :func:`hwa_local_inner_step` is one
 replica's step there, a rank's whole train step.
+
+The stacked step and sync are ``common.trace`` spans while a profiler
+runs: ``hwa.step`` with each replica's ``forward``, ``backward`` and
+``update``; ``hwa.sync`` with its ``divergence``, ``pack`` and
+``restart``.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.common import trace
 from repro_torch.common.packing import pack, pack_stacked, unpack
 from repro_torch.common.pytree import register_dataclass, tree_flatten, \
     tree_leaves, tree_mean_axis0, tree_unflatten
@@ -113,38 +119,41 @@ def hwa_inner_step(cfg: HWAConfig, state: HWAState, batches: PyTree,
     """One optimizer step per replica (Algorithm 1 lines 5-7). ``batches``
     leaves have a leading K axis. Replica k's parameters and optimizer
     state are updated in place in ``state.inner[k]``/``inner_opt[k]``."""
-    losses, metric_rows = [], []
-    for k in range(cfg.n_replicas):
-        leaves, treedef = tree_flatten(state.inner)
-        live = [x[k].detach().requires_grad_(True) for x in leaves]
-        params = tree_unflatten(treedef, live)
-        loss, metrics = loss_fn(params, _replica(batches, k))
-        # a leaf the loss does not use (BN running state carried in
-        # the averaged tree) gets a zero gradient, as in JAX
-        grads = torch.autograd.grad(loss, live, allow_unused=True,
-                                    materialize_grads=True)
-        with torch.no_grad():
-            opt_k = _replica(state.inner_opt, k)
-            plain = tree_unflatten(treedef, [x.detach() for x in live])
-            updates, opt2 = optimizer.update(
-                tree_unflatten(treedef, list(grads)), opt_k, plain, lr)
-            for dst, src in zip(leaves, tree_leaves(apply_updates(plain,
-                                                                  updates))):
-                dst[k].copy_(src)
-            for dst, src in zip(tree_leaves(state.inner_opt),
-                                tree_leaves(opt2)):
-                dst[k].copy_(src)
-        del grads, live, params
-        losses.append(loss.detach())
-        metric_rows.append({n: v.detach() for n, v in metrics.items()
-                            if torch.is_tensor(v) and v.is_floating_point()
-                            and v.ndim <= 1})
-    losses = torch.stack(losses)
-    scalar = {n: torch.stack([row[n] for row in metric_rows]).mean(0)
-              for n in metric_rows[0]}
-    state.step = state.step + 1
-    return state, {"loss": losses.mean(), "per_replica_loss": losses,
-                   **scalar}
+    with trace.span("hwa.step"):
+        losses, metric_rows = [], []
+        for k in range(cfg.n_replicas):
+            leaves, treedef = tree_flatten(state.inner)
+            live = [x[k].detach().requires_grad_(True) for x in leaves]
+            params = tree_unflatten(treedef, live)
+            with trace.span("hwa.step.forward", k=k):
+                loss, metrics = loss_fn(params, _replica(batches, k))
+            # a leaf the loss does not use (BN running state carried in
+            # the averaged tree) gets a zero gradient, as in JAX
+            with trace.span("hwa.step.backward", k=k):
+                grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                            materialize_grads=True)
+            with torch.no_grad(), trace.span("hwa.step.update", k=k):
+                opt_k = _replica(state.inner_opt, k)
+                plain = tree_unflatten(treedef, [x.detach() for x in live])
+                updates, opt2 = optimizer.update(
+                    tree_unflatten(treedef, list(grads)), opt_k, plain, lr)
+                for dst, src in zip(leaves, tree_leaves(
+                        apply_updates(plain, updates))):
+                    dst[k].copy_(src)
+                for dst, src in zip(tree_leaves(state.inner_opt),
+                                    tree_leaves(opt2)):
+                    dst[k].copy_(src)
+            del grads, live, params
+            losses.append(loss.detach())
+            metric_rows.append({n: v.detach() for n, v in metrics.items()
+                                if torch.is_tensor(v)
+                                and v.is_floating_point() and v.ndim <= 1})
+        losses = torch.stack(losses)
+        scalar = {n: torch.stack([row[n] for row in metric_rows]).mean(0)
+                  for n in metric_rows[0]}
+        state.step = state.step + 1
+        return state, {"loss": losses.mean(), "per_replica_loss": losses,
+                       **scalar}
 
 
 def hwa_local_inner_step(params: PyTree, opt_state: PyTree, batch: PyTree,
@@ -233,7 +242,8 @@ def _sync_fused(cfg: HWAConfig, state: HWAState):
     replica restarts from the bf16-rounded mean that the ring holds."""
     ws = state.window_state
     I = ws.window
-    stacked = pack_stacked(state.inner, ws.spec)
+    with trace.span("hwa.sync.pack"):
+        stacked = pack_stacked(state.inner, ws.spec)
     idx = ws.next_idx
     full_flag, new_count, inv_count = window_scalars(ws)
     comp = ws.comp
@@ -249,9 +259,12 @@ def _sync_fused(cfg: HWAConfig, state: HWAState):
                          .to(torch.int32),
                          window=I, kind=ws.kind, spec=ws.spec, comp=comp,
                          scales=ws.scales)
-    # the slot just written IS W̄_e (a device-side gather: no host read)
-    outer = unpack(ring.index_select(0, idx.reshape(1).long())[0], ws.spec)
-    wa = unpack(avg, ws.spec)
+    with trace.span("hwa.sync.restart"):
+        # the slot just written IS W̄_e (a device-side gather: no host
+        # read)
+        outer = unpack(ring.index_select(0, idx.reshape(1).long())[0],
+                       ws.spec)
+        wa = unpack(avg, ws.spec)
     return outer, new_ws, wa, state.cycle + 1
 
 
@@ -276,37 +289,45 @@ def hwa_sync(cfg: HWAConfig, state: HWAState) -> tuple[HWAState, dict]:
     still takes the window-update kernel with ``use_kernels`` (an f32 or
     bf16 ring). With every replica alive it is bit-equal to the plain
     route. The alive count is the ``k_alive`` metric (int32)."""
-    div = replica_divergence(state.inner)
-    ws = state.window_state
-    alive = None
-    if cfg.resilient:
-        alive = replica_alive_mask(state.inner, max_rms=cfg.max_param_rms)
-        outer = masked_mean_axis0(state.inner, alive)
-        window_state, wa, cycle = _window_push(cfg, outer, ws, state.cycle)
-    elif (cfg.use_kernels and ws.kind == "ring" and cfg.window_stride == 1
-            and ws.ring.dtype in wa_update.KERNEL_RING_DTYPES):
-        outer, window_state, wa, cycle = _sync_fused(cfg, state)
-    elif cfg.use_kernels and tree_leaves(state.inner):
-        # two packed launches, no unpack and re-pack of W̄ between them
-        buf = wa_update.online_mean(pack_stacked(state.inner, ws.spec))
-        outer = unpack(buf, ws.spec)
-        window_state, avg, cycle = window_push_packed(cfg, buf, ws,
-                                                      state.cycle)
-        wa = unpack(avg, ws.spec)
-    else:
-        outer = online_average(state.inner)
-        window_state, wa, cycle = _window_push(cfg, outer, ws, state.cycle)
-    restart_replicas(state.inner, outer)
-    if cfg.avg_opt_state:
-        opt_mean = (tree_mean_axis0(state.inner_opt) if alive is None
-                    else masked_mean_axis0(state.inner_opt, alive))
-        restart_replicas(state.inner_opt, opt_mean)
-    elif alive is not None:
-        quarantine_opt_state(state.inner_opt, alive)
-    new_state = HWAState(inner=state.inner, inner_opt=state.inner_opt,
-                         window_state=window_state, wa=wa, cycle=cycle,
-                         step=state.step)
-    metrics = {"replica_divergence": div, "cycle": cycle}
-    if alive is not None:
-        metrics["k_alive"] = alive.sum(dtype=torch.int32)
-    return new_state, metrics
+    with trace.span("hwa.sync"):
+        with trace.span("hwa.sync.divergence"):
+            div = replica_divergence(state.inner)
+        ws = state.window_state
+        alive = None
+        if cfg.resilient:
+            alive = replica_alive_mask(state.inner,
+                                       max_rms=cfg.max_param_rms)
+            outer = masked_mean_axis0(state.inner, alive)
+            window_state, wa, cycle = _window_push(cfg, outer, ws,
+                                                   state.cycle)
+        elif (cfg.use_kernels and ws.kind == "ring"
+                and cfg.window_stride == 1
+                and ws.ring.dtype in wa_update.KERNEL_RING_DTYPES):
+            outer, window_state, wa, cycle = _sync_fused(cfg, state)
+        elif cfg.use_kernels and tree_leaves(state.inner):
+            # two packed launches, no unpack and re-pack of W̄ between them
+            buf = wa_update.online_mean(pack_stacked(state.inner, ws.spec))
+            outer = unpack(buf, ws.spec)
+            window_state, avg, cycle = window_push_packed(cfg, buf, ws,
+                                                          state.cycle)
+            wa = unpack(avg, ws.spec)
+        else:
+            outer = online_average(state.inner)
+            window_state, wa, cycle = _window_push(cfg, outer, ws,
+                                                   state.cycle)
+        with trace.span("hwa.sync.restart"):
+            restart_replicas(state.inner, outer)
+            if cfg.avg_opt_state:
+                opt_mean = (tree_mean_axis0(state.inner_opt)
+                            if alive is None
+                            else masked_mean_axis0(state.inner_opt, alive))
+                restart_replicas(state.inner_opt, opt_mean)
+            elif alive is not None:
+                quarantine_opt_state(state.inner_opt, alive)
+        new_state = HWAState(inner=state.inner, inner_opt=state.inner_opt,
+                             window_state=window_state, wa=wa, cycle=cycle,
+                             step=state.step)
+        metrics = {"replica_divergence": div, "cycle": cycle}
+        if alive is not None:
+            metrics["k_alive"] = alive.sum(dtype=torch.int32)
+        return new_state, metrics

@@ -13,6 +13,11 @@ grouped product is picked once per device: on a CUDA tensor one
 host sync); on the CPU a loop of ``torch.matmul`` over the groups, the
 plain version the tests hold against ``jax.lax.ragged_dot``.
 
+While a profiler runs, the dispatch and the combine are the
+``common.trace`` spans ``moe.dispatch`` and ``moe.combine``, and each
+call adds its largest and mean group to the counter
+``moe.expert_pairs``.
+
 Both the dispatch and the combine are free of atomics, so a step gives
 the same bits on every run: each token's row reaches its k pairs through
 an ``expand`` and a permutation (whose backward is a sum over k and a
@@ -39,6 +44,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import trace
 from repro_torch.models.common import activation, normal_init
 
 def init_moe(cfg, n: int, gen: torch.Generator, dtype, device):
@@ -157,29 +163,38 @@ def _moe(cfg, p, x, impl, par):
     B, S, D = x.shape
     N, k = B * S, cfg.top_k
     xf = x.reshape(N, D)
-    top_p, top_i, aux = _route(cfg, p, xf)
-    # each token's pairs in ascending expert order: the stable sort then
-    # lists a group's pairs by token, as the reference's sort does, and
-    # a token's pairs reach the combine in the order its scatter adds them
-    e_sorted, j = top_i.sort(dim=1)
-    w_sorted = top_p.gather(1, j).reshape(-1)
-    flat_e = e_sorted.reshape(-1)                               # (N*k,)
-    order = torch.argsort(flat_e, stable=True)
     split = par is not None and par.splits(cfg.expert_d_ff or cfg.d_ff)
-    xm = par.copy_to_model(xf) if split else xf
-    pairs = xm[:, None].expand(N, k, D).reshape(N * k, D)
-    counts = torch.zeros(cfg.n_experts, dtype=torch.int64, device=x.device) \
-        .scatter_add_(0, flat_e, torch.ones_like(flat_e))
-    out_sorted = expert_ffn(cfg, p, pairs[order], counts, impl)
+    with trace.span("moe.dispatch"):
+        top_p, top_i, aux = _route(cfg, p, xf)
+        # each token's pairs in ascending expert order: the stable sort
+        # then lists a group's pairs by token, as the reference's sort
+        # does, and a token's pairs reach the combine in the order its
+        # scatter adds them
+        e_sorted, j = top_i.sort(dim=1)
+        w_sorted = top_p.gather(1, j).reshape(-1)
+        flat_e = e_sorted.reshape(-1)                           # (N*k,)
+        order = torch.argsort(flat_e, stable=True)
+        xm = par.copy_to_model(xf) if split else xf
+        pairs = xm[:, None].expand(N, k, D).reshape(N * k, D)
+        counts = torch.zeros(cfg.n_experts, dtype=torch.int64,
+                             device=x.device) \
+            .scatter_add_(0, flat_e, torch.ones_like(flat_e))
+        sorted_pairs = pairs[order]
+    # the largest and the mean group, summed over the layer calls
+    trace.count("moe.expert_pairs", lambda: torch.stack(
+        (counts.max().float(), counts.float().mean())))
+    out_sorted = expert_ffn(cfg, p, sorted_pairs, counts, impl)
     if split:
         # each rank's experts hold a block of the hidden dim: the pairs'
         # outputs are partial sums, summed over ``model`` before the
         # routing weights (which every rank holds whole) scale them
         out_sorted = par.reduce_from_model(out_sorted)
-    out_sorted = out_sorted * w_sorted[order][:, None].to(out_sorted.dtype)
-    inverse = torch.empty_like(order).scatter_(
-        0, order, torch.arange(N * k, device=x.device))
-    out = _combine(out_sorted.float()[inverse].reshape(N, k, D))
+    with trace.span("moe.combine"):
+        out_sorted = out_sorted * w_sorted[order][:, None].to(
+            out_sorted.dtype)
+        inverse = torch.empty_like(order).scatter_(
+            0, order, torch.arange(N * k, device=x.device))
+        out = _combine(out_sorted.float()[inverse].reshape(N, k, D))
     if cfg.n_shared_experts:
         out = out + _shared(cfg, p, xf, par)
     return out.reshape(B, S, D).to(x.dtype), aux
